@@ -1,0 +1,31 @@
+"""Device ops on [N, ...] batches: the PyTorch counterparts of ventjax.ops.
+
+``n4_cuda`` and ``ci_cuda`` hold the CUDA kernels' wrappers and plain
+versions; the other modules are plain PyTorch.
+"""
+from ventjax_torch.ops.basic import (
+    gradient_border,
+    masked_mean,
+    masked_sorted_index,
+    masked_std,
+)
+from ventjax_torch.ops.ci_pairwise import calculate_ci_pairwise
+from ventjax_torch.ops.kmeans import vdp_kmeans
+from ventjax_torch.ops.median import median3x3_binary
+from ventjax_torch.ops.n4 import n4_bias_correction
+from ventjax_torch.ops.snr import calculate_snr
+from ventjax_torch.ops.vdp import vdp_linear_binning, vdp_mean_anchored
+
+__all__ = [
+    "gradient_border",
+    "masked_mean",
+    "masked_sorted_index",
+    "masked_std",
+    "calculate_ci_pairwise",
+    "vdp_kmeans",
+    "median3x3_binary",
+    "n4_bias_correction",
+    "calculate_snr",
+    "vdp_linear_binning",
+    "vdp_mean_anchored",
+]
