@@ -5,16 +5,31 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
 1. device: CUDA must be available; print the card's name and power limit;
-2. build: compile the CUDA kernels in ventjax_torch/csrc with nvcc;
+2. build: compile the CUDA kernels in ventjax_torch/csrc with nvcc, one
+   nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (K1/K2 relative 1e-5: the same float32 algorithm,
-   only the summation order differs; K3 bit-equal: integer counts);
-4. slice: 16 phantoms of 128x128x16 through ventjax_torch.pipeline.
-   analyze_cohort on the card (N4 pad and CI pad sized as bench.py sizes
-   them), with every kernel's launch count > 0, clean flags and finite
-   metrics; lanes 0 and 1 are held against the port's own CPU path;
-5. timing (information only): the slice's volumes/s and each kernel beside
-   its plain version, with CUDA events;
+   the main path's shapes.  Tolerances: K1/K2 relative 1e-5 (the same
+   float32 algorithm, only the summation order differs); K4 relative 1e-5
+   of the largest bin (the plain version sums with float32 atomics in
+   another order) and bit-identical from launch to launch; K5 bit-equal
+   (the same float32 operations in the same order); K3, K9, K8 bit-equal
+   (integers, and copied values);
+4. paths, each with the launch counts set to 0 just before and read just
+   after it:
+   a. the slice: 16 phantoms of 128x128x16 through ventjax_torch.pipeline.
+      analyze_cohort (N4 pad and CI pad sized as bench.py sizes them),
+      launching K1, K2, K4, K5 and K3, with clean flags and finite metrics;
+      a second run gives the same bits (N4, defect maps, CI map), and so
+      do two N4 runs with their iteration counts; lanes 0 and 1 are held
+      against the port's own CPU path;
+   b. the rank-densify CI map: calculate_ci_pairwise(pallas_densify=True)
+      launching K9 and K8, bit-equal to the slice's scatter map, and on
+      severe-load maps (K 4096) to the scatter path;
+5. timing (information only): the slice's volumes/s, the N4 and CI stages,
+   each kernel beside its plain version and the densify step beside the
+   scatter, with CUDA events; then one slice batch under torch.profiler:
+   its device kernels, device time and busy share (the table goes to
+   chiprun_out/profile_slice.txt);
 6. one JSON line of kernel records, then the result line
    {"ok": true, "device": {...}} last.
 
@@ -35,7 +50,9 @@ SHAPE = (128, 128, 16)
 VOX = (1.5, 1.5, 10.0)
 BATCH = 16
 SEED = 0
+BINS = 200           # N4 histogram bins (VentConfig default)
 KERNEL_RTOL = 1e-5   # same f32 algorithm; only the summation order differs
+LIBS = ("n4_fit", "n4_sharpen", "ci_head", "ci_densify")
 
 
 def log(*args):
@@ -78,10 +95,14 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from ventjax_torch import _build
 
     t0 = time.perf_counter()
-    for name in ("n4_fit", "ci_head"):
+    with ThreadPoolExecutor(len(LIBS)) as pool:   # one nvcc per source
+        list(pool.map(_build.build, LIBS))
+    for name in LIBS:
         _build.load(name)
     log(f"build: {time.perf_counter() - t0:.1f} s "
         + json.dumps({k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()}))
@@ -195,7 +216,84 @@ def phase_kernels(hp, mask, n4_pad, dev):
             raise AssertionError(f"K3 counts differ from the plain version "
                                  f"at K={K}")
     errs["head_counts"] = [0.0]
+    errs.update(check_sharpen(hp, mask, n4_pad, dev))
+    errs.update(check_densify(gen, dev))
     return {k: max(v) for k, v in errs.items()}
+
+
+def sharpen_inputs(hp, mask, n4_pad, dev):
+    """N4's first sharpen operands on the headline cohort: the log values,
+    weights, finest-level normaliser sv, range and slope."""
+    from ventjax_torch.ops import n4 as tn4
+
+    bv, wv, logv = fit_inputs(hp, mask, n4_pad, 11, dev)
+    sv = (bv[0] ** 2).sum(2) * (bv[1] ** 2).sum(2) * (bv[2] ** 2).sum(2)
+    bmn, bmx = tn4._masked_range(logv, wv)
+    return logv, wv, sv, bmn, (bmx - bmn) / (BINS - 1)
+
+
+def expectation(hist, bmn, slope):
+    from ventjax.config import DEFAULT_CONFIG as c
+    from ventjax_torch.ops import n4 as tn4
+
+    padded = tn4._next_pow2_padded(BINS)
+    return tn4._sharpen_expectation(hist, bmn, slope, BINS, c.n4_bias_fwhm,
+                                    c.n4_wiener_noise, padded,
+                                    (padded - BINS) // 2)
+
+
+def check_sharpen(hp, mask, n4_pad, dev):
+    """K4 and K5 against their plain versions at the slice's shapes."""
+    from ventjax_torch.ops import n4_sharpen_cuda as sc
+
+    logu, wv, sv, bmn, slope = sharpen_inputs(hp, mask, n4_pad, dev)
+    got = sc.sharpen_hist(logu, wv, bmn, slope, BINS)
+    again = sc.sharpen_hist(logu, wv, bmn, slope, BINS)
+    want = sc.sharpen_hist_plain(logu, wv, bmn, slope, BINS)
+    k4 = scaled_err(got, want)
+    same = bool(torch.equal(got, again))
+    log(f"K4 sharpen_hist N={BATCH} P={n4_pad} bins={BINS}: rel {k4:.2e} "
+        f"relaunch_bit_identical={same} mass_err "
+        f"{float((got.double().sum(1) - wv.double().sum(1)).abs().max()):.2e}")
+    if not (k4 <= KERNEL_RTOL and same):
+        raise AssertionError(f"K4 disagrees with its plain version ({k4}) "
+                             f"or is not deterministic ({same})")
+    e_loc = expectation(got, bmn, slope)
+    a = sc.sharpen_resid(logu, wv, sv, e_loc, bmn, slope, BINS)
+    a_plain = sc.sharpen_resid_plain(logu, wv, sv, e_loc, bmn, slope, BINS)
+    k5 = float((a - a_plain).abs().max())
+    log(f"K5 sharpen_resid: bit_equal={bool(torch.equal(a, a_plain))} "
+        f"max_abs {k5:.2e} finite={bool(torch.isfinite(a).all())}")
+    if not torch.equal(a, a_plain):
+        raise AssertionError(f"K5 differs from its plain version: {k5}")
+    return {"sharpen_hist": [float((got - want).abs().max())],
+            "sharpen_resid": [k5]}
+
+
+def check_densify(gen, dev):
+    """K9 and K8 bit-equal to their plain versions on severe-load maps
+    (V 262,144 at K 512 and 4096, and a ragged V)."""
+    from ventjax_torch.ops import ci_densify_cuda as cd
+
+    V = int(np.prod(SHAPE))
+    for K in (512, 4096):
+        d01 = torch.from_numpy(severe_defects(K, gen).reshape(BATCH, V)
+                               > 0).to(dev)
+        cv = torch.from_numpy(gen.random((BATCH, K)).astype(
+            np.float32)).to(dev)
+        for tag, d in (("V", d01), ("ragged V", d01[:, :V - 1234])):
+            d = d.contiguous()
+            r = cd.rank(d)
+            eq9 = bool(torch.equal(r, cd.rank_plain(d)))
+            eq8 = bool(torch.equal(cd.densify_rank(r, d, cv, K),
+                                   cd.densify_rank_plain(r, d, cv, K)))
+            log(f"K9 rank / K8 densify_rank K={K} {tag}={d.shape[1]}: "
+                f"bit_equal={eq9}/{eq8} defects/lane "
+                f"{int(d.sum(1).min())}-{int(d.sum(1).max())}")
+            if not (eq9 and eq8):
+                raise AssertionError(f"K9/K8 differ from their plain "
+                                     f"versions at K={K}, {tag}")
+    return {"rank": [0.0], "densify_rank": [0.0]}
 
 
 def severe_defects(K, gen):
@@ -224,17 +322,27 @@ def severe_coords(K, gen, dev):
                          K)[0]
 
 
-def reset_counts():
-    from ventjax_torch.ops import ci_cuda, n4, n4_cuda
+def counters():
+    from ventjax_torch.ops import (ci_cuda, ci_densify_cuda, n4, n4_cuda,
+                                   n4_sharpen_cuda)
 
-    for d in (n4_cuda.LAUNCHES, ci_cuda.LAUNCHES, n4.HOST_SYNCS):
+    return (n4_cuda.LAUNCHES, n4_sharpen_cuda.LAUNCHES, ci_cuda.LAUNCHES,
+            ci_densify_cuda.LAUNCHES, n4.HOST_SYNCS)
+
+
+def reset_counts():
+    for d in counters():
         for k in d:
             d[k] = 0
 
 
+def launch_counts():
+    return {k: v for d in counters()[:-1] for k, v in d.items()}
+
+
 def phase_slice(hp, mask, n4_pad, dev):
     from ventjax.config import DEFAULT_CONFIG
-    from ventjax_torch.ops import ci_cuda, n4, n4_cuda
+    from ventjax_torch.ops import n4
     from ventjax_torch.pipeline import analyze_cohort, build_geometry
 
     hp_d = torch.from_numpy(hp).to(dev)
@@ -258,11 +366,14 @@ def phase_slice(hp, mask, n4_pad, dev):
     reset_counts()
     res = analyze_cohort(hp_d, mask_d, geom, cfg)
     torch.cuda.synchronize()
-    launches = {**n4_cuda.LAUNCHES, **ci_cuda.LAUNCHES}
+    launches = launch_counts()
     syncs = n4.HOST_SYNCS["n4"]
-    log(f"main path launches: {json.dumps(launches)}; N4 host syncs: {syncs}")
-    if not all(v > 0 for v in launches.values()):
+    log(f"slice launches: {json.dumps(launches)}; N4 host syncs: {syncs}")
+    path = ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
+            "sharpen_resid", "head_counts")
+    if not all(launches[k] > 0 for k in path):
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    check_repeat(hp_d, mask_d, geom, cfg, res, syncs)
 
     mt = res.metrics
     flags = {"ci_overflow": bool(mt.ci_overflow.any()),
@@ -302,25 +413,113 @@ def phase_slice(hp, mask, n4_pad, dev):
     return cfg, geom, hp_d, mask_d, res, launches, syncs
 
 
-def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
-    """Slice vol/s (median of 5 synchronised runs) and each kernel's time
-    beside its plain version's, at the main path's shapes."""
-    from ventjax_torch.ops import ci_cuda, n4_cuda
-    from ventjax_torch.ops import ci_pairwise as tcp
-    from ventjax_torch.ops import n4 as tn4
+def n4_call(hp_d, mask_d, cfg, **kw):
+    """N4 on the batch with the pipeline's parameters."""
+    from ventjax_torch.ops.n4 import n4_bias_correction
+
+    return n4_bias_correction(
+        hp_d, mask_d, fitting_levels=cfg.n4_fitting_levels,
+        max_iters=cfg.n4_max_iters,
+        convergence_threshold=cfg.n4_convergence_threshold,
+        bins=cfg.n4_histogram_bins, fwhm=cfg.n4_bias_fwhm,
+        wiener_noise=cfg.n4_wiener_noise,
+        control_points=cfg.n4_control_points, mask_pad=cfg.n4_mask_pad, **kw)
+
+
+def check_repeat(hp_d, mask_d, geom, cfg, res, syncs):
+    """Determinism: a second slice run, and two N4 runs with their
+    per-lane iteration counts, give the same bits."""
+    from ventjax_torch.ops import n4
     from ventjax_torch.pipeline import analyze_cohort
 
+    n4.HOST_SYNCS["n4"] = 0
+    res2 = analyze_cohort(hp_d, mask_d, geom, cfg)
+    same = {f: bool(torch.equal(getattr(res, f), getattr(res2, f)))
+            for f in ("n4", "defect", "defect_lb", "defect_km", "ci_map")}
+    same["n4_host_syncs"] = n4.HOST_SYNCS["n4"] == syncs
+    (a, ia), (b, ib) = (n4_call(hp_d, mask_d, cfg, return_iters=True)
+                        for _ in range(2))
+    same["n4_alone"] = bool(torch.equal(a, b))
+    same["n4_iters"] = bool(torch.equal(ia, ib))
+    log(f"repeat runs bit-identical: {json.dumps(same)}; N4 iterations per "
+        f"level (lane 0): {ia[0].tolist()}, total per lane "
+        f"{ia.sum(1).tolist()}")
+    if not all(same.values()):
+        raise AssertionError(f"two runs on the card differ: {same}")
+
+
+def phase_densify(res, geom, cfg, dev):
+    """The rank-densify CI map (K9, K8) against the scatter map, on the
+    slice's defects and on severe-load maps at K 4096."""
+    from ventjax_torch.ops import ci_pairwise as tcp
+
+    K = cfg.ci_max_defect_voxels
+    torch.cuda.synchronize()
+    reset_counts()
+    ci = tcp.calculate_ci_pairwise(res.defect, geom, K, tail_k=cfg.ci_tail_k,
+                                   pallas_densify=True)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"densify path launches: {json.dumps(launches)}")
+    if not (launches["rank"] > 0 and launches["densify_rank"] > 0):
+        raise AssertionError(f"K9/K8 never launched: {launches}")
+    mt = res.metrics
+    equal = (torch.equal(ci[0], res.ci_map)
+             and torch.equal(ci[1], mt.ci_saturated)
+             and torch.equal(ci[2], mt.ci_overflow))
+    log(f"densify CI map == slice scatter map (K {K}): {equal}")
+    gen = np.random.default_rng(SEED + 1)
+    severe = torch.from_numpy(severe_defects(4096, gen)).to(dev)
+    dens = tcp.calculate_ci_pairwise(severe, geom, 4096, pallas_densify=True)
+    scat = tcp.calculate_ci_pairwise(severe, geom, 4096)
+    equal_severe = all(torch.equal(x, y) for x, y in zip(dens, scat))
+    log(f"densify == scatter on severe-load maps (K 4096): {equal_severe}; "
+        f"overflow {dens[2].tolist()}")
+    if not (equal and equal_severe):
+        raise AssertionError("the rank-densify CI map differs from the "
+                             "scatter map")
+    return {k: launches[k] for k in ("rank", "densify_rank")}
+
+
+def host_ms(fn, reps=5):
+    """Median milliseconds of reps synchronised calls, by the host clock."""
     times = []
-    for _ in range(5):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        analyze_cohort(hp_d, mask_d, geom, cfg)
+        fn()
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    med = statistics.median(times)
-    log(f"slice: median {med * 1e3:.1f} ms per batch of {BATCH} -> "
-        f"{BATCH / med:.2f} vol/s  (runs ms: "
-        f"{[round(t * 1e3, 1) for t in times]})")
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
+    """Slice vol/s (median of 5 synchronised runs), the N4 and CI stages,
+    and each kernel's time beside its plain version's, at the main path's
+    shapes."""
+    from ventjax_torch.ops import ci_cuda
+    from ventjax_torch.ops import ci_densify_cuda as cd
+    from ventjax_torch.ops import ci_pairwise as tcp
+    from ventjax_torch.ops import n4 as tn4
+    from ventjax_torch.ops import n4_cuda
+    from ventjax_torch.ops import n4_sharpen_cuda as sc
+    from ventjax_torch.pipeline import analyze_cohort
+
+    med, times = host_ms(lambda: analyze_cohort(hp_d, mask_d, geom, cfg))
+    log(f"slice: median {med:.1f} ms per batch of {BATCH} -> "
+        f"{BATCH * 1e3 / med:.2f} vol/s  (runs ms: "
+        f"{[round(t, 1) for t in times]})")
+    K = cfg.ci_max_defect_voxels
+    stages = {
+        "n4": host_ms(lambda: n4_call(hp_d, mask_d, cfg), reps=3)[0],
+        "ci_scatter": host_ms(lambda: tcp.calculate_ci_pairwise(
+            res.defect, geom, K, tail_k=cfg.ci_tail_k))[0],
+        "ci_densify": host_ms(lambda: tcp.calculate_ci_pairwise(
+            res.defect, geom, K, tail_k=cfg.ci_tail_k,
+            pallas_densify=True))[0],
+    }
+    log("stages, median ms (host clock, synchronised): "
+        + json.dumps({k: round(v, 2) for k, v in stages.items()}))
 
     bv, wv, logv = fit_inputs(hp, mask, n4_pad, 11, dev)
     r1 = [tn4._rows(b, 1) for b in bv]
@@ -337,7 +536,16 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
             cuda_ms(lambda: n4_cuda.fit_delta_conv_field_plain(
                 phi, *r1, wv, wv, logv, done))),
     }
-    coords = tcp.defect_coords(res.defect, cfg.ci_max_defect_voxels)[0]
+    logu, wv, sv, bmn, slope = sharpen_inputs(hp, mask, n4_pad, dev)
+    e_loc = expectation(sc.sharpen_hist(logu, wv, bmn, slope, BINS), bmn,
+                        slope)
+    ms["sharpen_hist"] = tuple(cuda_ms(lambda f=f: f(
+        logu, wv, bmn, slope, BINS)) for f in (sc.sharpen_hist,
+                                               sc.sharpen_hist_plain))
+    ms["sharpen_resid"] = tuple(cuda_ms(lambda f=f: f(
+        logu, wv, sv, e_loc, bmn, slope, BINS)) for f in (
+            sc.sharpen_resid, sc.sharpen_resid_plain))
+    coords, cidx, _, valid = tcp.defect_coords(res.defect, K)
     ns = min(96, geom.n_balls - 1)
     r2 = torch.as_tensor(geom.r2_32[:ns], device=dev)
     combos = tcp._alias_combos(geom)
@@ -347,9 +555,59 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
         cuda_ms(lambda: ci_cuda.head_counts_plain(coords, coords, r2, combos,
                                                   geom.scale, geom.rmax),
                 reps=5))
+    V = int(np.prod(SHAPE))
+    d01 = (res.defect != 0).reshape(BATCH, V)
+    rank = cd.rank(d01)
+    cv = torch.rand((BATCH, K), device=dev)
+    ms["rank"] = (cuda_ms(lambda: cd.rank(d01)),
+                  cuda_ms(lambda: cd.rank_plain(d01)))
+    ms["densify_rank"] = (
+        cuda_ms(lambda: cd.densify_rank(rank, d01, cv, K)),
+        cuda_ms(lambda: cd.densify_rank_plain(rank, d01, cv, K)))
     for k, (kern, plain) in ms.items():
         log(f"time {k}: kernel {kern:.4f} ms, plain {plain:.4f} ms")
+
+    def scatter():
+        flat = torch.zeros((BATCH, V + 1), device=dev)
+        flat.scatter_(1, torch.where(valid, cidx, torch.full_like(cidx, V)),
+                      cv)
+        return flat[:, :V].reshape(res.defect.shape)
+
+    dense_ms = (cuda_ms(lambda: cd.densify_rank(cd.rank(d01), d01, cv, K)),
+                cuda_ms(scatter))
+    log(f"time dense CI map (K {K}): rank+densify {dense_ms[0]:.4f} ms, "
+        f"scatter {dense_ms[1]:.4f} ms")
     return med, ms
+
+
+def phase_profile(cfg, geom, hp_d, mask_d):
+    """One slice batch under torch.profiler: device time by kernel and the
+    device's busy share of the traced span, to chiprun_out/."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ventjax_torch.pipeline import analyze_cohort
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        analyze_cohort(hp_d, mask_d, geom, cfg)
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    span_us = (max(e.time_range.end for e in events)
+               - min(e.time_range.start for e in events)) if events else 0
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=40)
+    out = Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "profile_slice.txt").write_text(table)
+    log(f"profile: {len(events)} device kernels, {busy_us / 1e3:.2f} ms "
+        f"device time in a {span_us / 1e3:.2f} ms span (busy share "
+        f"{busy_us / max(span_us, 1):.3f}); table in "
+        f"chiprun_out/profile_slice.txt")
 
 
 def main():
@@ -359,9 +617,11 @@ def main():
     max_err = phase_kernels(hp, mask, n4_pad, dev)
     cfg, geom, hp_d, mask_d, res, launches, syncs = phase_slice(
         hp, mask, n4_pad, dev)
+    launches.update(phase_densify(res, geom, cfg, dev))
     med, ms = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
                            dev)
-    log(f"summary: card={card!r} slice_vol_per_s={BATCH / med:.3f} "
+    phase_profile(cfg, geom, hp_d, mask_d)
+    log(f"summary: card={card!r} slice_vol_per_s={BATCH * 1e3 / med:.3f} "
         f"n4_host_syncs={syncs} ci_max_defect_voxels="
         f"{cfg.ci_max_defect_voxels} n4_mask_pad={n4_pad}")
     src = {
@@ -369,8 +629,16 @@ def main():
                        "ventjax/ops/n4_pallas.py:106"),
         "fit_delta_conv_field": ("ventjax_torch/csrc/n4_fit.cu",
                                  "ventjax/ops/n4_pallas.py:422"),
+        "sharpen_hist": ("ventjax_torch/csrc/n4_sharpen.cu",
+                         "ventjax/ops/n4_pallas.py:249"),
+        "sharpen_resid": ("ventjax_torch/csrc/n4_sharpen.cu",
+                          "ventjax/ops/n4_pallas.py:315"),
         "head_counts": ("ventjax_torch/csrc/ci_head.cu",
                         "ventjax/ops/ci_pallas.py:116"),
+        "rank": ("ventjax_torch/csrc/ci_densify.cu",
+                 "ventjax/ops/ci_pallas.py:305"),
+        "densify_rank": ("ventjax_torch/csrc/ci_densify.cu",
+                         "ventjax/ops/ci_pallas.py:233"),
     }
     kernels = [{"name": k, "route": "cuda", "source": s, "replaces": r,
                 "launches": launches[k], "max_abs_err": max_err[k],

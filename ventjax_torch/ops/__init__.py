@@ -1,6 +1,7 @@
 """Device ops on [N, ...] batches: the PyTorch counterparts of ventjax.ops.
 
-``n4_cuda`` and ``ci_cuda`` hold the CUDA kernels' wrappers and plain
+``n4_cuda`` (K1, K2), ``n4_sharpen_cuda`` (K4, K5), ``ci_cuda`` (K3) and
+``ci_densify_cuda`` (K9, K8) hold the CUDA kernels' wrappers and plain
 versions; the other modules are plain PyTorch.
 """
 from ventjax_torch.ops.basic import (
@@ -9,10 +10,12 @@ from ventjax_torch.ops.basic import (
     masked_sorted_index,
     masked_std,
 )
+from ventjax_torch.ops.ci_densify_cuda import densify_rank, rank
 from ventjax_torch.ops.ci_pairwise import calculate_ci_pairwise
 from ventjax_torch.ops.kmeans import vdp_kmeans
 from ventjax_torch.ops.median import median3x3_binary
 from ventjax_torch.ops.n4 import n4_bias_correction
+from ventjax_torch.ops.n4_sharpen_cuda import sharpen_hist, sharpen_resid
 from ventjax_torch.ops.snr import calculate_snr
 from ventjax_torch.ops.vdp import vdp_linear_binning, vdp_mean_anchored
 
@@ -22,9 +25,13 @@ __all__ = [
     "masked_sorted_index",
     "masked_std",
     "calculate_ci_pairwise",
+    "densify_rank",
+    "rank",
     "vdp_kmeans",
     "median3x3_binary",
     "n4_bias_correction",
+    "sharpen_hist",
+    "sharpen_resid",
     "calculate_snr",
     "vdp_linear_binning",
     "vdp_mean_anchored",

@@ -20,6 +20,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ventjax_torch import _build
+from ventjax_torch.ops._launch import check, raise_on, route, stream
 
 MAX_NS = 128
 MAX_COMBOS = 9
@@ -109,17 +110,14 @@ def head_counts(
     for w in witnesses:
         if w.shape != (N, Kw):
             raise ValueError(f"head_counts: witness shape {tuple(w.shape)}")
+    check("head_counts", *centers, *witnesses, dtype=torch.int32)
+    check("head_counts", r2)
     dev = r2.device
-    if dev.type == "cpu":
+    if centers[0].device != dev:
+        raise ValueError(f"head_counts: tensors on {centers[0].device} and "
+                         f"{dev}")
+    if not route("head_counts", r2):
         return head_counts_plain(centers, witnesses, r2, combos, scale, rmax)
-    if dev.type != "cuda":
-        raise RuntimeError(f"head_counts: no kernel for device {dev}")
-    for t in (*centers, *witnesses):
-        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
-            raise TypeError("head_counts: coordinates must be contiguous "
-                            f"int32 on {dev}")
-    if r2.dtype != torch.float32 or not r2.is_contiguous():
-        raise TypeError("head_counts: r2 must be contiguous float32")
     lib = _lib()
     out = torch.empty((N, K, ns), dtype=torch.int32, device=dev)
     flat = [int(v) for pqs in combos for v in pqs]
@@ -128,9 +126,7 @@ def head_counts(
         *(t.data_ptr() for t in (*centers, *witnesses)),
         r2.data_ptr(), out.data_ptr(), N, K, Kw, ns,
         ctypes.cast(combo_arr, ctypes.c_void_p), len(combos),
-        *(float(s) for s in scale), int(rmax),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"head_counts kernel launch failed: CUDA error {rc}")
+        *(float(s) for s in scale), int(rmax), stream(dev))
+    raise_on(rc, "head_counts")
     LAUNCHES["head_counts"] += 1
     return out

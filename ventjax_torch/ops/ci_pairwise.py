@@ -14,6 +14,9 @@ the sphere tables.  The resolve runs in two phases, as in ``ventjax``:
   kernel K3 (``ops/ci_cuda.py``; its plain version on CPU);
 - tail: rows with no head crossing are compacted (stable order) to
   ``tail_k`` lanes and finished by the full sorted-row order statistics.
+
+The dense map is a scatter, or with ``pallas_densify=True`` the rank
+lookup of kernels K9 and K8 (``ops/ci_densify_cuda.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from ventjax.oracle.ci_oracle import shell_structure, sphere_pixels
 from ventjax_torch.ops.basic import compact_mask_indices
 from ventjax_torch.ops.ci_cuda import alias_min_d2, head_counts
+from ventjax_torch.ops.ci_densify_cuda import densify_rank, rank
 
 SENT = 1 << 20   # far-away sentinel coordinate: fails every box check
 
@@ -249,11 +253,18 @@ def calculate_ci_pairwise(
     max_defect_voxels: int = 8192,
     head_balls: int = 96,
     tail_k: Optional[int] = None,
+    pallas_densify: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(CI map [N,H,W,D] mm, saturated count [N], overflow [N]) for a
     [N,H,W,D] defect batch.  Overflow = more defect voxels than the pad
     ``max_defect_voxels`` or a tail-compaction overflow (the excess rows
-    saturate; never silently wrong)."""
+    saturate; never silently wrong).
+
+    The dense map is a scatter of the K per-defect values (None or False,
+    ventjax's default), or with ``pallas_densify=True`` the rank lookup of
+    kernels K9 and K8 (``ops/ci_densify_cuda.py``), which gives the same
+    bits at any volume size (ventjax takes its kernels only where
+    V % 4096 == 0)."""
     N = defect.shape[0]
     H, W, D = geom.shape
     V = H * W * D
@@ -267,8 +278,13 @@ def calculate_ci_pairwise(
 
     saturated = (jballs >= M - 1) & valid
     cv = torch.as_tensor(geom.radii32, device=dev)[jballs] * geom.min_vox
-    ci_flat = torch.zeros((N, V + 1), dtype=torch.float32, device=dev)
-    ci_flat.scatter_(1, torch.where(valid, cidx, torch.full_like(cidx, V)),
-                     cv)
-    return (ci_flat[:, :V].reshape(N, H, W, D), saturated.sum(1),
+    if pallas_densify:
+        d01 = (defect != 0).reshape(N, V)
+        ci_flat = densify_rank(rank(d01), d01, cv, K)
+    else:
+        ci_flat = torch.zeros((N, V + 1), dtype=torch.float32, device=dev)
+        ci_flat.scatter_(
+            1, torch.where(valid, cidx, torch.full_like(cidx, V)), cv)
+        ci_flat = ci_flat[:, :V]
+    return (ci_flat.reshape(N, H, W, D), saturated.sum(1),
             (n_def > K) | tail_overflow)

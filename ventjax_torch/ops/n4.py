@@ -6,11 +6,16 @@ voxels take part in the iterations, so the loop runs on the compacted
 ``[N, P]`` masked-voxel vectors with per-voxel B-spline basis rows; the dense
 field is evaluated once at the end.
 
-Every level's B-spline fit goes through the kernels of
-``ventjax_torch.ops.n4_cuda``: the denominator through K1 once per level,
-the numerator through K1 and the iteration tail (field update, next
-residual, its range, convergence sums) through K2 on each iteration.  On
-CPU tensors they run their plain versions.
+On a card this is ventjax's ``n4_use_pallas=True`` route at every level:
+each iteration runs K4 (``sharpen_hist``) -> the expectation's FFT chain
+(plain PyTorch, as ventjax keeps it in XLA) -> K5 (``sharpen_resid``) -> K1
+(``fit_moment``, the fit numerator) -> K2 (``fit_delta_conv_field``: field
+update, next residual, its range, convergence sums), and K1 gives each
+level's denominator once.  The kernels live in ``ops/n4_sharpen_cuda.py``
+and ``ops/n4_cuda.py``; on CPU tensors they run their plain versions.
+``VentConfig.n4_use_pallas`` is not read: the port has one route, kernels on
+CUDA and plain versions on the CPU.  No step sums with float atomics, so two
+runs on one card give the same bits.
 
 Each lane iterates as if alone: a lane that has converged is frozen (its
 field, coefficients and residual stop changing) while the others go on.
@@ -28,6 +33,7 @@ import torch
 from ventjax.oracle.n4_oracle import _next_pow2_padded, bspline_basis_1d
 from ventjax_torch.ops.basic import sort_compact_masked
 from ventjax_torch.ops.n4_cuda import fit_delta_conv_field, fit_moment
+from ventjax_torch.ops.n4_sharpen_cuda import sharpen_hist, sharpen_resid
 
 LOG2 = math.log(2.0)
 # Device-to-host syncs made by the level loops since this was set to 0.
@@ -60,33 +66,7 @@ def _sharpen_expectation(hist, binmin, slope, bins, fwhm, wiener_noise,
     nz = den != 0.0
     e = torch.where(nz, num / torch.where(nz, den, torch.ones_like(den)),
                     torch.zeros_like(den))
-    return e[:, offset - 1:offset + bins + 1]
-
-
-def _sharpen_vec(logu, wv, binmin, binmax, bins, fwhm, wiener_noise, padded,
-                 offset):
-    """[N, P] histogram-sharpened log intensities (zero where wv = 0),
-    given each lane's masked range [binmin, binmax] of logu."""
-    slope = (binmax - binmin) / (bins - 1)
-    t = torch.clamp((logu - binmin[:, None]) / slope[:, None], 0.0,
-                    float(bins - 1)) * wv
-    i0f = torch.floor(t)
-    f = t - i0f
-    # The clamp only guards the index against a NaN range (no voxel
-    # weighted); every finite t already lies in [0, bins-1].
-    i0 = i0f.to(torch.int64).clamp(0, bins)
-    hist = torch.zeros((t.shape[0], bins + 2), dtype=t.dtype, device=t.device)
-    hist.scatter_add_(1, i0, wv * (1.0 - f))
-    hist.scatter_add_(1, i0 + 1, wv * f)
-    e_loc = _sharpen_expectation(hist[:, :bins], binmin, slope, bins, fwhm,
-                                 wiener_noise, padded, offset)
-    s = t + 1.0
-    j0f = torch.floor(s)
-    fs = s - j0f
-    j0 = j0f.to(torch.int64).clamp(0, bins)
-    v0 = e_loc.gather(1, j0)
-    v1 = e_loc.gather(1, j0 + 1)
-    return ((1.0 - fs) * v0 + fs * v1) * wv
+    return e[:, offset - 1:offset + bins + 1].contiguous()
 
 
 def _bspline_rows(coords, n, n_elements):
@@ -184,8 +164,7 @@ def n4_bias_correction(
         brv = _bspline_rows(hc, H, n_elements)
         bcv = _bspline_rows(wc, W, n_elements)
         bsv = _bspline_rows(sc, D, n_elements)
-        sv = ((brv ** 2).sum(2) * (bcv ** 2).sum(2)
-              * (bsv ** 2).sum(2)).clamp_min(1e-30)
+        sv = (brv ** 2).sum(2) * (bcv ** 2).sum(2) * (bsv ** 2).sum(2)
         br1, bc1, bs1 = _rows(brv, 1), _rows(bcv, 1), _rows(bsv, 1)
         br3, bc3, bs3 = _rows(brv, 3), _rows(bcv, 3), _rows(bsv, 3)
         den = fit_moment(wv, _rows(brv, 2), _rows(bcv, 2), _rows(bsv, 2))
@@ -200,18 +179,19 @@ def n4_bias_correction(
         logu = (logv - field_v) * wv
         bmn, bmx = _masked_range(logu, wv)
         for _ in range(max_iters):
-            sharpened = _sharpen_vec(logu, wv, bmn, bmx, bins, fwhm,
-                                     wiener_noise, padded, offset)
-            residual = (logu - sharpened) * wv
-            # flush sub-normals, as ventjax does
-            residual = torch.where(residual.abs() < 1e-18,
-                                   torch.zeros_like(residual), residual)
-            num = fit_moment(residual / sv, br3, bc3, bs3)
+            # one slope tensor bins every voxel for K4, the table and K5
+            slope = (bmx - bmn) / (bins - 1)
+            hist = sharpen_hist(logu, wv, bmn, slope, bins)
+            e_loc = _sharpen_expectation(hist, bmn, slope, bins, fwhm,
+                                         wiener_noise, padded, offset)
+            a = sharpen_resid(logu, wv, sv, e_loc, bmn, slope, bins)
+            num = fit_moment(a, br3, bc3, bs3)
             phi = torch.where(den_nz, num / den_safe, torch.zeros_like(num))
             field_v, logu, stats = fit_delta_conv_field(
                 phi, br1, bc1, bs1, wv, field_v, logv, done.to(torch.float32))
             s1, s2 = stats[:, 0], stats[:, 1]
-            bmn, bmx = stats[:, 2], stats[:, 3]
+            # K4 and K5 read bmn, so it must not be a strided view
+            bmn, bmx = stats[:, 2].contiguous(), stats[:, 3]
             # ITK convergence: CV of exp(-delta) over the mask, from the
             # cancellation-free (e^-delta - 1) moments.
             mu = 1.0 + s1 / nmask

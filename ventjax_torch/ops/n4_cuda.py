@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from ventjax_torch import _build
+from ventjax_torch.ops._launch import check, raise_on, route, stream
 
 MAX_NCP = 16
 # Kernel launches per wrapper since the counts were last set to 0.
@@ -59,34 +60,6 @@ def _check_rows(name, br, bc, bs):
     return br.shape
 
 
-def _check_cuda(name, *ts):
-    dev = ts[0].device
-    for t in ts:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-
-
-def _route(name, t):
-    if t.device.type == "cpu":
-        return False
-    if t.device.type == "cuda":
-        return True
-    raise RuntimeError(f"{name}: no kernel for device {t.device}")
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _raise_on(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
 # ---------------------------------------------------------------------------
 # K1: fit moment.
 
@@ -104,9 +77,9 @@ def fit_moment(a, br, bc, bs):
     if a.shape != (N, P):
         raise ValueError(f"fit_moment: a is {tuple(a.shape)}, "
                          f"expected {(N, P)}")
-    if not _route("fit_moment", a):
+    check("fit_moment", a, br, bc, bs)
+    if not route("fit_moment", a):
         return fit_moment_plain(a, br, bc, bs)
-    _check_cuda("fit_moment", a, br, bc, bs)
     lib = _lib()
     nchunk = -(-P // lib.vj_n4_chunk())
     n3 = ncp ** 3
@@ -116,8 +89,8 @@ def fit_moment(a, br, bc, bs):
     rc = lib.vj_fit_moment(
         a.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
         part.data_ptr(), out.data_ptr(), N, P, ncp, nchunk,
-        _stream(a.device))
-    _raise_on(rc, "fit_moment")
+        stream(a.device))
+    raise_on(rc, "fit_moment")
     LAUNCHES["fit_moment"] += 1
     return out
 
@@ -165,11 +138,10 @@ def fit_delta_conv_field(phi, br, bc, bs, wv, field, logv, done):
                              f", expected {(N, P)}")
     if done.shape != (N,):
         raise ValueError(f"fit_delta_conv_field: done is {tuple(done.shape)}")
-    if not _route("fit_delta_conv_field", wv):
+    check("fit_delta_conv_field", phi, br, bc, bs, wv, field, logv, done)
+    if not route("fit_delta_conv_field", wv):
         return fit_delta_conv_field_plain(phi, br, bc, bs, wv, field, logv,
                                           done)
-    _check_cuda("fit_delta_conv_field", phi, br, bc, bs, wv, field, logv,
-                done)
     lib = _lib()
     nchunk = -(-P // lib.vj_n4_chunk())
     kw = dict(device=wv.device, dtype=torch.float32)
@@ -181,7 +153,7 @@ def fit_delta_conv_field(phi, br, bc, bs, wv, field, logv, done):
         phi.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
         wv.data_ptr(), field.data_ptr(), logv.data_ptr(), done.data_ptr(),
         nf.data_ptr(), lu.data_ptr(), part.data_ptr(), stats.data_ptr(),
-        N, P, ncp, nchunk, _stream(wv.device))
-    _raise_on(rc, "fit_delta_conv_field")
+        N, P, ncp, nchunk, stream(wv.device))
+    raise_on(rc, "fit_delta_conv_field")
     LAUNCHES["fit_delta_conv_field"] += 1
     return nf, lu, stats

@@ -5,6 +5,11 @@ compaction -> N4 -> mean-anchored VDP -> linear-binning VDP -> k-means VDP
 -> pairwise CI map -> metrics.  Everything runs on the device of the input
 tensors.  A subject with an empty mask gets NaN metrics and valid=False
 without touching the other lanes.
+
+On a card, N4 runs kernels K4, K5, K1 and K2 on every iteration of every
+level and the CI head runs K3; the CI map is the scatter, ventjax's default
+(``calculate_ci_pairwise(..., pallas_densify=True)`` takes kernels K9 and
+K8 instead, with the same bits).
 """
 from __future__ import annotations
 
