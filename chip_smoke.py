@@ -8,8 +8,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the CUDA kernels in ventjax_torch/csrc with nvcc, one
    nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes.  Tolerances: K1/K2 relative 1e-5 (the same
-   float32 algorithm, only the summation order differs); K4 relative 1e-5
+   the main path's shapes.  Tolerances: K1/K2/K6/K7 relative 1e-5 (the same
+   float32 algorithm, only the summation order differs), and K7 bit-equal
+   to the flushed, weighted K6 and to K2 with done = 0 (shared code); K4
+   relative 1e-5
    of the largest bin (the plain version sums with float32 atomics in
    another order) and bit-identical from launch to launch; K5 bit-equal
    (the same float32 operations in the same order); K3, K9, K8 bit-equal
@@ -25,11 +27,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    b. the rank-densify CI map: calculate_ci_pairwise(pallas_densify=True)
       launching K9 and K8, bit-equal to the slice's scatter map, and on
       severe-load maps (K 4096) to the scatter path;
-5. timing (information only): the slice's volumes/s, the N4 and CI stages,
-   each kernel beside its plain version and the densify step beside the
-   scatter, with CUDA events; then one slice batch under torch.profiler:
-   its device kernels, device time and busy share (the table goes to
-   chiprun_out/profile_slice.txt);
+   c. the unfused B-spline fit chain (the counterpart of
+      benchmarks/n4_pallas_micro.py) on the slice's compacted voxels at
+      N4 level 3: K1 for the denominator, then 20 iterations of K1, the
+      coefficients and K6, and one K7 on the last coefficients, held
+      against the same chain through the plain versions (relative 1e-5);
+   d. the gather-ladder CI engine: analyze_cohort with ci_engine="ladder"
+      on the slice, its CI map bit-equal to the pairwise one (both are
+      exact), no stage overflow; the witness geometry that fails the
+      pairwise proof gets the ladder;
+   e. the cohort driver: run_cohort on 32 synthetic DICOM studies of
+      128x128x16 (two batches of 16; one severe study that overflows the
+      first CI pad and is retried) and one entry that does not decode;
+      every export written, metrics of the first 16 within 0.1 pp of
+      analyze_cohort on the same volumes, and a second run resumes every
+      subject without a kernel launch;
+5. timing (information only): the slice's volumes/s, the N4 and CI stages
+   (pairwise, densify, ladder), each kernel beside its plain version and
+   the densify step beside the scatter, with CUDA events, the fit chain's
+   iterations, the cohort's subjects/s; then one slice batch under
+   torch.profiler: its device kernels, device time and busy share (the
+   table goes to chiprun_out/profile_slice.txt);
 6. one JSON line of kernel records, then the result line
    {"ok": true, "device": {...}} last.
 
@@ -196,6 +214,9 @@ def phase_kernels(hp, mask, n4_pad, dev):
         if bad or not frozen:
             raise AssertionError(f"K1/K2 disagree with their plain versions "
                                  f"at ncp={ncp}: {bad} frozen={frozen}")
+        if ncp == 11:        # the finest level: K6 and K7's shapes
+            for k, v in check_fit_delta(phi, r1, wv, logv, s_scale).items():
+                errs.setdefault(k, []).append(v)
 
     from ventjax_torch.ops import ci_pairwise as tcp
 
@@ -219,6 +240,37 @@ def phase_kernels(hp, mask, n4_pad, dev):
     errs.update(check_sharpen(hp, mask, n4_pad, dev))
     errs.update(check_densify(gen, dev))
     return {k: max(v) for k, v in errs.items()}
+
+
+def check_fit_delta(phi, r1, wv, logv, s_scale):
+    """K6 and K7 against their plain versions, and K7 bit-equal to the
+    flushed, weighted K6 and to K2's delta and sums with done = 0."""
+    from ventjax_torch.ops import n4_cuda
+
+    raw = n4_cuda.fit_delta(phi, *r1)
+    raw_p = n4_cuda.fit_delta_plain(phi, *r1)
+    d, st = n4_cuda.fit_delta_conv(phi, *r1, wv)
+    d_p, st_p = n4_cuda.fit_delta_conv_plain(phi, *r1, wv)
+    rel = {"K6": scaled_err(raw, raw_p), "K7_d": scaled_err(d, d_p),
+           "K7_s1": float(((st[:, 0] - st_p[:, 0]).abs() / s_scale).max()),
+           "K7_s2": float(((st[:, 1] - st_p[:, 1]).abs()
+                           / st_p[:, 1].abs()).max())}
+    flushed = torch.where(raw.abs() < 1e-18, torch.zeros_like(raw), raw) * wv
+    zero = torch.zeros_like(wv)
+    nf, _, k2 = n4_cuda.fit_delta_conv_field(
+        phi, *r1, wv, zero, logv, torch.zeros(wv.shape[0], device=wv.device))
+    same = {"K7_d_eq_flush_K6_wv": bool(torch.equal(d, flushed)),
+            "K7_d_eq_K2": bool(torch.equal(d, nf)),
+            "K7_s_eq_K2": bool(torch.equal(st, k2[:, :2]))}
+    log(f"K6 fit_delta / K7 fit_delta_conv ncp=11 N={wv.shape[0]} "
+        f"P={wv.shape[1]}: " + json.dumps({k: f"{v:.2e}"
+                                           for k, v in rel.items()})
+        + " " + json.dumps(same))
+    bad = {k: v for k, v in rel.items() if not v <= KERNEL_RTOL}
+    if bad or not all(same.values()):
+        raise AssertionError(f"K6/K7 disagree: {bad} {same}")
+    return {"fit_delta": float((raw - raw_p).abs().max()),
+            "fit_delta_conv": float((d - d_p).abs().max())}
 
 
 def sharpen_inputs(hp, mask, n4_pad, dev):
@@ -481,6 +533,249 @@ def phase_densify(res, geom, cfg, dev):
     return {k: launches[k] for k in ("rank", "densify_rank")}
 
 
+FIT_LEVEL = 3       # N4's finest level at the defaults: ncp = 2**3 + 3
+FIT_ITERS = 20
+
+
+def fit_chain(moment, delta, wv, rows, r, iters=FIT_ITERS):
+    """The unfused B-spline fit loop of benchmarks/n4_pallas_micro.py from
+    the residual r: den = moment(wv, rows^2); per iteration num =
+    moment(r, rows^3), phi = num / den, delta = B phi, r -= 1e-6 delta wv.
+    Returns the last residual, delta and phi."""
+    r1, r2, r3 = rows
+    den = moment(wv, *r2)
+    for _ in range(iters):
+        num = moment(r, *r3)
+        phi = torch.where(den != 0.0,
+                          num / torch.where(den != 0.0, den,
+                                            torch.ones_like(den)),
+                          torch.zeros_like(den))
+        d = delta(phi, *r1)
+        r = r - 1e-6 * d * wv
+    return r, d, phi
+
+
+def phase_fit_chain(hp, mask, n4_pad, dev):
+    """Path c: the unfused fit chain through K1 and K6 (and one K7), held
+    against the same chain through the plain versions."""
+    from ventjax_torch.ops import n4 as tn4
+    from ventjax_torch.ops import n4_cuda
+
+    ncp = 2 ** FIT_LEVEL + 3
+    bv, wv, logv = fit_inputs(hp, mask, n4_pad, ncp, dev)
+    rows = tuple([tn4._rows(b, k) for b in bv] for k in (1, 2, 3))
+    torch.cuda.synchronize()
+    reset_counts()
+    r, d, phi = fit_chain(n4_cuda.fit_moment, n4_cuda.fit_delta, wv, rows,
+                          logv)
+    dc, stats = n4_cuda.fit_delta_conv(phi, *rows[0], wv)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"fit chain launches (level {FIT_LEVEL}, ncp {ncp}, {FIT_ITERS} "
+        f"iterations): {json.dumps(launches)}")
+    want = {"fit_moment": FIT_ITERS + 1, "fit_delta": FIT_ITERS,
+            "fit_delta_conv": 1}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"fit chain launches {launches}, want {want}")
+    r_p, d_p, phi_p = fit_chain(n4_cuda.fit_moment_plain,
+                                n4_cuda.fit_delta_plain, wv, rows, logv)
+    dc_p, _ = n4_cuda.fit_delta_conv_plain(phi_p, *rows[0], wv)
+    rel = {"residual": scaled_err(r, r_p), "delta": scaled_err(d, d_p),
+           "phi": scaled_err(phi, phi_p), "K7_d": scaled_err(dc, dc_p)}
+    finite = bool(torch.isfinite(r).all() and torch.isfinite(stats).all())
+    log(f"fit chain vs plain chain: "
+        + json.dumps({k: f"{v:.2e}" for k, v in rel.items()})
+        + f" finite={finite}")
+    if not finite or not all(v <= KERNEL_RTOL for v in rel.values()):
+        raise AssertionError(f"the fit chain differs from its plain chain: "
+                             f"{rel} finite={finite}")
+    ms = {"kernels": cuda_ms(lambda: fit_chain(
+        n4_cuda.fit_moment, n4_cuda.fit_delta, wv, rows, logv), reps=3),
+          "plain": cuda_ms(lambda: fit_chain(
+              n4_cuda.fit_moment_plain, n4_cuda.fit_delta_plain, wv, rows,
+              logv), reps=3)}
+    log(f"time fit chain per iteration (N {BATCH}, P {n4_pad}): kernels "
+        f"{ms['kernels'] / FIT_ITERS:.4f} ms, plain "
+        f"{ms['plain'] / FIT_ITERS:.4f} ms")
+    return {k: launches[k] for k in ("fit_delta", "fit_delta_conv")}
+
+
+def phase_ladder(cfg, res, hp_d, mask_d):
+    """Path d: the gather-ladder CI engine through analyze_cohort, bit-equal
+    to the pairwise map; the witness geometry falls back to it."""
+    from ventjax_torch.ops.ci import CIGeometry, calculate_ci_staged
+    from ventjax_torch.pipeline import analyze_cohort, build_geometry
+
+    lcfg = cfg.replace(ci_engine="ladder")
+    lgeom = build_geometry(VOX, SHAPE, lcfg)
+    witness = build_geometry((3.125, 3.125, 15.0), (32, 32, 6),
+                             cfg.replace(ci_rmax=20))
+    torch.cuda.synchronize()
+    reset_counts()
+    lad = analyze_cohort(hp_d, mask_d, lgeom, lcfg)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"ladder path launches: {json.dumps(launches)}")
+    _, _, _, stage_ovf = calculate_ci_staged(res.defect, lgeom,
+                                             cfg.ci_max_defect_voxels)
+    mt = lad.metrics
+    checks = {
+        "ladder_geometry": isinstance(lgeom, CIGeometry),
+        "witness_falls_back": isinstance(witness, CIGeometry),
+        "defect_equal": bool(torch.equal(lad.defect, res.defect)),
+        "ci_map_equal_pairwise": bool(torch.equal(lad.ci_map, res.ci_map)),
+        "ci_equal": bool(torch.equal(mt.ci, res.metrics.ci)),
+        "flags_clean": not bool(mt.ci_overflow.any()
+                                or mt.n4_overflow.any()) and bool(
+                                    mt.valid.all()),
+        "stage_overflow_0": int(stage_ovf.max()) == 0,
+        "n4_kernels_launched": all(launches[k] > 0 for k in (
+            "fit_moment", "fit_delta_conv_field", "sharpen_hist",
+            "sharpen_resid")),
+    }
+    log(f"ladder CI engine on the slice: {json.dumps(checks)}")
+    if not all(checks.values()):
+        raise AssertionError(f"the ladder path failed: {checks}")
+    return lgeom
+
+
+COHORT_STUDIES = 32
+COHORT_BATCH = 16
+
+
+def write_cohort(root):
+    """COHORT_STUDIES synthetic DICOM studies of SHAPE (study 3 severe:
+    more defect voxels than the first CI pad) and an entry whose files do
+    not exist; returns the manifest."""
+    import os
+
+    from ventjax.io.phantom import make_phantom
+    from ventjax.io.synthetic import write_study
+
+    manifest = []
+    for i in range(COHORT_STUDIES):
+        kw = dict(n_defects=6, defect_radius_vox=(6.0, 8.0, 10.0)) \
+            if i == 3 else {}
+        ph = make_phantom(shape=SHAPE, vox=VOX, seed=SEED + i, **kw)
+        sdir = os.path.join(root, f"study{i:02d}")
+        write_study(sdir, phantom=ph, with_proton=False)
+        manifest.append({"id": f"s{i:02d}", "xenon": f"{sdir}/xenon.dcm",
+                         "mask": f"{sdir}/mask"})
+    manifest.insert(5, {"id": "broken", "xenon": f"{root}/none/xenon.dcm",
+                        "mask": f"{root}/none/mask"})
+    return manifest
+
+
+def phase_cohort(dev):
+    """Path e: the cohort driver at full width, its exports, the retry of
+    the severe study, agreement with analyze_cohort, and a resume."""
+    import os
+    import tempfile
+
+    from ventjax.io import native
+    from ventjax.io.nifti import load as nifti_load
+    from ventjax_torch.pipeline import analyze_cohort, build_geometry
+    from ventjax_torch.pipeline import cohort as tc
+
+    native.available()      # build the native DICOM decoder before timing
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        manifest = write_cohort(root)
+        log(f"cohort: wrote {COHORT_STUDIES} studies of {SHAPE} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out = os.path.join(root, "out")
+        runners = {}
+        analysis_s = []
+        dispatch = tc._GeometryRunner.dispatch
+
+        def timed_dispatch(self, batch):
+            t = time.perf_counter()
+            pack = dispatch(self, batch)
+            torch.cuda.synchronize()
+            analysis_s.append(time.perf_counter() - t)
+            return pack
+
+        tc._GeometryRunner.dispatch = timed_dispatch
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            results = tc.run_cohort(manifest, out, batch_size=COHORT_BATCH,
+                                    runners=runners)
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+        finally:
+            tc._GeometryRunner.dispatch = dispatch
+        (runner,) = runners.values()
+        by_id = {r["id"]: r for r in results}
+        ids = [e["id"] for e in manifest if e["id"] != "broken"]
+        exported = all(all(os.path.exists(os.path.join(out, s, f)) for f in (
+            ".done", "metrics.json", f"{s}_dataArray.nii")) for s in ids)
+        checks = {
+            "exports_written": exported,
+            "all_valid_clean": all(
+                by_id[s]["valid"] and not by_id[s]["CI_overflow"]
+                and not by_id[s]["N4_overflow"] for s in ids),
+            "decode_failed": by_id["broken"].get("error") == "decode_failed",
+            "severe_retried": runner.ci_bucket > 512
+            and len(analysis_s) > COHORT_STUDIES // COHORT_BATCH,
+            "device": runner.device.type == "cuda",
+            "kernels_launched": all(launches[k] > 0 for k in (
+                "fit_moment", "fit_delta_conv_field", "sharpen_hist",
+                "sharpen_resid", "head_counts")),
+        }
+        log(f"cohort launches: {json.dumps(launches)}; final pads ci "
+            f"{runner.ci_bucket} n4 {runner.n4_bucket}; batches run "
+            f"{len(analysis_s)}")
+
+        # the first 16 against analyze_cohort on the same decoded volumes
+        first = ids[:COHORT_BATCH]
+        dec = [tc._decode_subject(e) for e in manifest if e["id"] in first]
+        cfg = runner.config.replace(ci_max_defect_voxels=runner.ci_bucket,
+                                    n4_mask_pad=runner.n4_bucket)
+        direct = analyze_cohort(
+            torch.from_numpy(np.stack([d[0].astype(np.float32)
+                                       for d in dec])).to(dev),
+            torch.from_numpy(np.stack([d[1] for d in dec])).to(dev),
+            build_geometry(VOX, SHAPE, cfg), cfg)
+        dvdp, ci_ok = 0.0, True
+        for i, s in enumerate(first):
+            for key, name in (("VDP", "vdp"), ("VDP_lb", "vdp_lb"),
+                              ("VDP_km", "vdp_km")):
+                dvdp = max(dvdp, abs(by_id[s][key] - float(
+                    getattr(direct.metrics, name)[i])))
+            data = nifti_load(os.path.join(out, s, f"{s}_dataArray.nii"))[0]
+            defect = torch.from_numpy(np.ascontiguousarray(data[..., 4]))
+            if torch.equal(defect, direct.defect[i].cpu()):
+                ci_ok &= bool(np.array_equal(data[..., 5],
+                                             direct.ci_map[i].cpu().numpy()))
+        checks["first16_dvdp_lt_0.1"] = dvdp < 0.1
+        checks["first16_ci_equal"] = ci_ok
+        log(f"cohort vs analyze_cohort, first {COHORT_BATCH}: max |dVDP| "
+            f"{dvdp:.3e} pp, CI maps equal where defects agree: {ci_ok}")
+
+        reset_counts()
+        t0 = time.perf_counter()
+        again = tc.run_cohort(manifest, out, batch_size=COHORT_BATCH)
+        resume_s = time.perf_counter() - t0
+        resumed = launch_counts()
+        checks["resume_no_launch"] = not any(resumed.values())
+        checks["resume_all"] = len(again) == len(manifest) and all(
+            r.get("error") == "decode_failed" or r["id"] in ids
+            for r in again)
+        log(f"cohort checks: {json.dumps(checks)}")
+        if not all(checks.values()):
+            raise AssertionError(f"the cohort path failed: {checks}")
+        rate = COHORT_STUDIES / wall
+        share = sum(analysis_s) / wall
+        log(f"time cohort: {wall:.2f} s for {COHORT_STUDIES} subjects -> "
+            f"{rate:.2f} subjects/s end to end (decode, analysis, export); "
+            f"analysis {sum(analysis_s):.2f} s, share {share:.3f} (batches "
+            f"s: {[round(t, 3) for t in analysis_s]}); resume {resume_s:.2f}"
+            f" s")
+    return rate
+
+
 def host_ms(fn, reps=5):
     """Median milliseconds of reps synchronised calls, by the host clock."""
     times = []
@@ -510,6 +805,10 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
         f"{BATCH * 1e3 / med:.2f} vol/s  (runs ms: "
         f"{[round(t, 1) for t in times]})")
     K = cfg.ci_max_defect_voxels
+    from ventjax_torch.ops.ci import calculate_ci_staged
+    from ventjax_torch.pipeline import build_geometry
+
+    lgeom = build_geometry(VOX, SHAPE, cfg.replace(ci_engine="ladder"))
     stages = {
         "n4": host_ms(lambda: n4_call(hp_d, mask_d, cfg), reps=3)[0],
         "ci_scatter": host_ms(lambda: tcp.calculate_ci_pairwise(
@@ -517,6 +816,8 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
         "ci_densify": host_ms(lambda: tcp.calculate_ci_pairwise(
             res.defect, geom, K, tail_k=cfg.ci_tail_k,
             pallas_densify=True))[0],
+        "ci_ladder": host_ms(lambda: calculate_ci_staged(
+            res.defect, lgeom, K))[0],
     }
     log("stages, median ms (host clock, synchronised): "
         + json.dumps({k: round(v, 2) for k, v in stages.items()}))
@@ -535,6 +836,11 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
                 phi, *r1, wv, wv, logv, done)),
             cuda_ms(lambda: n4_cuda.fit_delta_conv_field_plain(
                 phi, *r1, wv, wv, logv, done))),
+        "fit_delta": (cuda_ms(lambda: n4_cuda.fit_delta(phi, *r1)),
+                      cuda_ms(lambda: n4_cuda.fit_delta_plain(phi, *r1))),
+        "fit_delta_conv": (
+            cuda_ms(lambda: n4_cuda.fit_delta_conv(phi, *r1, wv)),
+            cuda_ms(lambda: n4_cuda.fit_delta_conv_plain(phi, *r1, wv))),
     }
     logu, wv, sv, bmn, slope = sharpen_inputs(hp, mask, n4_pad, dev)
     e_loc = expectation(sc.sharpen_hist(logu, wv, bmn, slope, BINS), bmn,
@@ -618,17 +924,25 @@ def main():
     cfg, geom, hp_d, mask_d, res, launches, syncs = phase_slice(
         hp, mask, n4_pad, dev)
     launches.update(phase_densify(res, geom, cfg, dev))
+    launches.update(phase_fit_chain(hp, mask, n4_pad, dev))
+    phase_ladder(cfg, res, hp_d, mask_d)
+    rate = phase_cohort(dev)
     med, ms = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
                            dev)
     phase_profile(cfg, geom, hp_d, mask_d)
     log(f"summary: card={card!r} slice_vol_per_s={BATCH * 1e3 / med:.3f} "
-        f"n4_host_syncs={syncs} ci_max_defect_voxels="
-        f"{cfg.ci_max_defect_voxels} n4_mask_pad={n4_pad}")
+        f"cohort_subjects_per_s={rate:.3f} n4_host_syncs={syncs} "
+        f"ci_max_defect_voxels={cfg.ci_max_defect_voxels} "
+        f"n4_mask_pad={n4_pad}")
     src = {
         "fit_moment": ("ventjax_torch/csrc/n4_fit.cu",
                        "ventjax/ops/n4_pallas.py:106"),
         "fit_delta_conv_field": ("ventjax_torch/csrc/n4_fit.cu",
                                  "ventjax/ops/n4_pallas.py:422"),
+        "fit_delta": ("ventjax_torch/csrc/n4_fit.cu",
+                      "ventjax/ops/n4_pallas.py:148"),
+        "fit_delta_conv": ("ventjax_torch/csrc/n4_fit.cu",
+                           "ventjax/ops/n4_pallas.py:471"),
         "sharpen_hist": ("ventjax_torch/csrc/n4_sharpen.cu",
                          "ventjax/ops/n4_pallas.py:249"),
         "sharpen_resid": ("ventjax_torch/csrc/n4_sharpen.cu",

@@ -15,13 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from ventjax.config import DEFAULT_CONFIG
 from ventjax.ops import ci_pairwise as jcp
 from ventjax.ops.ci_pallas import head_counts_pallas
 from ventjax.oracle.ci_oracle import calculate_ci_oracle
 from ventjax_torch.ops import ci_pairwise as tcp
 from ventjax_torch.ops.ci_cuda import head_counts
-from ventjax_torch.pipeline.analyze import build_geometry
 
 torch.set_num_threads(2)
 
@@ -60,14 +58,6 @@ def test_geometry_equals_ventjax(vox, shape, rmax, border):
         np.testing.assert_array_equal(thr, np.asarray(jthr))
         np.testing.assert_array_equal(j_lo, np.asarray(jj_lo))
         assert j_cap == jj_cap
-
-
-def test_build_geometry_raises_where_pairwise_proof_fails():
-    cfg = DEFAULT_CONFIG.replace(ci_rmax=16)
-    with pytest.raises(NotImplementedError, match="ventjax/ops/ci.py"):
-        build_geometry((3.125, 3.125, 15.0), SHAPE, cfg)
-    with pytest.raises(NotImplementedError, match="ladder"):
-        build_geometry(VOX, SHAPE, cfg.replace(ci_engine="ladder"))
 
 
 @pytest.mark.parametrize("border", ["wrap", "pad"])

@@ -7,12 +7,15 @@ an NVIDIA GPU and nvcc, from the repository root:
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX; this file
-imports no JAX.)  Tolerances: K1/K2 relative 1e-5 of each output's largest
-magnitude, the same float32 algorithm in another summation order; K4
+imports no JAX.)  Tolerances: K1/K2/K6/K7 relative 1e-5 of each output's
+largest magnitude, the same float32 algorithm in another summation order
+(and K7 bit-equal to K2 with done = 0 and to the flushed, weighted K6: they
+share their code); K4
 relative 1e-5 of the largest bin against its plain version, whose float32
 atomics sum in another order (the kernel's fixed-point sum is nearer the
 exact one), and bit-identical from launch to launch; K5 bit-equal, the same
-float32 operations in the same order; K3, K8, K9 and the CI map bit-equal.
+float32 operations in the same order; K3, K8, K9 and the CI maps of both
+engines bit-equal.
 """
 import numpy as np
 import pytest
@@ -20,11 +23,14 @@ import torch
 
 from ventjax.config import DEFAULT_CONFIG
 from ventjax.io.phantom import make_cohort
+from ventjax_torch.ops import ci as tci
 from ventjax_torch.ops import ci_cuda, ci_densify_cuda, n4_cuda
 from ventjax_torch.ops import ci_pairwise as tcp
 from ventjax_torch.ops import n4 as tn4
 from ventjax_torch.ops import n4_sharpen_cuda as sc
-from ventjax_torch.pipeline import analyze_cohort, build_geometry
+from ventjax_torch.pipeline import (
+    analyze_cohort, analyze_cohort_grouped, build_geometry,
+)
 
 pytestmark = pytest.mark.cuda
 RTOL = 1e-5
@@ -72,6 +78,30 @@ def test_fit_kernels_every_ncp(cuda, ncp):
     assert torch.equal(got[0][1], field[1])     # the frozen lane
 
 
+@pytest.mark.parametrize("ncp", list(range(1, n4_cuda.MAX_NCP + 1)))
+def test_fit_delta_kernels_every_ncp(cuda, ncp):
+    """K6 and K7 against their plain versions, and against K2 (done = 0)
+    and each other bit for bit."""
+    gen = np.random.default_rng(100 + ncp)
+    N, P = 3, 5000
+    rows = _rows(ncp, N, P, gen, cuda)
+    phi = torch.from_numpy(gen.random((N, ncp, ncp * ncp)).astype(
+        np.float32)).to(cuda) * 0.01
+    wv = (torch.arange(P, device=cuda)[None] < P - 100).float().expand(
+        N, P).contiguous()
+    raw = n4_cuda.fit_delta(phi, *rows)
+    assert _err(raw, n4_cuda.fit_delta_plain(phi, *rows)) < RTOL
+    d, stats = n4_cuda.fit_delta_conv(phi, *rows, wv)
+    dp, sp = n4_cuda.fit_delta_conv_plain(phi, *rows, wv)
+    assert _err(d, dp) < RTOL and _err(stats, sp) < RTOL
+    flushed = torch.where(raw.abs() < 1e-18, torch.zeros_like(raw), raw)
+    assert torch.equal(flushed * wv, d)
+    zero = torch.zeros((N, P), device=cuda)
+    nf, _, k2 = n4_cuda.fit_delta_conv_field(
+        phi, *rows, wv, zero, torch.ones_like(wv), torch.zeros(N, device=cuda))
+    assert torch.equal(nf, d) and torch.equal(k2[:, :2], stats)
+
+
 @pytest.mark.parametrize("border", ["wrap", "pad"])
 @pytest.mark.parametrize("K,Kw", [(100, 100), (777, 1300)])
 def test_head_counts_bit_equal(cuda, border, K, Kw):
@@ -106,7 +136,11 @@ def test_cohort_on_card_matches_cpu(cuda):
                          torch.from_numpy(mask).to(cuda), geom, cfg)
     cpu = analyze_cohort(torch.from_numpy(hp), torch.from_numpy(mask), geom,
                          cfg)
-    assert all(v > 0 for d in counts for v in d.values())
+    launched = {k: v for d in counts for k, v in d.items()}
+    # the pipeline's kernels (K6 and K7 belong to the unfused fit chain)
+    for k in ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
+              "sharpen_resid", "head_counts"):
+        assert launched[k] > 0, k
     for name in ("vdp", "vdp_lb", "vdp_km"):
         d = (getattr(gpu.metrics, name).cpu() - getattr(cpu.metrics, name))
         assert float(d.abs().max()) < 0.1, name
@@ -184,3 +218,89 @@ def test_n4_deterministic_on_card(cuda):
     assert sc.LAUNCHES["sharpen_resid"] == sc.LAUNCHES["sharpen_hist"]
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("vox,shape,rmax", [
+    ((1.5, 1.5, 10.0), (64, 64, 8), 50),
+    ((3.125, 3.125, 15.0), (32, 32, 6), 20),
+])
+def test_ladder_ci_on_card_bit_equal_cpu(cuda, vox, shape, rmax):
+    """The gather-ladder and flat CI engines give the CPU's bits on the
+    card (exact float32 counts, one division)."""
+    gen = np.random.default_rng(rmax)
+    d = (gen.random((3,) + shape) > 0.93).astype(np.float32)
+    d[2] = 0.0                                       # an empty lane
+    geom = tci.build_ci_geometry(vox, shape, rmax, "wrap")
+    for fn in (tci.calculate_ci_staged, tci.calculate_ci):
+        got = fn(torch.from_numpy(d).to(cuda), geom, 1024)
+        want = fn(torch.from_numpy(d), geom, 1024)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), fn.__name__
+
+
+def test_ladder_engine_through_pipeline_on_card(cuda):
+    """ci_engine="ladder" on the card: the pairwise engine's CI map."""
+    shape, vox = (64, 64, 8), (1.5, 1.5, 10.0)
+    cfg = DEFAULT_CONFIG.replace(ci_max_defect_voxels=1024, n4_mask_pad=8192)
+    hp, mask, _ = make_cohort(2, shape, vox, seed=4)
+    h, m = torch.from_numpy(hp).to(cuda), torch.from_numpy(mask).to(cuda)
+    pair = analyze_cohort(h, m, build_geometry(vox, shape, cfg), cfg)
+    lcfg = cfg.replace(ci_engine="ladder")
+    lgeom = build_geometry(vox, shape, lcfg)
+    assert isinstance(lgeom, tci.CIGeometry)
+    lad = analyze_cohort(h, m, lgeom, lcfg)
+    assert torch.equal(lad.defect, pair.defect)
+    assert torch.equal(lad.ci_map, pair.ci_map)
+    assert not bool(lad.metrics.ci_overflow.any())
+
+
+def test_run_cohort_on_card(cuda, tmp_path):
+    """The cohort driver on the card: every subject exported, metrics
+    within 0.1 pp of the same driver on the CPU."""
+    from ventjax.io.synthetic import write_study
+    from ventjax_torch.pipeline import cohort as tc
+
+    manifest = []
+    for i in range(3):
+        root = str(tmp_path / f"s{i}")
+        write_study(root, shape=(64, 64, 8), seed=70 + i, with_proton=False)
+        manifest.append({"id": f"s{i}", "xenon": f"{root}/xenon.dcm",
+                         "mask": f"{root}/mask"})
+    runners = {}
+    gpu = tc.run_cohort(manifest, str(tmp_path / "gpu"), batch_size=2,
+                        runners=runners)
+    assert next(iter(runners.values())).device.type == "cuda"
+    cpu_runners = {}
+    for geo in runners:
+        cpu_runners[geo] = tc._GeometryRunner(geo[0], geo[1], DEFAULT_CONFIG,
+                                              2, device="cpu")
+    cpu = tc.run_cohort(manifest, str(tmp_path / "cpu"), batch_size=2,
+                        runners=cpu_runners)
+    g = {r["id"]: r for r in gpu}
+    for r in cpu:
+        assert g[r["id"]]["valid"] and not g[r["id"]]["CI_overflow"]
+        for k in ("VDP", "VDP_lb", "VDP_km"):
+            assert abs(g[r["id"]][k] - r[k]) < 0.1, k
+        assert (tmp_path / "gpu" / r["id"] / ".done").exists()
+
+
+def test_grouped_on_card_within_pipeline_tolerances(cuda):
+    """Groups of 2 against one batch of 4 on the card.  Everything inside
+    N4's loop keeps its bits (lanes are independent there), but the dense
+    field's last einsum is a cuBLAS float32 GEMM whose shape grows with the
+    batch, and cuBLAS may pick another kernel for it: the N4 image may then
+    differ by about one float32 rounding.  The pipeline's tolerances hold:
+    defect maps equal, |dVDP| < 0.1 pp."""
+    shape, vox = (64, 64, 8), (1.5, 1.5, 10.0)
+    cfg = DEFAULT_CONFIG.replace(ci_max_defect_voxels=1024, n4_mask_pad=8192)
+    hp, mask, _ = make_cohort(4, shape, vox, seed=6)
+    h, m = torch.from_numpy(hp).to(cuda), torch.from_numpy(mask).to(cuda)
+    geom = build_geometry(vox, shape, cfg)
+    whole = analyze_cohort(h, m, geom, cfg)
+    grouped = analyze_cohort_grouped(h, m, geom, cfg, group_size=2)
+    for f in ("defect", "defect_lb", "defect_km"):
+        assert torch.equal(getattr(grouped, f), getattr(whole, f)), f
+    for name in ("vdp", "vdp_lb", "vdp_km"):
+        d = getattr(grouped.metrics, name) - getattr(whole.metrics, name)
+        assert float(d.abs().max()) < 0.1, name
+    assert _err(grouped.n4, whole.n4) < RTOL

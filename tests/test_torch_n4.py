@@ -1,8 +1,8 @@
 """ventjax_torch N4 (ops/n4.py, ops/n4_cuda.py) against ventjax and the
 float64 oracle.
 
-K1 (fit_moment) and K2 (fit_delta_conv_field) run here as their plain
-float32 versions and are held against ventjax's Pallas kernels in interpret
+K1 (fit_moment), K2 (fit_delta_conv_field), K6 (fit_delta) and K7
+(fit_delta_conv) run here as their plain float32 versions and are held against ventjax's Pallas kernels in interpret
 mode, and against the same sums in float64.  The Pallas kernels feed bf16
 operands to the contraction (a TPU matrix-unit choice): every term of a
 moment carries four bf16 roundings (a*br, bc, bs and bc*bs), every term of
@@ -132,6 +132,68 @@ def test_fit_delta_conv_field_plain_matches_pallas(ncp, done):
         np.testing.assert_array_equal(nf[0].numpy(), field)
 
 
+def _delta_inputs(ncp, seed):
+    """Basis rows, weights and a smooth fitted lattice (positive
+    coefficients of one scale), padded for the Pallas kernels too."""
+    rng, rows_t, rows_j, wv = _fit_inputs(ncp, seed=seed)
+    phi = (0.05 * (1.0 + 0.2 * rng.normal(size=(ncp, ncp * ncp)))).astype(
+        np.float32)
+    phi_pad = np.zeros((jp.CP, jp.FP), np.float32)
+    phi_pad[:ncp, :ncp * ncp] = phi
+    rows_t1 = [tn4._rows(r, 1) for r in rows_t]
+    rows_j1 = [jp.basis_rows_padded(r, 1) for r in rows_j]
+    f64 = np.einsum("cde,pc,pd,pe->p", phi.reshape(ncp, ncp, ncp).astype(
+        np.float64), *(r[0].numpy().astype(np.float64) for r in rows_t))
+    return rng, phi, jnp.asarray(phi_pad), rows_t1, rows_j1, wv, f64
+
+
+@pytest.mark.parametrize("ncp", [4, 11])
+def test_fit_delta_plain_matches_pallas(ncp):
+    """K6: the raw delta at every voxel, padding included."""
+    _, phi, phi_pad, rows_t1, rows_j1, wv, f64 = _delta_inputs(ncp, seed=2)
+    want = jp.fit_delta_pallas(phi_pad, *rows_j1, ncp, interpret=True)
+    got = n4_cuda.fit_delta(torch.from_numpy(phi)[None], *rows_t1)
+    assert got.shape == (1, wv.shape[0])
+    assert _scaled_err(got[0], want) < DELTA_ENVELOPE
+    assert _scaled_err(got[0], f64) < 1e-5
+
+
+@pytest.mark.parametrize("ncp", [4, 11])
+def test_fit_delta_conv_plain_matches_pallas(ncp):
+    """K7 against its Pallas kernel and float64; and against the shared
+    code of K6 and K2, bit for bit."""
+    rng, phi, phi_pad, rows_t1, rows_j1, wv, f64 = _delta_inputs(ncp, seed=3)
+    jd, js1, js2 = jp.fit_delta_conv_pallas(
+        phi_pad, *rows_j1, jnp.asarray(wv), ncp, interpret=True)
+    t = lambda x: torch.from_numpy(x)[None]
+    phi_t, wv_t = t(phi), t(wv)
+    d, stats = n4_cuda.fit_delta_conv(phi_t, *rows_t1, wv_t)
+    assert d.shape == (1, wv.shape[0]) and stats.shape == (1, 2)
+    assert _scaled_err(d[0], jd) < DELTA_ENVELOPE
+    s1, s2 = stats[0].tolist()
+    assert abs(s1 - float(js1)) <= DELTA_ENVELOPE * abs(float(js1))
+    # a square doubles the relative error
+    assert abs(s2 - float(js2)) <= 2 * DELTA_ENVELOPE * abs(float(js2))
+
+    # exact math in float64: float32 rounding only
+    d64 = f64 * wv
+    e1 = np.expm1(-d64)
+    assert _scaled_err(d[0], d64) < 1e-5
+    assert abs(s1 - (wv * e1).sum()) <= 1e-5 * np.abs(wv * e1).sum()
+    assert abs(s2 - (wv * e1 * e1).sum()) <= 1e-5 * (wv * e1 * e1).sum()
+
+    # the shared code: flush(K6) * wv is K7's d, and K2 with done = 0 has
+    # K7's d as its field step and K7's sums as its first two statistics
+    raw = n4_cuda.fit_delta(phi_t, *rows_t1)
+    flushed = torch.where(raw.abs() < 1e-18, torch.zeros_like(raw), raw)
+    assert torch.equal(flushed * wv_t, d)
+    logv = t(((3.0 + rng.normal(size=wv.shape)) * wv).astype(np.float32))
+    nf, _, k2 = n4_cuda.fit_delta_conv_field_plain(
+        phi_t, *rows_t1, wv_t, torch.zeros_like(wv_t), logv, torch.zeros(1))
+    assert torch.equal(nf, d)       # a zero field plus the step
+    assert torch.equal(k2[:, :2], stats)
+
+
 def test_kernel_wrappers_reject_other_devices_and_ncp():
     meta = torch.empty((1, 4, 16), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
@@ -140,6 +202,13 @@ def test_kernel_wrappers_reject_other_devices_and_ncp():
     big = torch.zeros((1, n4_cuda.MAX_NCP + 1, 16))
     with pytest.raises(ValueError, match="ncp"):
         n4_cuda.fit_moment(torch.zeros((1, 16)), big, big, big)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        n4_cuda.fit_delta(torch.empty((1, 4, 16), device="meta"), meta,
+                          meta, meta)
+    rows = torch.zeros((1, 4, 16))
+    with pytest.raises(ValueError, match="phi"):
+        n4_cuda.fit_delta_conv(torch.zeros((1, 4, 4)), rows, rows, rows,
+                               torch.zeros((1, 16)))
 
 
 @pytest.fixture(scope="module")

@@ -104,7 +104,8 @@ def test_analyze_study_single_volume(runs):
 
 
 def test_package_imports_no_jax():
-    """Every module of ventjax_torch imports without loading jax."""
+    """Every module of ventjax_torch imports without loading jax (or PIL,
+    which the machine with the card lacks too)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ventjax_torch\n"
@@ -114,6 +115,11 @@ def test_package_imports_no_jax():
         "assert 'ventjax_torch.ops.n4_cuda' in names\n"
         "assert 'ventjax_torch.ops.ci_cuda' in names\n"
         "assert 'ventjax_torch._build' in names\n"
+        "assert 'ventjax_torch.ops.ci' in names\n"
+        "assert 'ventjax_torch.pipeline.cohort' in names\n"
+        "bad = sorted(m for m in sys.modules if m == 'PIL' or "
+        "m.startswith('PIL.'))\n"
+        "assert not bad, bad\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib')\n"
         "assert not bad, bad\n"
@@ -123,4 +129,4 @@ def test_package_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    assert int(out.stdout.strip()) >= 14

@@ -8,6 +8,15 @@
 //     done-frozen field update; the next log residual and its masked
 //     min/max; ITK's convergence sums s1 = sum wv (e^-delta - 1) and
 //     s2 = sum wv (e^-delta - 1)^2.
+// K6  vj_fit_delta             replaces n4_pallas.py:fit_delta_pallas
+//     the raw delta = B phi per voxel: no flush, no weight (padded voxels
+//     hold whatever their basis rows give).
+// K7  vj_fit_delta_conv        replaces n4_pallas.py:fit_delta_conv_pallas
+//     d = delta flushed below 1e-18, times wv, and (s1, s2) as in K2.
+// K2, K6 and K7 are one kernel body (delta_partial) in three modes: the
+// per-voxel delta, its flush and weight, the convergence sums and their
+// fixed-order reductions are shared code, so K7's d and (s1, s2) equal
+// K2's with done = 0 bit for bit, and flush(K6) * wv equals K7's d.
 //
 // Layout: basis rows are [N, ncp, P] float32 (voxel index fastest, so a
 // warp reads 32 consecutive voxels of one row); vectors are [N, P]; the
@@ -17,7 +26,8 @@
 // (1331 at ncp = 11) against 3*ncp row reads, so it is bound by issuing the
 // three shared-memory operand loads of each multiply-add, not by device
 // memory.  K2 does ncp^3 multiply-adds per voxel with phi broadcast from
-// shared memory, and streams 3*ncp rows plus five vectors.  Neither is
+// shared memory, and streams 3*ncp rows plus five vectors (K6 one vector,
+// K7 two), so all three are bound by the same shared-memory broadcasts.  Neither is
 // near the tensor cores; making them fast is later work.
 //
 // Why float32.  The Pallas kernels fed bf16 operands to the TPU's matrix
@@ -127,22 +137,102 @@ __global__ void reduce_chunks(const float* __restrict__ part,
   out[(size_t)lane * width + f] = s;
 }
 
-// K2, pass 1: one block per (voxel chunk, lane), one thread per voxel at a
-// time.  phi sits in shared memory and every lane of a warp reads the same
-// coefficient (a broadcast); the bc and bs rows of the voxel sit in
-// registers, the br row is read once per c.
+// The delta evaluation shared by K2, K6 and K7: raw = sum_c br[c] *
+// sum_{d,e} phi[c, d*ncp+e] bc[d] bs[e] at voxel p, with phi in shared
+// memory (every thread of a warp reads the same coefficient, a broadcast),
+// the bc and bs rows of the voxel in registers and br read once per c.
+// One function, so the three kernels compute the same bits per voxel.
 template <int NCP>
-__global__ void __launch_bounds__(K2_THREADS) delta_field_partial(
+__device__ __forceinline__ float delta_raw(
+    const float* __restrict__ s_phi, const float* __restrict__ br,
+    const float* __restrict__ bc, const float* __restrict__ bs, size_t rows,
+    int P, int p) {
+  constexpr int N2 = NCP * NCP;
+  float cb[NCP], sb[NCP];
+#pragma unroll
+  for (int k = 0; k < NCP; ++k) {
+    cb[k] = bc[rows + (size_t)k * P + p];
+    sb[k] = bs[rows + (size_t)k * P + p];
+  }
+  float raw = 0.f;
+  for (int c = 0; c < NCP; ++c) {
+    const float* ph = s_phi + c * N2;
+    float h = 0.f;
+#pragma unroll
+    for (int d = 0; d < NCP; ++d) {
+      float g = 0.f;
+#pragma unroll
+      for (int e = 0; e < NCP; ++e) g += ph[d * NCP + e] * sb[e];
+      h += cb[d] * g;
+    }
+    raw += br[rows + (size_t)c * P + p] * h;
+  }
+  return raw;
+}
+
+// The field update of one voxel: raw flushed below 1e-18, times its weight.
+__device__ __forceinline__ float flush_weight(float raw, float w) {
+  return (fabsf(raw) < 1e-18f ? 0.f : raw) * w;
+}
+
+// ITK's convergence sums of one voxel, added into a thread's running
+// (s1, s2): s1 += w (e^-d - 1), s2 += w (e^-d - 1)^2.
+__device__ __forceinline__ void conv_accum(float dl, float w, float& s1,
+                                           float& s2) {
+  const float e1 = expf(-dl) - 1.f;
+  s1 += w * e1;
+  s2 += w * e1 * e1;
+}
+
+// Fixed-order tree reduction over the block of NS per-thread statistics
+// in red[NS][K2_THREADS]: slots 0 and 1 (s1, s2) add, slots 2 and 3 (when
+// NS == 4) take the min and the max.  Thread 0 writes the block's NS
+// values to out.
+template <int NS>
+__device__ __forceinline__ void block_stats(float (*red)[K2_THREADS],
+                                            float* __restrict__ out) {
+  const int t = threadIdx.x;
+  __syncthreads();
+  for (int s = K2_THREADS / 2; s > 0; s >>= 1) {
+    if (t < s) {
+      red[0][t] += red[0][t + s];
+      red[1][t] += red[1][t + s];
+      if constexpr (NS == 4) {
+        red[2][t] = fminf(red[2][t], red[2][t + s]);
+        red[3][t] = fmaxf(red[3][t], red[3][t + s]);
+      }
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) out[i] = red[i][0];
+  }
+}
+
+// What one pass of the shared delta kernel writes.
+enum DeltaMode {
+  RAW = 0,    // K6: out0 = raw delta; no statistics
+  CONV = 1,   // K7: out0 = flushed delta * wv; part = per-chunk (s1, s2)
+  FIELD = 2,  // K2: out0 = field', out1 = logu'; part = (s1, s2, min, max)
+};
+
+// K2, K6 and K7, pass 1: one block per (voxel chunk, lane), one thread per
+// voxel at a time.  Per voxel the three share delta_raw (and K2/K7 share
+// flush_weight and conv_accum); per chunk K2 and K7 share block_stats, so
+// K7's d, s1 and s2 are K2's bits with done = 0.
+template <int NCP, int MODE>
+__global__ void __launch_bounds__(K2_THREADS) delta_partial(
     const float* __restrict__ phi, const float* __restrict__ br,
     const float* __restrict__ bc, const float* __restrict__ bs,
     const float* __restrict__ wv, const float* __restrict__ field,
     const float* __restrict__ logv, const float* __restrict__ done,
-    float* __restrict__ nf, float* __restrict__ lu, float* __restrict__ part,
-    int P, int nchunk) {
-  constexpr int N2 = NCP * NCP;
-  constexpr int N3 = N2 * NCP;
+    float* __restrict__ out0, float* __restrict__ out1,
+    float* __restrict__ part, int P, int nchunk) {
+  constexpr int N3 = NCP * NCP * NCP;
+  constexpr int NS = MODE == FIELD ? 4 : 2;
   __shared__ float s_phi[N3];
-  __shared__ float red[4][K2_THREADS];
+  __shared__ float red[NS][K2_THREADS];
   const int lane = blockIdx.y;
   const int chunk = blockIdx.x;
   const int t = threadIdx.x;
@@ -152,83 +242,89 @@ __global__ void __launch_bounds__(K2_THREADS) delta_field_partial(
 
   const size_t rows = (size_t)lane * NCP * P;
   const size_t vec = (size_t)lane * P;
-  const float live = 1.f - done[lane];
+  float live = 0.f;
+  if constexpr (MODE == FIELD) live = 1.f - done[lane];
   float s1 = 0.f, s2 = 0.f, mn = INFINITY, mx = -INFINITY;
   const int p1 = min((chunk + 1) * CHUNK, P);
   for (int p = chunk * CHUNK + t; p < p1; p += K2_THREADS) {
-    float cb[NCP], sb[NCP];
-#pragma unroll
-    for (int k = 0; k < NCP; ++k) {
-      cb[k] = bc[rows + (size_t)k * P + p];
-      sb[k] = bs[rows + (size_t)k * P + p];
-    }
-    float raw = 0.f;
-    for (int c = 0; c < NCP; ++c) {
-      const float* ph = s_phi + c * N2;
-      float h = 0.f;
-#pragma unroll
-      for (int d = 0; d < NCP; ++d) {
-        float g = 0.f;
-#pragma unroll
-        for (int e = 0; e < NCP; ++e) g += ph[d * NCP + e] * sb[e];
-        h += cb[d] * g;
+    const float raw = delta_raw<NCP>(s_phi, br, bc, bs, rows, P, p);
+    if constexpr (MODE == RAW) {
+      out0[vec + p] = raw;
+    } else {
+      const float w = wv[vec + p];
+      const float dl = flush_weight(raw, w);
+      if constexpr (MODE == CONV) {
+        out0[vec + p] = dl;
+      } else {
+        const float f2 = field[vec + p] + live * dl;
+        const float l2 = (logv[vec + p] - f2) * w;
+        out0[vec + p] = f2;
+        out1[vec + p] = l2;
+        if (w > 0.f) {
+          mn = fminf(mn, l2);
+          mx = fmaxf(mx, l2);
+        }
       }
-      raw += br[rows + (size_t)c * P + p] * h;
-    }
-    const float w = wv[vec + p];
-    const float dl = (fabsf(raw) < 1e-18f ? 0.f : raw) * w;
-    const float f2 = field[vec + p] + live * dl;
-    const float l2 = (logv[vec + p] - f2) * w;
-    nf[vec + p] = f2;
-    lu[vec + p] = l2;
-    const float e1 = expf(-dl) - 1.f;
-    s1 += w * e1;
-    s2 += w * e1 * e1;
-    if (w > 0.f) {
-      mn = fminf(mn, l2);
-      mx = fmaxf(mx, l2);
+      conv_accum(dl, w, s1, s2);
     }
   }
+  if constexpr (MODE == RAW) return;
   red[0][t] = s1;
   red[1][t] = s2;
-  red[2][t] = mn;
-  red[3][t] = mx;
-  __syncthreads();
-  for (int s = K2_THREADS / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      red[0][t] += red[0][t + s];
-      red[1][t] += red[1][t + s];
-      red[2][t] = fminf(red[2][t], red[2][t + s]);
-      red[3][t] = fmaxf(red[3][t], red[3][t + s]);
-    }
-    __syncthreads();
+  if constexpr (NS == 4) {
+    red[2][t] = mn;
+    red[3][t] = mx;
   }
-  if (t == 0) {
-    float* o = part + ((size_t)lane * nchunk + chunk) * 4;
-    o[0] = red[0][0];
-    o[1] = red[1][0];
-    o[2] = red[2][0];
-    o[3] = red[3][0];
-  }
+  block_stats<NS>(red, part + ((size_t)lane * nchunk + chunk) * NS);
 }
 
-// K2, pass 2: one thread per lane folds the chunks' (s1, s2, min, max).
+// K2 and K7, pass 2: one thread per lane folds the chunks' statistics in
+// chunk order (sums for slots 0-1, min and max for slots 2-3).
+template <int NS>
 __global__ void reduce_stats(const float* __restrict__ part,
                              float* __restrict__ stats, int N, int nchunk) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= N) return;
-  const float* p = part + (size_t)lane * nchunk * 4;
+  const float* p = part + (size_t)lane * nchunk * NS;
   float s1 = 0.f, s2 = 0.f, mn = INFINITY, mx = -INFINITY;
   for (int c = 0; c < nchunk; ++c) {
-    s1 += p[4 * c];
-    s2 += p[4 * c + 1];
-    mn = fminf(mn, p[4 * c + 2]);
-    mx = fmaxf(mx, p[4 * c + 3]);
+    s1 += p[NS * c];
+    s2 += p[NS * c + 1];
+    if constexpr (NS == 4) {
+      mn = fminf(mn, p[NS * c + 2]);
+      mx = fmaxf(mx, p[NS * c + 3]);
+    }
   }
-  stats[4 * lane] = s1;
-  stats[4 * lane + 1] = s2;
-  stats[4 * lane + 2] = mn;
-  stats[4 * lane + 3] = mx;
+  stats[NS * lane] = s1;
+  stats[NS * lane + 1] = s2;
+  if constexpr (NS == 4) {
+    stats[NS * lane + 2] = mn;
+    stats[NS * lane + 3] = mx;
+  }
+}
+
+// Launch pass 1 of the shared delta kernel for a runtime ncp.
+template <int MODE>
+int launch_delta(const float* phi, const float* br, const float* bc,
+                 const float* bs, const float* wv, const float* field,
+                 const float* logv, const float* done, float* out0,
+                 float* out1, float* part, int N, int P, int ncp, int nchunk,
+                 cudaStream_t st) {
+  const dim3 grid(nchunk, N);
+#define VJ_DELTA(C)                                                          \
+  case C:                                                                    \
+    delta_partial<C, MODE><<<grid, K2_THREADS, 0, st>>>(                     \
+        phi, br, bc, bs, wv, field, logv, done, out0, out1, part, P, nchunk); \
+    break
+  switch (ncp) {
+    VJ_DELTA(1); VJ_DELTA(2); VJ_DELTA(3); VJ_DELTA(4);
+    VJ_DELTA(5); VJ_DELTA(6); VJ_DELTA(7); VJ_DELTA(8);
+    VJ_DELTA(9); VJ_DELTA(10); VJ_DELTA(11); VJ_DELTA(12);
+    VJ_DELTA(13); VJ_DELTA(14); VJ_DELTA(15); VJ_DELTA(16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VJ_DELTA
+  return (int)cudaGetLastError();
 }
 
 bool bad_shape(int N, int P, int ncp, int nchunk) {
@@ -271,22 +367,33 @@ extern "C" int vj_fit_delta_conv_field(
     int nchunk, void* stream) {
   if (bad_shape(N, P, ncp, nchunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(nchunk, N);
-#define VJ_DELTA(C)                                                        \
-  case C:                                                                  \
-    delta_field_partial<C><<<grid, K2_THREADS, 0, st>>>(                   \
-        phi, br, bc, bs, wv, field, logv, done, nf, lu, part, P, nchunk); \
-    break
-  switch (ncp) {
-    VJ_DELTA(1); VJ_DELTA(2); VJ_DELTA(3); VJ_DELTA(4);
-    VJ_DELTA(5); VJ_DELTA(6); VJ_DELTA(7); VJ_DELTA(8);
-    VJ_DELTA(9); VJ_DELTA(10); VJ_DELTA(11); VJ_DELTA(12);
-    VJ_DELTA(13); VJ_DELTA(14); VJ_DELTA(15); VJ_DELTA(16);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef VJ_DELTA
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_stats<<<(N + 127) / 128, 128, 0, st>>>(part, stats, N, nchunk);
+  const int err = launch_delta<FIELD>(phi, br, bc, bs, wv, field, logv, done,
+                                      nf, lu, part, N, P, ncp, nchunk, st);
+  if (err != 0) return err;
+  reduce_stats<4><<<(N + 127) / 128, 128, 0, st>>>(part, stats, N, nchunk);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vj_fit_delta(const float* phi, const float* br,
+                            const float* bc, const float* bs, float* out,
+                            int N, int P, int ncp, int nchunk, void* stream) {
+  if (bad_shape(N, P, ncp, nchunk)) return (int)cudaErrorInvalidValue;
+  return launch_delta<RAW>(phi, br, bc, bs, nullptr, nullptr, nullptr,
+                           nullptr, out, nullptr, nullptr, N, P, ncp, nchunk,
+                           (cudaStream_t)stream);
+}
+
+extern "C" int vj_fit_delta_conv(const float* phi, const float* br,
+                                 const float* bc, const float* bs,
+                                 const float* wv, float* d, float* part,
+                                 float* stats, int N, int P, int ncp,
+                                 int nchunk, void* stream) {
+  if (bad_shape(N, P, ncp, nchunk)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int err = launch_delta<CONV>(phi, br, bc, bs, wv, nullptr, nullptr,
+                                     nullptr, d, nullptr, part, N, P, ncp,
+                                     nchunk, st);
+  if (err != 0) return err;
+  reduce_stats<2><<<(N + 127) / 128, 128, 0, st>>>(part, stats, N, nchunk);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,16 @@ axis; powered once per level by the caller):
   ``delta = B phi`` at every voxel (flushed below 1e-18, times the weight),
   the done-frozen field update, the next log residual and its masked range,
   and ITK's convergence sums, in one pass.
+- ``fit_delta`` (K6; replaces ``fit_delta_pallas``): the raw ``delta = B
+  phi``, with no flush and no weight.
+- ``fit_delta_conv`` (K7; replaces ``fit_delta_conv_pallas``): the flushed,
+  weighted delta and ITK's two convergence sums.
+
+K2, K6 and K7 share their per-voxel delta and their sums, in the kernel and
+in the plain versions alike: K7's outputs equal K2's with ``done = 0``, and
+the flushed, weighted K6 equals K7's delta, bit for bit.  Only the unfused
+fit chain (``chip_smoke.py``'s counterpart of
+``benchmarks/n4_pallas_micro.py``) runs K6 and K7; N4 runs K1 and K2.
 
 Each wrapper runs its plain PyTorch version for a CPU tensor, launches the
 kernel for a CUDA tensor, and raises for anything else.  Everything is
@@ -30,7 +40,8 @@ from ventjax_torch.ops._launch import check, raise_on, route, stream
 
 MAX_NCP = 16
 # Kernel launches per wrapper since the counts were last set to 0.
-LAUNCHES = {"fit_moment": 0, "fit_delta_conv_field": 0}
+LAUNCHES = {"fit_moment": 0, "fit_delta_conv_field": 0, "fit_delta": 0,
+            "fit_delta_conv": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +56,10 @@ def _lib():
         lib.vj_fit_moment.restype = _I
         lib.vj_fit_delta_conv_field.argtypes = [_P] * 12 + [_I] * 4 + [_P]
         lib.vj_fit_delta_conv_field.restype = _I
+        lib.vj_fit_delta.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+        lib.vj_fit_delta.restype = _I
+        lib.vj_fit_delta_conv.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+        lib.vj_fit_delta_conv.restype = _I
         lib._vj_typed = True
     return lib
 
@@ -96,25 +111,115 @@ def fit_moment(a, br, bc, bs):
 
 
 # ---------------------------------------------------------------------------
+# The delta shared by K2, K6 and K7.
+
+
+def _check_phi(name, phi, N, ncp):
+    if phi.shape != (N, ncp, ncp * ncp):
+        raise ValueError(f"{name}: phi is {tuple(phi.shape)}, expected "
+                         f"{(N, ncp, ncp * ncp)}")
+
+
+def _check_vectors(name, N, P, *vs):
+    for t in vs:
+        if t.shape != (N, P):
+            raise ValueError(f"{name}: vector {tuple(t.shape)}, expected "
+                             f"{(N, P)}")
+
+
+def fit_delta_plain(phi, br, bc, bs):
+    """Plain PyTorch version of K6: the raw [N, P] delta = B phi."""
+    N, ncp, P = br.shape
+    bo = (bc[:, :, None, :] * bs[:, None, :, :]).reshape(N, ncp * ncp, P)
+    g = torch.bmm(phi.reshape(N, ncp, ncp * ncp), bo)         # [N, ncp, P]
+    return (br * g).sum(1)
+
+
+def _flush_weight(raw, wv):
+    return torch.where(raw.abs() < 1e-18, torch.zeros_like(raw), raw) * wv
+
+
+def _conv_sums(d, wv):
+    """[N, 2] ITK convergence sums (sum wv e1, sum wv e1^2), e1 = e^-d - 1."""
+    e1 = torch.exp(-d) - 1.0
+    return torch.stack([(wv * e1).sum(1), (wv * e1 * e1).sum(1)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# K6: the raw delta.
+
+
+def fit_delta(phi, br, bc, bs):
+    """K6: phi [N, ncp, ncp*ncp]; br/bc/bs [N, ncp, P] power-1 rows ->
+    the raw delta [N, P] = sum_c br[c] sum_{d,e} phi[c, d*ncp+e] bc[d]
+    bs[e], with no flush and no weight (padded voxels hold whatever their
+    rows give)."""
+    N, ncp, P = _check_rows("fit_delta", br, bc, bs)
+    _check_phi("fit_delta", phi, N, ncp)
+    check("fit_delta", phi, br, bc, bs)
+    if not route("fit_delta", phi):
+        return fit_delta_plain(phi, br, bc, bs)
+    lib = _lib()
+    nchunk = -(-P // lib.vj_n4_chunk())
+    out = torch.empty((N, P), device=phi.device, dtype=torch.float32)
+    rc = lib.vj_fit_delta(phi.data_ptr(), br.data_ptr(), bc.data_ptr(),
+                          bs.data_ptr(), out.data_ptr(), N, P, ncp, nchunk,
+                          stream(phi.device))
+    raise_on(rc, "fit_delta")
+    LAUNCHES["fit_delta"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K7: the flushed, weighted delta and the convergence sums.
+
+
+def fit_delta_conv_plain(phi, br, bc, bs, wv):
+    """Plain PyTorch version of K7; see ``fit_delta_conv``."""
+    d = _flush_weight(fit_delta_plain(phi, br, bc, bs), wv)
+    return d, _conv_sums(d, wv)
+
+
+def fit_delta_conv(phi, br, bc, bs, wv):
+    """K7: (d [N, P], stats [N, 2]) with d = delta flushed below 1e-18,
+    times wv, and stats = (sum wv (e^-d - 1), sum wv (e^-d - 1)^2): the
+    sums from which ITK's convergence test takes the coefficient of
+    variation of e^-d over the mask."""
+    N, ncp, P = _check_rows("fit_delta_conv", br, bc, bs)
+    _check_phi("fit_delta_conv", phi, N, ncp)
+    _check_vectors("fit_delta_conv", N, P, wv)
+    check("fit_delta_conv", phi, br, bc, bs, wv)
+    if not route("fit_delta_conv", wv):
+        return fit_delta_conv_plain(phi, br, bc, bs, wv)
+    lib = _lib()
+    nchunk = -(-P // lib.vj_n4_chunk())
+    kw = dict(device=wv.device, dtype=torch.float32)
+    d = torch.empty((N, P), **kw)
+    part = torch.empty((N, nchunk, 2), **kw)
+    stats = torch.empty((N, 2), **kw)
+    rc = lib.vj_fit_delta_conv(
+        phi.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
+        wv.data_ptr(), d.data_ptr(), part.data_ptr(), stats.data_ptr(),
+        N, P, ncp, nchunk, stream(wv.device))
+    raise_on(rc, "fit_delta_conv")
+    LAUNCHES["fit_delta_conv"] += 1
+    return d, stats
+
+
+# ---------------------------------------------------------------------------
 # K2: fused field update + next residual + convergence sums.
 
 
 def fit_delta_conv_field_plain(phi, br, bc, bs, wv, field, logv, done):
     """Plain PyTorch version of K2; see ``fit_delta_conv_field``."""
-    N, ncp, P = br.shape
-    bo = (bc[:, :, None, :] * bs[:, None, :, :]).reshape(N, ncp * ncp, P)
-    g = torch.bmm(phi.reshape(N, ncp, ncp * ncp), bo)         # [N, ncp, P]
-    raw = (br * g).sum(1)
-    d = torch.where(raw.abs() < 1e-18, torch.zeros_like(raw), raw) * wv
+    d = _flush_weight(fit_delta_plain(phi, br, bc, bs), wv)
     nf = field + (1.0 - done)[:, None] * d
     lu = (logv - nf) * wv
-    e1 = torch.exp(-d) - 1.0
     inf = torch.full_like(lu, float("inf"))
-    stats = torch.stack([
-        (wv * e1).sum(1),
-        (wv * e1 * e1).sum(1),
-        torch.where(wv > 0, lu, inf).min(1).values,
-        torch.where(wv > 0, lu, -inf).max(1).values,
+    stats = torch.cat([
+        _conv_sums(d, wv),
+        torch.where(wv > 0, lu, inf).min(1).values[:, None],
+        torch.where(wv > 0, lu, -inf).max(1).values[:, None],
     ], dim=1)
     return nf, lu, stats
 
@@ -130,12 +235,8 @@ def fit_delta_conv_field(phi, br, bc, bs, wv, field, logv, done):
     masked min logu', masked max logu').
     """
     N, ncp, P = _check_rows("fit_delta_conv_field", br, bc, bs)
-    if phi.shape != (N, ncp, ncp * ncp):
-        raise ValueError(f"fit_delta_conv_field: phi is {tuple(phi.shape)}")
-    for t in (wv, field, logv):
-        if t.shape != (N, P):
-            raise ValueError(f"fit_delta_conv_field: vector {tuple(t.shape)}"
-                             f", expected {(N, P)}")
+    _check_phi("fit_delta_conv_field", phi, N, ncp)
+    _check_vectors("fit_delta_conv_field", N, P, wv, field, logv)
     if done.shape != (N,):
         raise ValueError(f"fit_delta_conv_field: done is {tuple(done.shape)}")
     check("fit_delta_conv_field", phi, br, bc, bs, wv, field, logv, done)

@@ -2,19 +2,24 @@
 
 Counterpart of ``ventjax/pipeline/analyze.py``: SNR -> one shared mask
 compaction -> N4 -> mean-anchored VDP -> linear-binning VDP -> k-means VDP
--> pairwise CI map -> metrics.  Everything runs on the device of the input
-tensors.  A subject with an empty mask gets NaN metrics and valid=False
-without touching the other lanes.
+-> CI map -> metrics.  Everything runs on the device of the input tensors.
+A subject with an empty mask gets NaN metrics and valid=False without
+touching the other lanes.
+
+The CI engine follows the geometry ``build_geometry`` returns: the pairwise
+engine, or the gather ladder (``ops/ci.py``) where the pairwise engine
+cannot prove itself exact or the config asks for another engine.
 
 On a card, N4 runs kernels K4, K5, K1 and K2 on every iteration of every
-level and the CI head runs K3; the CI map is the scatter, ventjax's default
-(``calculate_ci_pairwise(..., pallas_densify=True)`` takes kernels K9 and
-K8 instead, with the same bits).
+level and the pairwise CI head runs K3; the CI map is the scatter,
+ventjax's default (``calculate_ci_pairwise(..., pallas_densify=True)``
+takes kernels K9 and K8 instead, with the same bits).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import functools
+from typing import Tuple, Union
 
 import numpy as np
 import torch
@@ -22,6 +27,9 @@ import torch
 from ventjax.config import DEFAULT_CONFIG, VentConfig
 from ventjax_torch.ops.basic import (
     gradient_border, masked_sorted_index, sort_compact_masked,
+)
+from ventjax_torch.ops.ci import (
+    CIGeometry, build_ci_geometry, calculate_ci_staged,
 )
 from ventjax_torch.ops.ci_pairwise import (
     CIPairwiseGeometry, build_ci_pairwise_geometry, calculate_ci_pairwise,
@@ -33,6 +41,9 @@ from ventjax_torch.ops.vdp import vdp_linear_binning, vdp_mean_anchored
 from ventjax_torch.pipeline.result import StudyMetrics, VentResult
 
 
+Geometry = Union[CIPairwiseGeometry, CIGeometry]
+
+
 def _sum(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1).sum(1)
 
@@ -40,7 +51,7 @@ def _sum(x: torch.Tensor) -> torch.Tensor:
 def analyze_cohort(
     hp: torch.Tensor,
     mask: torch.Tensor,
-    geom: CIPairwiseGeometry,
+    geom: Geometry,
     config: VentConfig = DEFAULT_CONFIG,
     export_compact: bool = False,
 ) -> VentResult:
@@ -50,7 +61,7 @@ def analyze_cohort(
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     c = config
-    if not isinstance(geom, CIPairwiseGeometry):
+    if not isinstance(geom, (CIPairwiseGeometry, CIGeometry)):
         raise TypeError("analyze_cohort: geom must come from build_geometry")
     N = hp.shape[0]
     hp = hp.to(torch.float32)
@@ -98,8 +109,13 @@ def analyze_cohort(
     defect_km, vdp_km = vdp_kmeans(
         n4, safe_mask, c.kmeans_clusters, c.kmeans_iters,
         c.kmeans_defect_clusters, compacted=(n4_vals_c, wv_c))
-    ci_map, n_saturated, ci_overflow = calculate_ci_pairwise(
-        defect, geom, c.ci_max_defect_voxels, tail_k=c.ci_tail_k)
+    if isinstance(geom, CIPairwiseGeometry):
+        ci_map, n_saturated, ci_overflow = calculate_ci_pairwise(
+            defect, geom, c.ci_max_defect_voxels, tail_k=c.ci_tail_k)
+    else:
+        ci_map, n_saturated, ci_overflow, stage_ovf = calculate_ci_staged(
+            defect, geom, c.ci_max_defect_voxels)
+        ci_overflow = ci_overflow | (stage_ovf > 0)
 
     # Subject CI: the floor-index percentile of the CI map over defect
     # voxels; NaN when there are none.
@@ -138,7 +154,7 @@ def analyze_cohort(
 def analyze_study(
     hp: torch.Tensor,
     mask: torch.Tensor,
-    geom: CIPairwiseGeometry,
+    geom: Geometry,
     config: VentConfig = DEFAULT_CONFIG,
     export_compact: bool = False,
 ) -> VentResult:
@@ -155,28 +171,83 @@ def analyze_study(
         ci_map=res.ci_map[0], metrics=metrics, export=export)
 
 
+def analyze_cohort_grouped(
+    hp: torch.Tensor,
+    mask: torch.Tensor,
+    geom: Geometry,
+    config: VentConfig = DEFAULT_CONFIG,
+    group_size: int = 16,
+    export_compact: bool = False,
+) -> VentResult:
+    """analyze_cohort over a large [N,H,W,D] cohort, as ``group_size``-lane
+    groups run one after another.
+
+    Every lane of one batch iterates N4 until its slowest lane converges
+    (converged lanes are frozen but still computed), and the CI engines
+    size their work by the batch; groups keep each group's own convergence
+    exit and CI occupancy.  Lanes are independent, so on the CPU the
+    results equal the ungrouped run's bit for bit.  On a card, the dense
+    N4 field's einsum is a cuBLAS GEMM whose shape grows with the batch,
+    and cuBLAS may pick another kernel for it: the N4 image may differ by
+    about one float32 rounding (the defect maps and VDPs did not).
+    N <= group_size, or N not a multiple of it, is the plain
+    analyze_cohort.
+    """
+    B = hp.shape[0]
+    if B <= group_size or B % group_size != 0:
+        return analyze_cohort(hp, mask, geom, config, export_compact)
+    parts = [analyze_cohort(hp[g:g + group_size], mask[g:g + group_size],
+                            geom, config, export_compact)
+             for g in range(0, B, group_size)]
+
+    def cat(xs):
+        if xs[0] is None:
+            return None
+        if isinstance(xs[0], dict):
+            return {k: cat([x[k] for x in xs]) for k in xs[0]}
+        if dataclasses.is_dataclass(xs[0]):
+            return type(xs[0])(**{f.name: cat([getattr(x, f.name)
+                                               for x in xs])
+                                  for f in dataclasses.fields(xs[0])})
+        return torch.cat(xs, dim=0)
+
+    return cat(parts)
+
+
 def build_geometry(
     vox: Tuple[float, float, float],
     shape: Tuple[int, int, int],
     config: VentConfig = DEFAULT_CONFIG,
-) -> CIPairwiseGeometry:
-    """CI geometry of the pairwise engine (cached per vox/shape).
+) -> Geometry:
+    """CI geometry for the configured engine (cached per vox/shape).
 
-    The port has only the pairwise engine so far.  Where the config asks
-    for another engine, or the geometry fails the pairwise engine's
-    float32 exactness proof, this raises NotImplementedError: the
-    gather-ladder engine (ventjax/ops/ci.py) that ventjax falls back to is
-    a later slice of the port.
+    The pairwise engine proves its float32 distance binning exact for the
+    geometry when it is built; a geometry that fails the proof (voxel sizes
+    whose shell boundaries collide within float32 resolution), or a config
+    with another ``ci_engine``, gets the gather-ladder geometry instead:
+    slower, the same results.
     """
-    if config.ci_engine != "pairwise":
-        raise NotImplementedError(
-            f"ci_engine={config.ci_engine!r}: only the pairwise CI engine is "
-            "ported; the ladder/full engines (ventjax/ops/ci.py) are not yet")
-    try:
-        return build_ci_pairwise_geometry(
-            tuple(vox), tuple(shape), config.ci_rmax, config.ci_border_mode)
-    except ValueError as err:
-        raise NotImplementedError(
-            f"vox={tuple(vox)} fails the pairwise CI engine's exactness "
-            f"proof ({err}); ventjax falls back to the gather-ladder engine "
-            "(ventjax/ops/ci.py), which is not yet ported") from err
+    if config.ci_engine == "pairwise":
+        try:
+            return build_ci_pairwise_geometry(
+                tuple(vox), tuple(shape), config.ci_rmax,
+                config.ci_border_mode)
+        except ValueError:
+            pass
+    return build_ci_geometry(tuple(vox), tuple(shape), config.ci_rmax,
+                             config.ci_border_mode)
+
+
+@functools.lru_cache(maxsize=8)
+def make_analyze_fn(
+    vox: Tuple[float, float, float],
+    shape: Tuple[int, int, int],
+    config: VentConfig = DEFAULT_CONFIG,
+    batched: bool = False,
+):
+    """The pipeline for a fixed (vox, volume shape, config), with its
+    geometry built once: ``fn(hp, mask)`` on a [N,H,W,D] batch when
+    ``batched``, else on one [H,W,D] study."""
+    geom = build_geometry(vox, shape, config)
+    fn = analyze_cohort if batched else analyze_study
+    return lambda hp, mask: fn(hp, mask, geom, config)
