@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (ventjax_torch) once on one NVIDIA GPU.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--parent DIR]
 
 Phases, in order; any failure raises and the script exits non-zero:
 1. device: CUDA must be available; print the card's name and power limit;
@@ -9,13 +9,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    nvcc per source, all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes.  Tolerances: K1/K2/K6/K7 relative 1e-5 (the same
-   float32 algorithm, only the summation order differs), and K7 bit-equal
-   to the flushed, weighted K6 and to K2 with done = 0 (shared code); K4
-   relative 1e-5
-   of the largest bin (the plain version sums with float32 atomics in
-   another order) and bit-identical from launch to launch; K5 bit-equal
-   (the same float32 operations in the same order); K3, K9, K8 bit-equal
-   (integers, and copied values);
+   float32 algorithm, only the summation order differs), K1 at every ncp N4
+   runs (4, 5, 7, 11) for the denominator and the numerator and
+   bit-identical on relaunch, and K7 bit-equal to the flushed, weighted K6
+   and to K2 with done = 0 (shared code); K4, on the first iteration's
+   residual and on a late one (LATE_ITERS iterations of level 0 run here),
+   relative 1e-5 of the largest bin against its float32 plain version,
+   bit-equal to its exact fixed-point plain version and from launch to
+   launch; K5 bit-equal (the same float32 operations in the same order);
+   K3, K9, K8 bit-equal (integers, and copied values);
 4. paths, each with the launch counts set to 0 just before and read just
    after it:
    a. the slice: 16 phantoms of 128x128x16 through ventjax_torch.pipeline.
@@ -36,25 +38,34 @@ Phases, in order; any failure raises and the script exits non-zero:
       on the slice, its CI map bit-equal to the pairwise one (both are
       exact), no stage overflow; the witness geometry that fails the
       pairwise proof gets the ladder;
-   e. the cohort driver: run_cohort on 32 synthetic DICOM studies of
-      128x128x16 (two batches of 16; one severe study that overflows the
-      first CI pad and is retried) and one entry that does not decode;
-      every export written, metrics of the first 16 within 0.1 pp of
-      analyze_cohort on the same volumes, and a second run resumes every
-      subject without a kernel launch;
+   e. the cohort driver: run_cohort(device=card) on 32 synthetic DICOM
+      studies of 128x128x16 (two batches of 16; one severe study that
+      overflows the first CI pad and is retried) and one entry that does
+      not decode; every export written, metrics of the first 16 within
+      0.1 pp of analyze_cohort on the same volumes, and a second run
+      resumes every subject without a kernel launch;
 5. timing (information only): the slice's volumes/s, the N4 and CI stages
-   (pairwise, densify, ladder), each kernel beside its plain version and
-   the densify step beside the scatter, with CUDA events, the fit chain's
-   iterations, the cohort's subjects/s; then one slice batch under
-   torch.profiler: its device kernels, device time and busy share (the
-   table goes to chiprun_out/profile_slice.txt);
-6. one JSON line of kernel records, then the result line
+   (pairwise, densify, ladder) by the host clock; per kernel, its device
+   time per call (torch.profiler), its plain version's, the one PyTorch
+   call that computes the same function where there is one, and its bound
+   (bytes at 3.35 TB/s against float32 operations at 67 TFLOP/s), K1 and
+   K2 at every ncp, K4 and K5 on both residuals; the densify step beside
+   the scatter; the fit chain's iterations, the cohort's subjects/s;
+6. with --parent DIR: DIR/n4_fit.cu and DIR/n4_sharpen.cu (an older
+   version of those sources) built under their own names, K1 at every ncp
+   and K4 on both residuals timed against them in turns, K4 and K2
+   required bit-equal to them;
+7. one slice batch under torch.profiler: its device kernels, device time
+   and busy share, K1's and K4's rows (the table goes to
+   chiprun_out/profile_slice.txt);
+8. one JSON line of kernel records, then the result line
    {"ok": true, "device": {...}} last.
 
-It imports nothing of JAX.
+It imports nothing of JAX and nothing of the ventjax package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -123,11 +134,12 @@ def phase_build():
     for name in LIBS:
         _build.load(name)
     log(f"build: {time.perf_counter() - t0:.1f} s "
-        + json.dumps({k: round(v, 1) for k, v in _build.BUILD_SECONDS.items()}))
+        + json.dumps({k: round(v, 1)
+                      for k, v in _build.BUILD_SECONDS.items()}))
 
 
 def headline_cohort():
-    from ventjax.io.phantom import make_cohort
+    from ventjax_torch.io.phantom import make_cohort
 
     hp, mask, _ = make_cohort(BATCH, SHAPE, VOX, seed=SEED)
     max_mask = int((mask > 0).sum(axis=(1, 2, 3)).max())
@@ -156,6 +168,17 @@ def fit_inputs(hp, mask, n4_pad, ncp, dev):
     return bv, wv, logv
 
 
+FIT_NCPS = (4, 5, 7, 11)   # N4's levels at the defaults: ncp = 2**l + 3
+
+
+def smooth_residual(wv, gen):
+    """A smooth residual on the mask, as N4 fits it."""
+    n = wv.shape[1]
+    return (torch.sin(torch.linspace(0, 3, n, device=wv.device))[None] * wv
+            + 0.01 * torch.from_numpy(gen.normal(size=wv.shape).astype(
+                np.float32)).to(wv.device) * wv)
+
+
 def phase_kernels(hp, mask, n4_pad, dev):
     """Each kernel against its plain version at the main path's shapes."""
     from ventjax_torch.ops import ci_cuda, n4_cuda
@@ -163,20 +186,20 @@ def phase_kernels(hp, mask, n4_pad, dev):
 
     gen = np.random.default_rng(SEED)
     errs = {}
-    for ncp in (4, 5, 7, 11):
+    for ncp in FIT_NCPS:
         bv, wv, logv = fit_inputs(hp, mask, n4_pad, ncp, dev)
         r1 = [tn4._rows(b, 1) for b in bv]
         r2 = [tn4._rows(b, 2) for b in bv]
         r3 = [tn4._rows(b, 3) for b in bv]
-        # a smooth residual, as N4 fits it
-        a = (torch.sin(torch.linspace(0, 3, n4_pad, device=dev))[None]
-             * wv + 0.01 * torch.from_numpy(
-                 gen.normal(size=wv.shape).astype(np.float32)).to(dev) * wv)
+        a = smooth_residual(wv, gen)
         k1 = {}
         for tag, aa, rows in (("den", wv, r2), ("num", a, r3)):
             got = n4_cuda.fit_moment(aa, *rows)
             want = n4_cuda.fit_moment_plain(aa, *rows)
             k1[tag] = scaled_err(got, want)
+            if not torch.equal(got, n4_cuda.fit_moment(aa, *rows)):
+                raise AssertionError(f"K1 is not bit-identical on relaunch "
+                                     f"(ncp {ncp}, {tag})")
             errs.setdefault("fit_moment", []).append(
                 float((got - want).abs().max()))
         phi = torch.from_numpy((0.05 * (1 + 0.2 * gen.normal(
@@ -285,7 +308,7 @@ def sharpen_inputs(hp, mask, n4_pad, dev):
 
 
 def expectation(hist, bmn, slope):
-    from ventjax.config import DEFAULT_CONFIG as c
+    from ventjax_torch.config import DEFAULT_CONFIG as c
     from ventjax_torch.ops import n4 as tn4
 
     padded = tn4._next_pow2_padded(BINS)
@@ -294,32 +317,85 @@ def expectation(hist, bmn, slope):
                                     (padded - BINS) // 2)
 
 
-def check_sharpen(hp, mask, n4_pad, dev):
-    """K4 and K5 against their plain versions at the slice's shapes."""
+LATE_LEVEL = 0       # N4's first level (ncp 4), 27 iterations on the slice
+LATE_ITERS = 12
+
+
+def late_residual(hp, mask, n4_pad, dev):
+    """The sharpen operands late in a level's loop: LATE_ITERS N4
+    iterations of level LATE_LEVEL run here with the port's own functions
+    (sharpen_hist -> _sharpen_expectation -> sharpen_resid -> fit_moment ->
+    fit_delta_conv_field, as ops/n4.py chains them); returns the last
+    (logu, wv, sv, binmin, slope)."""
+    from ventjax_torch.ops import n4 as tn4
+    from ventjax_torch.ops import n4_cuda
     from ventjax_torch.ops import n4_sharpen_cuda as sc
 
-    logu, wv, sv, bmn, slope = sharpen_inputs(hp, mask, n4_pad, dev)
-    got = sc.sharpen_hist(logu, wv, bmn, slope, BINS)
-    again = sc.sharpen_hist(logu, wv, bmn, slope, BINS)
-    want = sc.sharpen_hist_plain(logu, wv, bmn, slope, BINS)
-    k4 = scaled_err(got, want)
-    same = bool(torch.equal(got, again))
-    log(f"K4 sharpen_hist N={BATCH} P={n4_pad} bins={BINS}: rel {k4:.2e} "
-        f"relaunch_bit_identical={same} mass_err "
-        f"{float((got.double().sum(1) - wv.double().sum(1)).abs().max()):.2e}")
-    if not (k4 <= KERNEL_RTOL and same):
-        raise AssertionError(f"K4 disagrees with its plain version ({k4}) "
-                             f"or is not deterministic ({same})")
-    e_loc = expectation(got, bmn, slope)
-    a = sc.sharpen_resid(logu, wv, sv, e_loc, bmn, slope, BINS)
-    a_plain = sc.sharpen_resid_plain(logu, wv, sv, e_loc, bmn, slope, BINS)
-    k5 = float((a - a_plain).abs().max())
-    log(f"K5 sharpen_resid: bit_equal={bool(torch.equal(a, a_plain))} "
-        f"max_abs {k5:.2e} finite={bool(torch.isfinite(a).all())}")
-    if not torch.equal(a, a_plain):
-        raise AssertionError(f"K5 differs from its plain version: {k5}")
-    return {"sharpen_hist": [float((got - want).abs().max())],
-            "sharpen_resid": [k5]}
+    bv, wv, logv = fit_inputs(hp, mask, n4_pad, 2 ** LATE_LEVEL + 3, dev)
+    sv = (bv[0] ** 2).sum(2) * (bv[1] ** 2).sum(2) * (bv[2] ** 2).sum(2)
+    r1, r2, r3 = ([tn4._rows(b, k) for b in bv] for k in (1, 2, 3))
+    den = n4_cuda.fit_moment(wv, *r2)
+    den_nz = den != 0.0
+    den_safe = torch.where(den_nz, den, torch.ones_like(den))
+    field = torch.zeros_like(wv)
+    done = torch.zeros(wv.shape[0], device=dev)
+    logu = logv * wv
+    bmn, bmx = tn4._masked_range(logu, wv)
+    for _ in range(LATE_ITERS):
+        slope = (bmx - bmn) / (BINS - 1)
+        hist = sc.sharpen_hist(logu, wv, bmn, slope, BINS)
+        a = sc.sharpen_resid(logu, wv, sv, expectation(hist, bmn, slope),
+                             bmn, slope, BINS)
+        num = n4_cuda.fit_moment(a, *r3)
+        phi = torch.where(den_nz, num / den_safe, torch.zeros_like(num))
+        field, logu, stats = n4_cuda.fit_delta_conv_field(
+            phi, *r1, wv, field, logv, done)
+        bmn, bmx = stats[:, 2].contiguous(), stats[:, 3]
+    return logu, wv, sv, bmn, (bmx - bmn) / (BINS - 1)
+
+
+def mass_err(hist, wv):
+    return float((hist.double().sum(1) - wv.double().sum(1)).abs().max())
+
+
+def check_sharpen(hp, mask, n4_pad, dev):
+    """K4 and K5 against their plain versions at the slice's shapes, on the
+    first iteration's residual and on a late one: K4 within KERNEL_RTOL of
+    the largest bin of its float32 plain version, bit-equal to its exact
+    fixed-point plain version and to itself on relaunch; K5 bit-equal."""
+    from ventjax_torch.ops import n4_sharpen_cuda as sc
+
+    errs = {"sharpen_hist": [], "sharpen_resid": []}
+    for tag, (logu, wv, sv, bmn, slope) in (
+            ("first", sharpen_inputs(hp, mask, n4_pad, dev)),
+            ("late", late_residual(hp, mask, n4_pad, dev))):
+        got = sc.sharpen_hist(logu, wv, bmn, slope, BINS)
+        again = sc.sharpen_hist(logu, wv, bmn, slope, BINS)
+        want = sc.sharpen_hist_plain(logu, wv, bmn, slope, BINS)
+        k4 = scaled_err(got, want)
+        same = {"relaunch": bool(torch.equal(got, again)),
+                "fixed_plain": bool(torch.equal(
+                    got, sc.sharpen_hist_fixed_plain(logu, wv, bmn, slope,
+                                                     BINS)))}
+        log(f"K4 sharpen_hist {tag} residual N={BATCH} P={n4_pad} "
+            f"bins={BINS}: rel {k4:.2e} bit_identical {json.dumps(same)} "
+            f"mass_err {mass_err(got, wv):.2e}")
+        if not (k4 <= KERNEL_RTOL and all(same.values())):
+            raise AssertionError(f"K4 on the {tag} residual: rel {k4}, "
+                                 f"{same}")
+        e_loc = expectation(got, bmn, slope)
+        a = sc.sharpen_resid(logu, wv, sv, e_loc, bmn, slope, BINS)
+        a_plain = sc.sharpen_resid_plain(logu, wv, sv, e_loc, bmn, slope,
+                                         BINS)
+        k5 = float((a - a_plain).abs().max())
+        log(f"K5 sharpen_resid {tag} residual: bit_equal="
+            f"{bool(torch.equal(a, a_plain))} max_abs {k5:.2e} "
+            f"finite={bool(torch.isfinite(a).all())}")
+        if not torch.equal(a, a_plain):
+            raise AssertionError(f"K5 differs from its plain version: {k5}")
+        errs["sharpen_hist"].append(float((got - want).abs().max()))
+        errs["sharpen_resid"].append(k5)
+    return errs
 
 
 def check_densify(gen, dev):
@@ -393,7 +469,7 @@ def launch_counts():
 
 
 def phase_slice(hp, mask, n4_pad, dev):
-    from ventjax.config import DEFAULT_CONFIG
+    from ventjax_torch.config import DEFAULT_CONFIG
     from ventjax_torch.ops import n4
     from ventjax_torch.pipeline import analyze_cohort, build_geometry
 
@@ -424,7 +500,8 @@ def phase_slice(hp, mask, n4_pad, dev):
     path = ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
             "sharpen_resid", "head_counts")
     if not all(launches[k] > 0 for k in path):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
     check_repeat(hp_d, mask_d, geom, cfg, res, syncs)
 
     mt = res.metrics
@@ -649,8 +726,8 @@ def write_cohort(root):
     not exist; returns the manifest."""
     import os
 
-    from ventjax.io.phantom import make_phantom
-    from ventjax.io.synthetic import write_study
+    from ventjax_torch.io.phantom import make_phantom
+    from ventjax_torch.io.synthetic import write_study
 
     manifest = []
     for i in range(COHORT_STUDIES):
@@ -672,8 +749,8 @@ def phase_cohort(dev):
     import os
     import tempfile
 
-    from ventjax.io import native
-    from ventjax.io.nifti import load as nifti_load
+    from ventjax_torch.io import native
+    from ventjax_torch.io.nifti import load as nifti_load
     from ventjax_torch.pipeline import analyze_cohort, build_geometry
     from ventjax_torch.pipeline import cohort as tc
 
@@ -701,7 +778,7 @@ def phase_cohort(dev):
             reset_counts()
             t0 = time.perf_counter()
             results = tc.run_cohort(manifest, out, batch_size=COHORT_BATCH,
-                                    runners=runners)
+                                    runners=runners, device=dev)
             wall = time.perf_counter() - t0
             launches = launch_counts()
         finally:
@@ -756,7 +833,8 @@ def phase_cohort(dev):
 
         reset_counts()
         t0 = time.perf_counter()
-        again = tc.run_cohort(manifest, out, batch_size=COHORT_BATCH)
+        again = tc.run_cohort(manifest, out, batch_size=COHORT_BATCH,
+                              device=dev)
         resume_s = time.perf_counter() - t0
         resumed = launch_counts()
         checks["resume_no_launch"] = not any(resumed.values())
@@ -788,10 +866,84 @@ def host_ms(fn, reps=5):
     return statistics.median(times), times
 
 
+# Peaks of one H100 SXM at 700 W:
+# HBM3 bytes per second and float32 FLOP/s on the CUDA cores.
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+
+def bound(nbytes, flops):
+    """(least ms the card could take, "bytes" or "operations"): each input
+    byte read once and each output byte written once at the memory rate,
+    against the operations at the float32 peak."""
+    tb, tf = nbytes / PEAK_BYTES, flops / PEAK_F32
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def device_ms(fn, reps=20):
+    """Device time per call of fn in ms: the summed duration of the device
+    activities (kernels, copies, fills) that reps calls enqueue, taken by
+    torch.profiler, so host launch overhead between them does not count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / reps / 1e3
+
+
+def nnz_rows(rows):
+    """[N, P] count of non-zero basis entries per voxel of [N, ncp, P]."""
+    return (rows != 0).sum(1).double()
+
+
+def k1_record(a, r, wv):
+    """K1 at one shape: device ms of the kernel, its plain version and the
+    one-call einsum yardstick, and its bound (the multiply-adds that the
+    non-zero rows of voxels with a != 0 need)."""
+    from ventjax_torch.ops import n4_cuda
+
+    N, ncp, P = r[0].shape
+    lib = lambda: torch.einsum("np,ncp,ndp,nep->ncde", a, *r).reshape(
+        N, ncp, ncp * ncp)
+    lib_err = scaled_err(lib(), n4_cuda.fit_moment_plain(a, *r))
+    terms = float(((a != 0).double() * nnz_rows(r[0]) * nnz_rows(r[1])
+                   * nnz_rows(r[2])).sum())
+    b, by = bound(N * P * (1 + 3 * ncp) * 4 + N * ncp ** 3 * 4, 2 * terms)
+    return {"ms": device_ms(lambda: n4_cuda.fit_moment(a, *r)),
+            "plain_ms": device_ms(lambda: n4_cuda.fit_moment_plain(a, *r)),
+            "library_ms": device_ms(lib, reps=5), "bound_ms": b,
+            "bound_by": by, "library_rel_err": lib_err}
+
+
+def k2_record(phi, r1, wv, logv, done):
+    from ventjax_torch.ops import n4_cuda
+
+    N, ncp, P = r1[0].shape
+    c, d, e = (nnz_rows(x) for x in r1)
+    terms = float((c * d * e + c * d + c).sum())
+    b, by = bound(N * P * (3 * ncp + 5) * 4 + N * (ncp ** 3 + 4) * 4,
+                  2 * terms)
+    return {"ms": device_ms(lambda: n4_cuda.fit_delta_conv_field(
+                phi, *r1, wv, wv, logv, done)),
+            "plain_ms": device_ms(lambda: n4_cuda.fit_delta_conv_field_plain(
+                phi, *r1, wv, wv, logv, done)),
+            "library_ms": None, "bound_ms": b, "bound_by": by}
+
+
 def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
     """Slice vol/s (median of 5 synchronised runs), the N4 and CI stages,
-    and each kernel's time beside its plain version's, at the main path's
-    shapes."""
+    and each kernel's device time beside its plain version's, its one-call
+    PyTorch yardstick where there is one, and its bound, at the main
+    path's shapes (K1 and K2 at every ncp N4 runs, K4 and K5 on the first
+    and a late residual).  Returns {kernel: record}."""
     from ventjax_torch.ops import ci_cuda
     from ventjax_torch.ops import ci_densify_cuda as cd
     from ventjax_torch.ops import ci_pairwise as tcp
@@ -822,56 +974,90 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
     log("stages, median ms (host clock, synchronised): "
         + json.dumps({k: round(v, 2) for k, v in stages.items()}))
 
-    bv, wv, logv = fit_inputs(hp, mask, n4_pad, 11, dev)
-    r1 = [tn4._rows(b, 1) for b in bv]
-    r3 = [tn4._rows(b, 3) for b in bv]
-    a = wv * 0.1
-    phi = torch.full((BATCH, 11, 121), 0.05, device=dev)
-    done = torch.zeros(BATCH, device=dev)
-    ms = {
-        "fit_moment": (cuda_ms(lambda: n4_cuda.fit_moment(a, *r3)),
-                       cuda_ms(lambda: n4_cuda.fit_moment_plain(a, *r3))),
-        "fit_delta_conv_field": (
-            cuda_ms(lambda: n4_cuda.fit_delta_conv_field(
-                phi, *r1, wv, wv, logv, done)),
-            cuda_ms(lambda: n4_cuda.fit_delta_conv_field_plain(
-                phi, *r1, wv, wv, logv, done))),
-        "fit_delta": (cuda_ms(lambda: n4_cuda.fit_delta(phi, *r1)),
-                      cuda_ms(lambda: n4_cuda.fit_delta_plain(phi, *r1))),
-        "fit_delta_conv": (
-            cuda_ms(lambda: n4_cuda.fit_delta_conv(phi, *r1, wv)),
-            cuda_ms(lambda: n4_cuda.fit_delta_conv_plain(phi, *r1, wv))),
-    }
-    logu, wv, sv, bmn, slope = sharpen_inputs(hp, mask, n4_pad, dev)
-    e_loc = expectation(sc.sharpen_hist(logu, wv, bmn, slope, BINS), bmn,
-                        slope)
-    ms["sharpen_hist"] = tuple(cuda_ms(lambda f=f: f(
-        logu, wv, bmn, slope, BINS)) for f in (sc.sharpen_hist,
-                                               sc.sharpen_hist_plain))
-    ms["sharpen_resid"] = tuple(cuda_ms(lambda f=f: f(
-        logu, wv, sv, e_loc, bmn, slope, BINS)) for f in (
-            sc.sharpen_resid, sc.sharpen_resid_plain))
+    rec = {}
+    gen = np.random.default_rng(SEED + 2)
+    for ncp in FIT_NCPS:
+        bv, wv, logv = fit_inputs(hp, mask, n4_pad, ncp, dev)
+        r1, r3 = ([tn4._rows(b, k) for b in bv] for k in (1, 3))
+        a = smooth_residual(wv, gen)
+        phi = torch.full((BATCH, ncp, ncp * ncp), 0.05, device=dev)
+        done = torch.zeros(BATCH, device=dev)
+        for name, r in (("fit_moment", k1_record(a, r3, wv)),
+                        ("fit_delta_conv_field",
+                         k2_record(phi, r1, wv, logv, done))):
+            rec.setdefault(name, {"by_shape": {}})["by_shape"][
+                f"ncp{ncp}"] = r
+        if ncp == 11:
+            phi4 = phi.reshape(BATCH, ncp, ncp, ncp)
+            c, d, e = (nnz_rows(x) for x in r1)
+            terms = float((c * d * e + c * d + c).sum())
+            nb = BATCH * n4_pad * 3 * ncp * 4 + BATCH * ncp ** 3 * 4
+            b6 = bound(nb + BATCH * n4_pad * 4, 2 * terms)
+            b7 = bound(nb + BATCH * n4_pad * 8 + BATCH * 8, 2 * terms)
+            rec["fit_delta"] = {
+                "ms": device_ms(lambda: n4_cuda.fit_delta(phi, *r1)),
+                "plain_ms": device_ms(lambda: n4_cuda.fit_delta_plain(
+                    phi, *r1)),
+                "library_ms": device_ms(lambda: torch.einsum(
+                    "ncde,ncp,ndp,nep->np", phi4, *r1), reps=5),
+                "bound_ms": b6[0], "bound_by": b6[1]}
+            rec["fit_delta_conv"] = {
+                "ms": device_ms(lambda: n4_cuda.fit_delta_conv(
+                    phi, *r1, wv)),
+                "plain_ms": device_ms(lambda: n4_cuda.fit_delta_conv_plain(
+                    phi, *r1, wv)),
+                "library_ms": None, "bound_ms": b7[0], "bound_by": b7[1]}
+    for name in ("fit_moment", "fit_delta_conv_field"):
+        rec[name].update({k: v for k, v in rec[name]["by_shape"][
+            "ncp11"].items() if k != "library_rel_err"})
+
+    for tag, (logu, wv, sv, bmn, slope) in (
+            ("first", sharpen_inputs(hp, mask, n4_pad, dev)),
+            ("late", late_residual(hp, mask, n4_pad, dev))):
+        e_loc = expectation(sc.sharpen_hist(logu, wv, bmn, slope, BINS),
+                            bmn, slope)
+        nv = BATCH * n4_pad
+        b4 = bound(nv * 8 + BATCH * (BINS + 2) * 4, 0)
+        b5 = bound(nv * 16 + BATCH * (BINS + 4) * 4, 0)
+        rec.setdefault("sharpen_hist", {"by_shape": {}})["by_shape"][tag] = {
+            "ms": device_ms(lambda: sc.sharpen_hist(logu, wv, bmn, slope,
+                                                    BINS)),
+            "plain_ms": device_ms(lambda: sc.sharpen_hist_plain(
+                logu, wv, bmn, slope, BINS)),
+            "library_ms": None, "bound_ms": b4[0], "bound_by": b4[1]}
+        rec.setdefault("sharpen_resid", {"by_shape": {}})["by_shape"][tag] = {
+            "ms": device_ms(lambda: sc.sharpen_resid(
+                logu, wv, sv, e_loc, bmn, slope, BINS)),
+            "plain_ms": device_ms(lambda: sc.sharpen_resid_plain(
+                logu, wv, sv, e_loc, bmn, slope, BINS)),
+            "library_ms": None, "bound_ms": b5[0], "bound_by": b5[1]}
+    for name in ("sharpen_hist", "sharpen_resid"):
+        rec[name].update(rec[name]["by_shape"]["late"])
+
     coords, cidx, _, valid = tcp.defect_coords(res.defect, K)
     ns = min(96, geom.n_balls - 1)
     r2 = torch.as_tensor(geom.r2_32[:ns], device=dev)
     combos = tcp._alias_combos(geom)
-    ms["head_counts"] = (
-        cuda_ms(lambda: ci_cuda.head_counts(coords, coords, r2, combos,
-                                            geom.scale, geom.rmax)),
-        cuda_ms(lambda: ci_cuda.head_counts_plain(coords, coords, r2, combos,
-                                                  geom.scale, geom.rmax),
-                reps=5))
+    nval = valid.sum(1).double()
+    b3 = bound(BATCH * K * (6 * 4 + ns * 4),
+               5 * len(combos) * float((nval * nval).sum()))
+    rec["head_counts"] = {
+        "ms": device_ms(lambda: ci_cuda.head_counts(
+            coords, coords, r2, combos, geom.scale, geom.rmax)),
+        "plain_ms": device_ms(lambda: ci_cuda.head_counts_plain(
+            coords, coords, r2, combos, geom.scale, geom.rmax), reps=5),
+        "library_ms": None, "bound_ms": b3[0], "bound_by": b3[1]}
     V = int(np.prod(SHAPE))
     d01 = (res.defect != 0).reshape(BATCH, V)
     rank = cd.rank(d01)
     cv = torch.rand((BATCH, K), device=dev)
-    ms["rank"] = (cuda_ms(lambda: cd.rank(d01)),
-                  cuda_ms(lambda: cd.rank_plain(d01)))
-    ms["densify_rank"] = (
-        cuda_ms(lambda: cd.densify_rank(rank, d01, cv, K)),
-        cuda_ms(lambda: cd.densify_rank_plain(rank, d01, cv, K)))
-    for k, (kern, plain) in ms.items():
-        log(f"time {k}: kernel {kern:.4f} ms, plain {plain:.4f} ms")
+    b9 = bound(BATCH * V * 5, 0)
+    rec["rank"] = {
+        "ms": device_ms(lambda: cd.rank(d01)),
+        "plain_ms": device_ms(lambda: cd.rank_plain(d01)),
+        "library_ms": device_ms(lambda: torch.cumsum(d01, 1,
+                                                     dtype=torch.int32)),
+        "bound_ms": b9[0], "bound_by": b9[1]}
 
     def scatter():
         flat = torch.zeros((BATCH, V + 1), device=dev)
@@ -879,11 +1065,97 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
                       cv)
         return flat[:, :V].reshape(res.defect.shape)
 
-    dense_ms = (cuda_ms(lambda: cd.densify_rank(cd.rank(d01), d01, cv, K)),
-                cuda_ms(scatter))
-    log(f"time dense CI map (K {K}): rank+densify {dense_ms[0]:.4f} ms, "
-        f"scatter {dense_ms[1]:.4f} ms")
-    return med, ms
+    b8 = bound(BATCH * V * 9 + BATCH * K * 4, 0)
+    rec["densify_rank"] = {
+        "ms": device_ms(lambda: cd.densify_rank(rank, d01, cv, K)),
+        "plain_ms": device_ms(lambda: cd.densify_rank_plain(rank, d01, cv,
+                                                            K)),
+        "library_ms": None, "bound_ms": b8[0], "bound_by": b8[1],
+        "scatter_ms": device_ms(scatter)}
+    for k, r in rec.items():
+        for shape, x in ([(None, r)] + sorted(r.get("by_shape", {}).items())):
+            log(f"time {k}{'' if shape is None else ' ' + shape}: "
+                + " ".join(f"{f} {x[f]:.4f}" for f in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "scatter_ms")
+                    if x.get(f) is not None) + f" ({x['bound_by']})")
+    return med, rec
+
+
+@contextlib.contextmanager
+def lib_of(mod, lib):
+    """The wrappers of ops module mod launch from lib inside the block."""
+    saved = mod._lib
+    mod._lib = lambda: mod._typed(lib)
+    try:
+        yield
+    finally:
+        mod._lib = saved
+
+
+def phase_parent(parent, hp, mask, n4_pad, dev):
+    """K1 and K4 of this tree against an older version of their sources
+    (parent/n4_fit.cu, parent/n4_sharpen.cu), built here under their own
+    names, in one run: device ms in turns (older, this, this, older), K1
+    both within KERNEL_RTOL of the plain version, K4 and K2 bit-equal."""
+    from pathlib import Path
+
+    from ventjax_torch import _build
+    from ventjax_torch.ops import n4 as tn4
+    from ventjax_torch.ops import n4_cuda
+    from ventjax_torch.ops import n4_sharpen_cuda as sc
+
+    parent = Path(parent).resolve()
+    libs = {n: _build.load(n, parent) for n in ("n4_fit", "n4_sharpen")}
+    out = {}
+    gen = np.random.default_rng(SEED + 3)
+
+    def turns(mod, lib, fn):
+        with lib_of(mod, lib):
+            a = device_ms(fn)
+        b, c = device_ms(fn), device_ms(fn)
+        with lib_of(mod, lib):
+            d = device_ms(fn)
+        return {"parent_ms": (a + d) / 2, "ms": (b + c) / 2,
+                "turns": [a, b, c, d]}
+
+    for ncp in FIT_NCPS:
+        bv, wv, logv = fit_inputs(hp, mask, n4_pad, ncp, dev)
+        r1, r3 = ([tn4._rows(b, k) for b in bv] for k in (1, 3))
+        a = smooth_residual(wv, gen)
+        want = n4_cuda.fit_moment_plain(a, *r3)
+        with lib_of(n4_cuda, libs["n4_fit"]):
+            old = n4_cuda.fit_moment(a, *r3)
+            phi = torch.where(want != 0, want / want.abs().max(),
+                              torch.zeros_like(want))
+            k2_old = n4_cuda.fit_delta_conv_field(
+                phi, *r1, wv, wv, logv, torch.zeros(BATCH, device=dev))
+        k2_new = n4_cuda.fit_delta_conv_field(
+            phi, *r1, wv, wv, logv, torch.zeros(BATCH, device=dev))
+        errs = {"new": scaled_err(n4_cuda.fit_moment(a, *r3), want),
+                "parent": scaled_err(old, want)}
+        k2_same = all(torch.equal(x, y) for x, y in zip(k2_old, k2_new))
+        out[f"fit_moment ncp{ncp}"] = {**turns(
+            n4_cuda, libs["n4_fit"], lambda: n4_cuda.fit_moment(a, *r3)),
+            "rel_err": errs, "K2_bit_equal": k2_same}
+        if not (max(errs.values()) <= KERNEL_RTOL and k2_same):
+            raise AssertionError(f"K1/K2 against the older sources at ncp "
+                                 f"{ncp}: {errs} K2 equal {k2_same}")
+    for tag, (logu, wv, sv, bmn, slope) in (
+            ("first", sharpen_inputs(hp, mask, n4_pad, dev)),
+            ("late", late_residual(hp, mask, n4_pad, dev))):
+        with lib_of(sc, libs["n4_sharpen"]):
+            old = sc.sharpen_hist(logu, wv, bmn, slope, BINS)
+        same = bool(torch.equal(old, sc.sharpen_hist(logu, wv, bmn, slope,
+                                                     BINS)))
+        out[f"sharpen_hist {tag}"] = {**turns(
+            sc, libs["n4_sharpen"],
+            lambda: sc.sharpen_hist(logu, wv, bmn, slope, BINS)),
+            "bit_equal": same}
+        if not same:
+            raise AssertionError(f"K4 differs from the older K4 ({tag})")
+    for k, v in out.items():
+        log(f"parent {k}: " + json.dumps(v))
+    return out
 
 
 def phase_profile(cfg, geom, hp_d, mask_d):
@@ -905,8 +1177,14 @@ def phase_profile(cfg, geom, hp_d, mask_d):
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     span_us = (max(e.time_range.end for e in events)
                - min(e.time_range.start for e in events)) if events else 0
-    table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=40)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="self_cuda_time_total", row_limit=40)
+    for label, names in (("K1", ("moment_partial", "reduce_chunks")),
+                         ("K4", ("hist_partial", "hist_finish"))):
+        rows = [e for e in averages if any(n in e.key for n in names)]
+        log(f"profile {label}: " + "; ".join(
+            f"{e.key.split('namespace)::')[-1].split('(')[0]} x{e.count} "
+            f"{e.self_device_time_total / 1e3:.4f} ms" for e in rows))
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "profile_slice.txt").write_text(table)
@@ -916,52 +1194,67 @@ def phase_profile(cfg, geom, hp_d, mask_d):
         f"chiprun_out/profile_slice.txt")
 
 
+KERNELS = {   # name: (source, the TPU kernel it replaces)
+    "fit_moment": ("ventjax_torch/csrc/n4_fit.cu",
+                   "ventjax/ops/n4_pallas.py:106"),
+    "fit_delta_conv_field": ("ventjax_torch/csrc/n4_fit.cu",
+                             "ventjax/ops/n4_pallas.py:422"),
+    "fit_delta": ("ventjax_torch/csrc/n4_fit.cu",
+                  "ventjax/ops/n4_pallas.py:148"),
+    "fit_delta_conv": ("ventjax_torch/csrc/n4_fit.cu",
+                       "ventjax/ops/n4_pallas.py:471"),
+    "sharpen_hist": ("ventjax_torch/csrc/n4_sharpen.cu",
+                     "ventjax/ops/n4_pallas.py:249"),
+    "sharpen_resid": ("ventjax_torch/csrc/n4_sharpen.cu",
+                      "ventjax/ops/n4_pallas.py:315"),
+    "head_counts": ("ventjax_torch/csrc/ci_head.cu",
+                    "ventjax/ops/ci_pallas.py:116"),
+    "rank": ("ventjax_torch/csrc/ci_densify.cu",
+             "ventjax/ops/ci_pallas.py:305"),
+    "densify_rank": ("ventjax_torch/csrc/ci_densify.cu",
+                     "ventjax/ops/ci_pallas.py:233"),
+}
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR", help=(
+        "also build DIR/n4_fit.cu and DIR/n4_sharpen.cu (an older version "
+        "of the sources) and time K1 and K4 against them"))
+    args = ap.parse_args()
     dev, card = phase_device()
     phase_build()
     hp, mask, n4_pad = headline_cohort()
     max_err = phase_kernels(hp, mask, n4_pad, dev)
     cfg, geom, hp_d, mask_d, res, launches, syncs = phase_slice(
         hp, mask, n4_pad, dev)
+    per_batch = dict(launches)
     launches.update(phase_densify(res, geom, cfg, dev))
     launches.update(phase_fit_chain(hp, mask, n4_pad, dev))
     phase_ladder(cfg, res, hp_d, mask_d)
     rate = phase_cohort(dev)
-    med, ms = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
-                           dev)
+    med, rec = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
+                            dev)
+    if args.parent:
+        phase_parent(args.parent, hp, mask, n4_pad, dev)
     phase_profile(cfg, geom, hp_d, mask_d)
     log(f"summary: card={card!r} slice_vol_per_s={BATCH * 1e3 / med:.3f} "
         f"cohort_subjects_per_s={rate:.3f} n4_host_syncs={syncs} "
         f"ci_max_defect_voxels={cfg.ci_max_defect_voxels} "
         f"n4_mask_pad={n4_pad}")
-    src = {
-        "fit_moment": ("ventjax_torch/csrc/n4_fit.cu",
-                       "ventjax/ops/n4_pallas.py:106"),
-        "fit_delta_conv_field": ("ventjax_torch/csrc/n4_fit.cu",
-                                 "ventjax/ops/n4_pallas.py:422"),
-        "fit_delta": ("ventjax_torch/csrc/n4_fit.cu",
-                      "ventjax/ops/n4_pallas.py:148"),
-        "fit_delta_conv": ("ventjax_torch/csrc/n4_fit.cu",
-                           "ventjax/ops/n4_pallas.py:471"),
-        "sharpen_hist": ("ventjax_torch/csrc/n4_sharpen.cu",
-                         "ventjax/ops/n4_pallas.py:249"),
-        "sharpen_resid": ("ventjax_torch/csrc/n4_sharpen.cu",
-                          "ventjax/ops/n4_pallas.py:315"),
-        "head_counts": ("ventjax_torch/csrc/ci_head.cu",
-                        "ventjax/ops/ci_pallas.py:116"),
-        "rank": ("ventjax_torch/csrc/ci_densify.cu",
-                 "ventjax/ops/ci_pallas.py:305"),
-        "densify_rank": ("ventjax_torch/csrc/ci_densify.cu",
-                         "ventjax/ops/ci_pallas.py:233"),
-    }
+    log("launches per headline batch: " + json.dumps(per_batch))
     kernels = [{"name": k, "route": "cuda", "source": s, "replaces": r,
-                "launches": launches[k], "max_abs_err": max_err[k],
-                "ms": ms[k][0], "plain_ms": ms[k][1]}
-               for k, (s, r) in src.items()]
-    jax_mods = sorted(m for m in sys.modules
-                      if m == "jax" or m.startswith(("jax.", "jaxlib")))
-    if jax_mods:
-        raise AssertionError(f"the port loaded JAX: {jax_mods[:5]}")
+                "launches": launches[k],
+                "launches_per_batch": per_batch[k],
+                "max_abs_err": max_err[k], **rec[k]}
+               for k, (s, r) in KERNELS.items()]
+    bad = sorted(m for m in sys.modules
+                 if m in ("jax", "jaxlib", "ventjax")
+                 or m.startswith(("jax.", "jaxlib.", "ventjax.")))
+    if bad:
+        raise AssertionError(f"the port loaded JAX or ventjax: {bad[:5]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

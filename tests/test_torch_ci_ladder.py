@@ -16,12 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from ventjax.config import DEFAULT_CONFIG
 from ventjax.io.phantom import make_cohort
 from ventjax.ops import ci as jci
 from ventjax.oracle.ci_oracle import (
     calculate_ci_oracle, shell_structure, sphere_pixels,
 )
+from ventjax_torch.config import DEFAULT_CONFIG
 from ventjax_torch.ops import ci as tci
 from ventjax_torch.ops.ci_pairwise import (
     CIPairwiseGeometry, build_ci_pairwise_geometry,

@@ -17,11 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from ventjax.config import DEFAULT_CONFIG
+from ventjax.config import DEFAULT_CONFIG as JAX_DEFAULT_CONFIG
 from ventjax.io.nifti import load as nifti_load
 from ventjax.io.phantom import make_cohort, make_phantom
 from ventjax.io.synthetic import write_study
 from ventjax.pipeline.cohort import run_cohort as jax_run_cohort
+from ventjax_torch.config import DEFAULT_CONFIG
 from ventjax_torch.ops.ci import CIGeometry
 from ventjax_torch.pipeline import (
     analyze_cohort, analyze_cohort_grouped, build_geometry, make_analyze_fn,
@@ -33,8 +34,9 @@ torch.set_num_threads(2)
 SHAPE = (32, 32, 8)
 VOX = (1.5, 1.5, 10.0)
 LADDER_VOX = (3.125, 3.125, 15.0)   # fails the pairwise proof at rmax 16
-FAST = DEFAULT_CONFIG.replace(ci_max_defect_voxels=512, ci_rmax=16,
-                              n4_fitting_levels=2, n4_max_iters=5)
+FAST_KW = dict(ci_max_defect_voxels=512, ci_rmax=16, n4_fitting_levels=2,
+               n4_max_iters=5)
+FAST = DEFAULT_CONFIG.replace(**FAST_KW)
 
 
 def _entry(root, sid):
@@ -80,8 +82,9 @@ def two_geometries(tmp_path_factory):
     manifest.append(_entry(str(tmp / "missing"), "broken"))
     events = []
     port = tc.run_cohort(manifest, str(tmp / "port"), config=FAST,
-                         progress=lambda *a: events.append(a))
-    ref = jax_run_cohort(manifest[:2], str(tmp / "ref"), config=FAST,
+                         progress=lambda *a: events.append(a), device="cpu")
+    ref = jax_run_cohort(manifest[:2], str(tmp / "ref"),
+                         config=JAX_DEFAULT_CONFIG.replace(**FAST_KW),
                          use_mesh=False, compact_export=False)
     return tmp, manifest, port, ref, events
 
@@ -134,11 +137,11 @@ def test_run_cohort_resumes_from_markers(two_geometries, monkeypatch):
         raise AssertionError("a resumed subject was analysed again")
 
     monkeypatch.setattr(tc, "analyze_cohort", no_analysis)
-    again = tc.run_cohort(manifest[:2], out, config=FAST)
+    again = tc.run_cohort(manifest[:2], out, config=FAST, device="cpu")
     assert _js(again) == _js([r for r in port if r["id"] != "broken"])
     monkeypatch.undo()
     os.remove(os.path.join(out, "s0", ".done"))
-    redo = tc.run_cohort(manifest[:2], out, config=FAST)
+    redo = tc.run_cohort(manifest[:2], out, config=FAST, device="cpu")
     assert len(redo) == 2 and os.path.exists(os.path.join(out, "s0", ".done"))
     assert _js(redo) == _js([r for r in port if r["id"] != "broken"])
 
@@ -154,7 +157,7 @@ def test_retry_on_overflow_matches_direct_run(tmp_path):
     runners = {}
     res = {r["id"]: r for r in tc.run_cohort(
         manifest, str(tmp_path / "out"), config=cfg, batch_size=2,
-        runners=runners)}
+        runners=runners, device="cpu")}
     runner = next(iter(runners.values()))
     assert runner.ci_bucket > 512
     direct_cfg = cfg.replace(ci_max_defect_voxels=runner.ci_bucket,
@@ -180,7 +183,8 @@ def test_overflow_flag_stands_at_ceiling_with_complete_defects(tmp_path):
     ph = _big_defect_phantom(40)
     cfg = FAST.replace(ci_max_defect_voxels=256)
     res = tc.run_cohort([_write(tmp_path, "s", phantom=ph)],
-                        str(tmp_path / "out"), config=cfg, batch_size=1)
+                        str(tmp_path / "out"), config=cfg, batch_size=1,
+                        device="cpu")
     m = res[0]
     assert m["valid"] and m["CI_overflow"]
     assert json.load(open(tmp_path / "out" / "s" / "metrics.json"))[
@@ -199,7 +203,7 @@ def test_bump_policy(vox, pairwise):
     pairwise engine only (the ladder has no tail budget), then the flag
     stands; N4 growth is independent."""
     cfg = FAST.replace(ci_max_defect_voxels=1024)
-    r = tc._GeometryRunner((64, 64, 8), vox, cfg, 1)
+    r = tc._GeometryRunner((64, 64, 8), vox, cfg, 1, device="cpu")
     assert r.ci_bucket == 512 and not r.ci_tail_full
     assert r.bump_for_retry(True, False, (512, 8192, False))
     assert r.ci_bucket == 1024 and not r.ci_tail_full
@@ -217,8 +221,9 @@ def test_bump_policy(vox, pairwise):
 def test_adaptive_pad_sizes():
     """adaptive_pad pads a partial batch to the next power of two (at most
     the batch size); the default pads to the batch size."""
-    fixed = tc._GeometryRunner(SHAPE, VOX, FAST, 8)
-    adaptive = tc._GeometryRunner(SHAPE, VOX, FAST, 8, adaptive_pad=True)
+    fixed = tc._GeometryRunner(SHAPE, VOX, FAST, 8, device="cpu")
+    adaptive = tc._GeometryRunner(SHAPE, VOX, FAST, 8, adaptive_pad=True,
+                                  device="cpu")
     assert [fixed._eff_bs(n) for n in (1, 3, 8)] == [8, 8, 8]
     assert [adaptive._eff_bs(n) for n in (1, 3, 5, 8)] == [1, 4, 8, 8]
     hp, mask, _ = make_cohort(1, SHAPE, VOX, seed=3)
@@ -238,7 +243,7 @@ def test_tail_escalation_clears_dense_cluster_overflow():
     mask[2:30, 2:30, :] = 1.0
     hp[mask > 0] = 400.0
     hp[8:24, 8:24, 1:7] = 4.0        # a deep 16x16x6 defect cluster
-    runner = tc._GeometryRunner(SHAPE, vox, cfg, 1)
+    runner = tc._GeometryRunner(SHAPE, vox, cfg, 1, device="cpu")
     runner.ci_bucket = 2048          # straight to the ceiling
     batch = [({"id": "t"}, (hp, mask, vox, None, None))]
     for attempt in range(3):
@@ -268,7 +273,7 @@ def test_invalid_lane_does_not_drive_escalation(tmp_path):
     runners = {}
     res = {r["id"]: r for r in tc.run_cohort(
         manifest, str(tmp_path / "out"), config=FAST.replace(ci_rmax=12),
-        batch_size=2, runners=runners)}
+        batch_size=2, runners=runners, device="cpu")}
     assert res["ok"]["valid"] and not res["bad"]["valid"]
     assert res["bad"]["CI_overflow"]
     runner = next(iter(runners.values()))
@@ -278,7 +283,7 @@ def test_invalid_lane_does_not_drive_escalation(tmp_path):
 def test_dispatch_reads_bucket_state_under_lock():
     """Every read of the sticky state in dispatch happens under
     _bucket_lock, so the pads it runs with are one snapshot."""
-    runner = tc._GeometryRunner(SHAPE, VOX, FAST, 1)
+    runner = tc._GeometryRunner(SHAPE, VOX, FAST, 1, device="cpu")
     lock = runner._bucket_lock
     unlocked = []
 

@@ -7,22 +7,23 @@ an NVIDIA GPU and nvcc, from the repository root:
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX; this file
-imports no JAX.)  Tolerances: K1/K2/K6/K7 relative 1e-5 of each output's
-largest magnitude, the same float32 algorithm in another summation order
-(and K7 bit-equal to K2 with done = 0 and to the flushed, weighted K6: they
-share their code); K4
-relative 1e-5 of the largest bin against its plain version, whose float32
-atomics sum in another order (the kernel's fixed-point sum is nearer the
-exact one), and bit-identical from launch to launch; K5 bit-equal, the same
-float32 operations in the same order; K3, K8, K9 and the CI maps of both
-engines bit-equal.
+imports no JAX, and nothing of the ventjax package.)  Tolerances:
+K1/K2/K6/K7 relative 1e-5 of each output's largest magnitude, the same
+float32 algorithm in another summation order (and K7 bit-equal to K2 with
+done = 0 and to the flushed, weighted K6: they share their code); K1
+bit-identical from launch to launch; K4 relative 1e-5 of the largest bin
+against its plain version, whose float32 atomics sum in another order (the
+kernel's fixed-point sum is nearer the exact one), bit-equal to its exact
+fixed-point plain version, and bit-identical from launch to launch; K5
+bit-equal, the same float32 operations in the same order; K3, K8, K9 and
+the CI maps of both engines bit-equal.
 """
 import numpy as np
 import pytest
 import torch
 
-from ventjax.config import DEFAULT_CONFIG
-from ventjax.io.phantom import make_cohort
+from ventjax_torch.config import DEFAULT_CONFIG
+from ventjax_torch.io.phantom import make_cohort
 from ventjax_torch.ops import ci as tci
 from ventjax_torch.ops import ci_cuda, ci_densify_cuda, n4_cuda
 from ventjax_torch.ops import ci_pairwise as tcp
@@ -76,6 +77,54 @@ def test_fit_kernels_every_ncp(cuda, ncp):
     assert _err(got[1], want[1]) < RTOL
     assert _err(got[2], want[2]) < RTOL
     assert torch.equal(got[0][1], field[1])     # the frozen lane
+
+
+def _spline_lanes(ncp, P, gen, dev, power):
+    """B-spline rows of N4's shape for five lanes of P compacted voxels of a
+    40x32x8 grid: raster order; raster order with a = 0; only the first
+    two rows of h (non-zero window at c = 0); only the last row (window at
+    c = ncp - 1); shuffled order (wide windows everywhere).  Returns a
+    [5, P] and the three [5, ncp, P] rows."""
+    H, W, D = 40, 32, 8
+    n_el = ncp - 3 if ncp > 3 else 1
+    vol = np.arange(H * W * D)
+    hs = vol // (W * D)
+    pools = [vol, vol, vol[hs <= 1], vol[hs == H - 1], vol]
+    idx = np.stack([np.sort(gen.choice(pool, P)) for pool in pools])
+    idx[4] = gen.permutation(idx[4])
+    idx = torch.from_numpy(idx).to(dev)
+    bv = [tn4._bspline_rows(c, n, n_el) for c, n in (
+        (idx // (W * D), H), ((idx // D) % W, W), (idx % D, D))]
+    if ncp <= 3:     # the kernels take any ncp; keep the rows' width
+        bv = [b[..., :ncp] for b in bv]
+    rows = [tn4._rows(b, power) for b in bv]
+    a = torch.from_numpy(gen.normal(size=(5, P)).astype(np.float32)).to(dev)
+    a[1] = 0.0
+    return a, rows
+
+
+@pytest.mark.parametrize("P", [4099, 6144])
+@pytest.mark.parametrize("ncp", [1, 4, 5, 7, 11, 16])
+def test_fit_moment_spline_rows(cuda, ncp, P):
+    """K1 on B-spline rows as N4 gives them (the zero-row skips at work), at
+    P not a multiple of the tile (256) or the chunk (2048), 4-byte and
+    16-byte staging: within RTOL of the plain version, a lane with a = 0
+    exactly 0, and bit-identical on relaunch."""
+    gen = np.random.default_rng(1000 + ncp + P)
+    for power in (2, 3):
+        a, rows = _spline_lanes(ncp, P, gen, cuda, power)
+        got = n4_cuda.fit_moment(a, *rows)
+        want = n4_cuda.fit_moment_plain(a, *rows)
+        for n in range(5):
+            if bool(want[n].any()):
+                assert _err(got[n], want[n]) < RTOL, (power, n)
+            else:          # a = 0, or (ncp 1) no support in the last row
+                assert not bool(got[n].any()), (power, n)
+        assert not bool(got[1].any())
+        assert torch.equal(got, n4_cuda.fit_moment(a, *rows))
+        den = n4_cuda.fit_moment(torch.ones_like(a), *rows)
+        assert _err(den, n4_cuda.fit_moment_plain(torch.ones_like(a), *rows)
+                    ) < RTOL
 
 
 @pytest.mark.parametrize("ncp", list(range(1, n4_cuda.MAX_NCP + 1)))
@@ -177,6 +226,27 @@ def test_sharpen_hist_kernel(cuda, bins):
     assert torch.equal(got[1], want[1])        # one bin of whole voxels
 
 
+@pytest.mark.parametrize("P", [10000, 10001])
+@pytest.mark.parametrize("width", ["wide", "narrow"])
+def test_sharpen_hist_equals_fixed_plain(cuda, width, P):
+    """K4 equals its exact fixed-point plain version bit for bit, on a wide
+    residual and on a narrow one (most voxels of a warp in one bin, where
+    the warp-aggregated sums do the work), with 16-byte (P % 4 == 0) and
+    scalar loads."""
+    gen = np.random.default_rng(P)
+    lu, wv, bmn, slope = _sharpen_lanes(5, P, gen, cuda, 200)
+    if width == "narrow":
+        lu = torch.where(wv > 0, 5.0 + (lu - 5.0) * 1e-4, lu)
+        bmn, bmx = tn4._masked_range(lu, wv)
+        slope = (bmx - bmn) * 20.0 / 199     # all voxels in ~10 bins
+    got = sc.sharpen_hist(lu, wv, bmn, slope, 200)
+    assert torch.equal(got, sc.sharpen_hist_fixed_plain(lu, wv, bmn, slope,
+                                                        200))
+    assert torch.equal(got.cpu(), sc.sharpen_hist_fixed_plain(
+        lu.cpu(), wv.cpu(), bmn.cpu(), slope.cpu(), 200))
+    assert torch.equal(got, sc.sharpen_hist(lu, wv, bmn, slope, 200))
+
+
 def test_sharpen_resid_kernel(cuda):
     gen = np.random.default_rng(7)
     bins = 200
@@ -257,7 +327,7 @@ def test_ladder_engine_through_pipeline_on_card(cuda):
 def test_run_cohort_on_card(cuda, tmp_path):
     """The cohort driver on the card: every subject exported, metrics
     within 0.1 pp of the same driver on the CPU."""
-    from ventjax.io.synthetic import write_study
+    from ventjax_torch.io.synthetic import write_study
     from ventjax_torch.pipeline import cohort as tc
 
     manifest = []
@@ -268,14 +338,14 @@ def test_run_cohort_on_card(cuda, tmp_path):
                          "mask": f"{root}/mask"})
     runners = {}
     gpu = tc.run_cohort(manifest, str(tmp_path / "gpu"), batch_size=2,
-                        runners=runners)
+                        runners=runners, device=cuda)
     assert next(iter(runners.values())).device.type == "cuda"
     cpu_runners = {}
     for geo in runners:
         cpu_runners[geo] = tc._GeometryRunner(geo[0], geo[1], DEFAULT_CONFIG,
                                               2, device="cpu")
     cpu = tc.run_cohort(manifest, str(tmp_path / "cpu"), batch_size=2,
-                        runners=cpu_runners)
+                        runners=cpu_runners, device="cpu")
     g = {r["id"]: r for r in gpu}
     for r in cpu:
         assert g[r["id"]]["valid"] and not g[r["id"]]["CI_overflow"]

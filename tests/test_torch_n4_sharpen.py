@@ -91,6 +91,36 @@ def test_sharpen_hist_plain_matches_pallas_and_f64():
         assert abs(got.astype(np.float64).sum() - mass) < 1e-6 * mass
 
 
+@pytest.mark.parametrize("width", ["wide", "narrow"])
+def test_sharpen_hist_fixed_plain_is_exact_fixed_point(width):
+    """K4's exact arithmetic on the CPU: within 1e-5 of the largest bin of
+    the float32 plain version and of float64 (both differ from it by float32
+    rounding in t and, for the plain version, in its running sums), and
+    equal bit for bit to the same integer sum done in NumPy."""
+    lu, wv, bmn, slope = _lanes()
+    if width == "narrow":       # late in a level: most voxels in a few bins
+        lu = torch.where(wv > 0, 5.0 + (lu - 5.0) * 1e-3, lu)
+        bmn = bmn * 0 + 4.99
+        slope = slope * 0 + 1e-4
+    got = sc.sharpen_hist_fixed_plain(lu, wv, bmn, slope, BINS)
+    assert got.shape == (2, BINS) and got.dtype == torch.float32
+    plain = sc.sharpen_hist_plain(lu, wv, bmn, slope, BINS)
+    i0, f = sc._split(sc._t_index(lu, wv, bmn, slope, BINS), BINS)
+    for n in range(2):
+        exact = _hist_f64(lu[n].numpy(), wv[n].numpy(), float(bmn[n]),
+                          float(slope[n]))
+        top = exact.max()
+        assert np.abs(got[n].numpy() - exact).max() < 1e-5 * top
+        assert np.abs(got[n].numpy() - plain[n].numpy()).max() < 1e-5 * top
+        ints = np.zeros(BINS + 2, np.int64)
+        for idx, v in ((i0[n], wv[n] * (1.0 - f[n])),
+                       (i0[n] + 1, wv[n] * f[n])):
+            np.add.at(ints, idx.numpy(), np.rint(
+                v.numpy().astype(np.float64) * 2.0 ** 32).astype(np.int64))
+        want = (ints[:BINS].astype(np.float64) / 2.0 ** 32).astype(np.float32)
+        np.testing.assert_array_equal(got[n].numpy(), want)
+
+
 def test_sharpen_resid_plain_matches_pallas_and_xla():
     lu, wv, bmn, slope = _lanes()
     sv = torch.from_numpy(np.random.default_rng(5).random(

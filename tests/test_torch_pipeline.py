@@ -18,18 +18,22 @@ import numpy as np
 import pytest
 import torch
 
-from ventjax.config import DEFAULT_CONFIG
+from ventjax.config import DEFAULT_CONFIG as JAX_DEFAULT_CONFIG
 from ventjax.io.phantom import make_cohort
 from ventjax.oracle.ci_oracle import calculate_ci_oracle, subject_ci
 from ventjax.pipeline.analyze import analyze_cohort as jax_analyze_cohort
 from ventjax.pipeline.analyze import build_geometry as jax_build_geometry
-from ventjax_torch.pipeline import analyze_cohort, analyze_study, build_geometry
+from ventjax_torch.config import DEFAULT_CONFIG
+from ventjax_torch.pipeline import (
+    analyze_cohort, analyze_study, build_geometry,
+)
 
 torch.set_num_threads(2)
 
 SHAPE = (64, 64, 8)
 VOX = (1.5, 1.5, 10.0)
 CFG = DEFAULT_CONFIG.replace(ci_max_defect_voxels=1024, n4_mask_pad=8192)
+JCFG = JAX_DEFAULT_CONFIG.replace(ci_max_defect_voxels=1024, n4_mask_pad=8192)
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -38,8 +42,8 @@ def runs():
     hp, mask, _ = make_cohort(2, SHAPE, VOX, seed=0)
     port = analyze_cohort(torch.from_numpy(hp), torch.from_numpy(mask),
                           build_geometry(VOX, SHAPE, CFG), CFG)
-    geom = jax_build_geometry(VOX, SHAPE, CFG)
-    ref = jax.jit(lambda h, m: jax_analyze_cohort(h, m, geom, CFG))(
+    geom = jax_build_geometry(VOX, SHAPE, JCFG)
+    ref = jax.jit(lambda h, m: jax_analyze_cohort(h, m, geom, JCFG))(
         jnp.asarray(hp), jnp.asarray(mask))
     return hp, mask, port, ref
 
@@ -104,8 +108,9 @@ def test_analyze_study_single_volume(runs):
 
 
 def test_package_imports_no_jax():
-    """Every module of ventjax_torch imports without loading jax (or PIL,
-    which the machine with the card lacks too)."""
+    """Every module of ventjax_torch imports without loading jax, any module
+    of the ventjax package, or PIL (the machine with the card lacks all
+    three)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ventjax_torch\n"
@@ -122,6 +127,9 @@ def test_package_imports_no_jax():
         "assert not bad, bad\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib')\n"
+        "assert not bad, bad\n"
+        "bad = sorted(m for m in sys.modules if m == 'ventjax' or "
+        "m.startswith('ventjax.'))\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
     )

@@ -7,10 +7,11 @@ vmaps.  The hand-written CUDA kernels live in ``csrc/`` and are compiled at
 first use by ``ventjax_torch._build``; on CPU tensors every kernel wrapper
 runs its plain PyTorch version instead.
 
-This package imports ``torch`` and never ``jax``.  It shares the jax-free
-parts of ``ventjax``: ``ventjax.config``, ``ventjax.io.phantom`` and
-``ventjax.oracle``.
+This package imports ``torch`` and never ``jax``, and nothing of ``ventjax``:
+it keeps its own copies of what it needs from there (``config``, ``io``,
+``report.export`` and the geometry tables in ``ops/geometry.py``), so it
+runs where the JAX package is absent.
 """
-from ventjax.config import DEFAULT_CONFIG, VentConfig
+from ventjax_torch.config import DEFAULT_CONFIG, VentConfig
 
 __all__ = ["DEFAULT_CONFIG", "VentConfig"]

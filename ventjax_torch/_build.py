@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 # Seconds spent compiling per library in this process (0.0 when reused).
 BUILD_SECONDS: Dict[str, float] = {}
 
@@ -47,29 +47,32 @@ def _nvcc() -> str:
         "the ventjax_torch CUDA kernels need the CUDA toolkit to build")
 
 
-def _sources(name: str):
-    return [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh"))
+def _sources(name: str, csrc: Path):
+    return [csrc / f"{name}.cu"] + sorted(csrc.glob("*.cuh"))
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources(name):
+    for src in _sources(name, csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless an identical build exists; return it."""
-    out = library_path(name)
+def build(name: str, csrc: Path = CSRC) -> Path:
+    """Compile <csrc>/<name>.cu unless an identical build exists; return
+    it.  ``csrc`` is the package's own ``csrc/`` unless a caller builds
+    another copy of a source (a benchmark's older version)."""
+    csrc = Path(csrc)
+    out = library_path(name, csrc)
     if out.exists():
         BUILD_SECONDS.setdefault(name, 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-o", tmp,
+           str(csrc / f"{name}.cu")]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -81,15 +84,18 @@ def build(name: str) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    BUILD_SECONDS[name] = time.perf_counter() - t0
+    BUILD_SECONDS[name if csrc == CSRC else str(csrc / name)] = \
+        time.perf_counter() - t0
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building it on first use."""
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The loaded library for <csrc>/<name>.cu, building it on first
+    use."""
+    key = (str(csrc), name)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _libs[name] = lib
+            lib = ctypes.CDLL(str(build(name, csrc)))
+            _libs[key] = lib
         return lib

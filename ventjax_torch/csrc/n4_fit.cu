@@ -22,13 +22,37 @@
 // warp reads 32 consecutive voxels of one row); vectors are [N, P]; the
 // moment and phi are [N, ncp^3] with c slowest and e fastest.
 //
-// What bounds them on this card.  K1 does ncp^3 multiply-adds per voxel
-// (1331 at ncp = 11) against 3*ncp row reads, so it is bound by issuing the
-// three shared-memory operand loads of each multiply-add, not by device
-// memory.  K2 does ncp^3 multiply-adds per voxel with phi broadcast from
-// shared memory, and streams 3*ncp rows plus five vectors (K6 one vector,
-// K7 two), so all three are bound by the same shared-memory broadcasts.  Neither is
-// near the tensor cores; making them fast is later work.
+// K1 on this card.  The least it can take is set by bytes: it reads each
+// voxel's a and its 3*ncp row values once ((1 + 3 ncp) * 4 B per voxel) and
+// writes ncp^3 floats per lane.  A voxel's row has at most 4 non-zero
+// entries per axis, so only 64 of its ncp^3 products can be non-zero.  The
+// kernel (moment_partial) keeps that arithmetic off the critical path:
+// - register tiling: a thread owns a voxel at a time and a warp owns the
+//   row c of the moment, so the thread reads a*br[c] and its bs row once and
+//   adds EW products per bc value it reads, all from registers;
+// - skipped zero rows: compacted voxels come in raster order, so a batch of
+//   32 voxels touches a narrow window of c and of d.  A warp skips a batch
+//   where a*br[c] is 0 throughout, and every thread skips the d rows that
+//   are 0 throughout the batch (a per-batch bit mask made when the tile is
+//   staged).  Adding an exact 0 to a float sum changes no bit, so the
+//   skips give the bits of the same kernel without them;
+// - every thread busy at every ncp: below ncp 8 two (or more) groups of
+//   warps split each tile's batches and their sums are added in group
+//   order; above ncp 11 the e axis is split over a third grid dimension, so
+//   the registers a thread holds stay bounded;
+// - rows staged into shared memory with 16-byte cp.async copies (4-byte
+//   ones where P is not a multiple of 4), in a ring of three tiles, so two
+//   are in flight while one is added up.
+// Each warp then adds its 32 threads' partials in a fixed order (through a
+// transpose in shared memory), and a second small kernel adds the chunks in
+// chunk order, so every run gives the same bits.  It replaces a kernel in
+// which each thread owned moment entries and issued three shared-memory
+// loads per multiply-add over all ncp^3 products.
+//
+// K2 does ncp^3 multiply-adds per voxel with phi broadcast from shared
+// memory and streams 3*ncp rows plus five vectors (K6 one vector, K7 two),
+// so all three are bound by the same shared-memory broadcasts: making that
+// contraction fast is later work.
 //
 // Why float32.  The Pallas kernels fed bf16 operands to the TPU's matrix
 // unit.  Here the products run on the CUDA cores, where f32 costs the
@@ -51,77 +75,262 @@ namespace {
 
 constexpr int MAXCP = 16;       // largest ncp the kernels take
 constexpr int CHUNK = 2048;     // voxels per block (one partial sum each)
-constexpr int TP = 64;          // voxels per shared-memory tile in K1
-constexpr int K1_THREADS = 256;
 constexpr int K2_THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
 
-// K1, pass 1: one block per (voxel chunk, lane).  Thread t owns the moment
-// entries f = t, t + 256, ... (ACC of them) and walks the chunk tile by
-// tile; a tile holds a*br, bc and bs voxel-major, so the 32 lanes of a warp
-// read neighbouring entries (or one broadcast entry) of one voxel.
-template <int ACC>
-__global__ void __launch_bounds__(K1_THREADS) moment_partial(
+// ---------------------------------------------------------------------------
+// K1.  One block per (voxel chunk, lane, e-range).  Warp w owns moment row
+// c = w % NCP for e in [e0, e0 + EW) and every d, and voxel group
+// g = w / NCP; each of its 32 threads walks its own voxels (voxel
+// b*32 + thread of every batch b of the group) and keeps the partial sums
+// acc[d][e] in registers.  Per voxel a thread reads a*br[c] and its bs row
+// once, and for each d one bc value, then adds EW products: about one
+// shared-memory load per EW multiply-adds, against three per multiply-add
+// in a layout where threads own entries and share voxels.
+template <int NCP>
+struct MomentCfg {
+  static constexpr int EW = NCP <= 11 ? NCP : 4;      // e entries per warp
+  static constexpr int NER = (NCP + EW - 1) / EW;     // e-ranges (grid z)
+  static constexpr int G = NCP >= 8 ? 1 : (NCP >= 3 ? 2 : 8 / NCP);
+  static constexpr int WARPS = NCP * G;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int E = NCP * EW;                  // entries per warp
+  static constexpr int ROWS = 1 + 3 * NCP;            // a, br, bc, bs rows
+};
+constexpr int TP = 256;         // voxels per staged tile
+constexpr int NB = TP / 32;     // 32-voxel batches per tile
+constexpr int SCR = 32 * 33;    // a warp's transpose scratch (floats)
+constexpr int STAGES = 3;       // tiles in the ring: two in flight
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage the rows of voxels [t0, t0 + TP) into tile[ROWS][TP] (row 0 = a,
+// then br, bc, bs), zero past p1; 16-byte copies when vec4.
+template <int NCP>
+__device__ __forceinline__ void stage_tile(
+    float* __restrict__ tile, const float* __restrict__ a_l,
+    const float* __restrict__ br_l, const float* __restrict__ bc_l,
+    const float* __restrict__ bs_l, int P, int t0, int p1, bool vec4) {
+  using C = MomentCfg<NCP>;
+  auto row = [&](int r) -> const float* {
+    if (r == 0) return a_l;
+    if (r <= NCP) return br_l + (size_t)(r - 1) * P;
+    if (r <= 2 * NCP) return bc_l + (size_t)(r - 1 - NCP) * P;
+    return bs_l + (size_t)(r - 1 - 2 * NCP) * P;
+  };
+  if (vec4) {
+    for (int i = threadIdx.x; i < C::ROWS * (TP / 4); i += C::THREADS) {
+      const int r = i / (TP / 4);
+      const int q = (i - r * (TP / 4)) * 4;
+      float* dst = tile + r * TP + q;
+      const int p = t0 + q;
+      if (p + 4 <= p1) {
+        cp_async16(dst, row(r) + p);
+      } else {
+        for (int j = 0; j < 4; ++j) {
+          if (p + j < p1) cp_async4(dst + j, row(r) + p + j);
+          else dst[j] = 0.f;
+        }
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < C::ROWS * TP; i += C::THREADS) {
+      const int r = i / TP;
+      const int q = i - r * TP;
+      if (t0 + q < p1) cp_async4(tile + r * TP + q, row(r) + t0 + q);
+      else tile[r * TP + q] = 0.f;
+    }
+  }
+  cp_async_commit();
+}
+
+template <int NCP>
+__global__ void __launch_bounds__(MomentCfg<NCP>::THREADS) moment_partial(
     const float* __restrict__ a, const float* __restrict__ br,
     const float* __restrict__ bc, const float* __restrict__ bs,
-    float* __restrict__ part, int P, int ncp, int nchunk) {
-  __shared__ float s_ab[TP * MAXCP];
-  __shared__ float s_bc[TP * MAXCP];
-  __shared__ float s_bs[TP * MAXCP];
+    float* __restrict__ part, int P, int nchunk, int vec4) {
+  using C = MomentCfg<NCP>;
+  constexpr int S = STAGES;
+  constexpr int EW = C::EW;
+  constexpr int N2 = NCP * NCP;
+  constexpr int TILE = C::ROWS * TP + NB;   // floats, then NB mask words
+  extern __shared__ __align__(16) float smem[];
+
   const int lane = blockIdx.y;
   const int chunk = blockIdx.x;
-  const int n2 = ncp * ncp;
-  const int n3 = n2 * ncp;
-  const size_t rows = (size_t)lane * ncp * P;
+  const int w = threadIdx.x >> 5;
+  const int t = threadIdx.x & 31;
+  const int c = w % NCP;
+  const int g = w / NCP;
+  const int e0 = blockIdx.z * EW;
+  const size_t rows = (size_t)lane * NCP * P;
   const float* a_l = a + (size_t)lane * P;
   const float* br_l = br + rows;
   const float* bc_l = bc + rows;
   const float* bs_l = bs + rows;
 
-  int oc[ACC], od[ACC], oe[ACC];
-  float acc[ACC];
+  float acc[NCP][EW];
 #pragma unroll
-  for (int j = 0; j < ACC; ++j) {
-    int f = threadIdx.x + j * K1_THREADS;
-    if (f >= n3) f = 0;  // surplus slot: computed, never written
-    oc[j] = f / n2;
-    od[j] = (f / ncp) % ncp;
-    oe[j] = f % ncp;
-    acc[j] = 0.f;
-  }
+  for (int d = 0; d < NCP; ++d)
+#pragma unroll
+    for (int e = 0; e < EW; ++e) acc[d][e] = 0.f;
+
   const int p0 = chunk * CHUNK;
   const int p1 = min(p0 + CHUNK, P);
-  for (int t0 = p0; t0 < p1; t0 += TP) {
-    const int nt = min(TP, p1 - t0);
+  const int ntile = (p1 - p0 + TP - 1) / TP;
+  // A ring of S tiles: S - 1 of them in flight while one is added up.
+  // Every step commits one cp.async group (empty past the last tile), so
+  // waiting for all but the newest S - 1 groups finds the current tile.
+#pragma unroll
+  for (int k = 0; k < S - 1; ++k) {
+    if (k < ntile)
+      stage_tile<NCP>(smem + k * TILE, a_l, br_l, bc_l, bs_l, P,
+                      p0 + k * TP, p1, vec4);
+    else
+      cp_async_commit();
+  }
+  for (int it = 0; it < ntile; ++it) {
+    float* tile = smem + (it % S) * TILE;
+    const int nx = it + S - 1;
+    if (nx < ntile)
+      stage_tile<NCP>(smem + (nx % S) * TILE, a_l, br_l, bc_l, bs_l, P,
+                      p0 + nx * TP, p1, vec4);
+    else
+      cp_async_commit();
+    cp_async_wait<S - 1>();
     __syncthreads();
-    for (int i = threadIdx.x; i < ncp * TP; i += K1_THREADS) {
-      const int k = i / TP;
-      const int p = i - k * TP;
-      float vab = 0.f, vbc = 0.f, vbs = 0.f;
-      if (p < nt) {
-        const size_t g = (size_t)k * P + t0 + p;
-        vab = a_l[t0 + p] * br_l[g];
-        vbc = bc_l[g];
-        vbs = bs_l[g];
+    // Which bc rows each batch of the tile touches: the B-spline support
+    // is 4 rows wide, and compacted voxels come in raster order, so a
+    // batch of 32 voxels touches a narrow window of d.
+    unsigned* dmask = reinterpret_cast<unsigned*>(tile + C::ROWS * TP);
+    for (int b = w; b < NB; b += C::WARPS) {
+      unsigned bits = 0;
+#pragma unroll
+      for (int d = 0; d < NCP; ++d)
+        if (__any_sync(FULL, tile[(1 + NCP + d) * TP + b * 32 + t] != 0.f))
+          bits |= 1u << d;
+      if (t == 0) dmask[b] = bits;
+    }
+    __syncthreads();
+    const float* s_a = tile;
+    const float* s_br = tile + (1 + c) * TP;
+    const float* s_bc = tile + (1 + NCP) * TP;
+    const float* s_bs = tile + (1 + 2 * NCP + e0) * TP;
+    for (int b = g; b < NB; b += C::G) {
+      const int p = b * 32 + t;
+      const float ab = s_a[p] * s_br[p];
+      // A batch where a*br[c] is 0 for every voxel adds nothing to row c;
+      // skipping it (and the zero d rows below) leaves every sum's bits
+      // as they are, since adding an exact 0 does not change a float sum.
+      if (!__any_sync(FULL, ab != 0.f)) continue;
+      const unsigned dm = dmask[b];
+      float sb[EW];
+#pragma unroll
+      for (int e = 0; e < EW; ++e)
+        sb[e] = (EW == NCP || e0 + e < NCP) ? s_bs[e * TP + p] : 0.f;
+#pragma unroll
+      for (int d = 0; d < NCP; ++d) {
+        if (dm & (1u << d)) {
+          const float cd = ab * s_bc[d * TP + p];
+#pragma unroll
+          for (int e = 0; e < EW; ++e) acc[d][e] = fmaf(cd, sb[e], acc[d][e]);
+        }
       }
-      s_ab[p * MAXCP + k] = vab;
-      s_bc[p * MAXCP + k] = vbc;
-      s_bs[p * MAXCP + k] = vbs;
     }
     __syncthreads();
-    for (int p = 0; p < nt; ++p) {
-      const float* ab = s_ab + p * MAXCP;
-      const float* cb = s_bc + p * MAXCP;
-      const float* sb = s_bs + p * MAXCP;
+  }
+
+  // Sum each warp's 32 per-thread partials in a fixed order: 32 entries at
+  // a time go through the warp's scratch (row = thread), and thread j adds
+  // up column j.  Then groups are added in group order.
+  float* scr = smem + w * SCR;
+  constexpr int KR = (C::E + 31) / 32;
+  float red[KR];
 #pragma unroll
-      for (int j = 0; j < ACC; ++j) acc[j] += ab[oc[j]] * (cb[od[j]] * sb[oe[j]]);
+  for (int k = 0; k < KR; ++k) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int jj = k * 32 + j;
+      if (jj < C::E) scr[t * 33 + j] = acc[jj / EW][jj % EW];
+    }
+    __syncwarp();
+    float s = 0.f;
+#pragma unroll 8
+    for (int l = 0; l < 32; ++l) s += scr[l * 33 + t];
+    red[k] = s;
+    __syncwarp();
+  }
+  float* out = part + ((size_t)lane * nchunk + chunk) * (N2 * NCP);
+  if constexpr (C::G == 1) {
+#pragma unroll
+    for (int k = 0; k < KR; ++k) {
+      const int jj = k * 32 + t;
+      const int e = e0 + jj % EW;
+      if (jj < C::E && e < NCP) out[c * N2 + (jj / EW) * NCP + e] = red[k];
+    }
+  } else {
+    float* grp = smem + C::WARPS * SCR;     // [G][NCP][E]
+#pragma unroll
+    for (int k = 0; k < KR; ++k) {
+      const int jj = k * 32 + t;
+      if (jj < C::E) grp[(g * NCP + c) * C::E + jj] = red[k];
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < NCP * C::E; i += C::THREADS) {
+      float s = grp[i];
+#pragma unroll
+      for (int h = 1; h < C::G; ++h) s += grp[h * NCP * C::E + i];
+      const int cc = i / C::E;
+      const int jj = i - cc * C::E;
+      const int e = e0 + jj % EW;
+      if (e < NCP) out[cc * N2 + (jj / EW) * NCP + e] = s;
     }
   }
-  float* out = part + ((size_t)lane * nchunk + chunk) * n3;
-#pragma unroll
-  for (int j = 0; j < ACC; ++j) {
-    const int f = threadIdx.x + j * K1_THREADS;
-    if (f < n3) out[f] = acc[j];
+}
+
+template <int NCP>
+size_t moment_smem() {
+  using C = MomentCfg<NCP>;
+  const size_t tiles = STAGES * (size_t)(C::ROWS * TP + NB) * sizeof(float);
+  const size_t red = ((size_t)C::WARPS * SCR +
+                      (C::G > 1 ? (size_t)C::G * NCP * C::E : 0)) *
+                     sizeof(float);
+  return tiles > red ? tiles : red;
+}
+
+template <int NCP>
+int launch_moment(const float* a, const float* br, const float* bc,
+                  const float* bs, float* part, int N, int P, int nchunk,
+                  int vec4, cudaStream_t st) {
+  using C = MomentCfg<NCP>;
+  const size_t smem = moment_smem<NCP>();
+  static bool opted_in = false;   // the attribute is set once per kernel
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        moment_partial<NCP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
   }
+  moment_partial<NCP><<<dim3(nchunk, N, C::NER), C::THREADS, smem, st>>>(
+      a, br, bc, bs, part, P, nchunk, vec4);
+  return (int)cudaGetLastError();
 }
 
 // K1, pass 2: out[lane, f] = sum over chunks in chunk order.
@@ -327,6 +536,8 @@ int launch_delta(const float* phi, const float* br, const float* bc,
   return (int)cudaGetLastError();
 }
 
+bool aligned16(const void* p) { return ((size_t)p & 15) == 0; }
+
 bool bad_shape(int N, int P, int ncp, int nchunk) {
   return N < 1 || N > 65535 || P < 1 || ncp < 1 || ncp > MAXCP ||
          nchunk != (P + CHUNK - 1) / CHUNK;
@@ -341,22 +552,25 @@ extern "C" int vj_fit_moment(const float* a, const float* br, const float* bc,
                              int P, int ncp, int nchunk, void* stream) {
   if (bad_shape(N, P, ncp, nchunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(nchunk, N);
-  const int n3 = ncp * ncp * ncp;
-  const int acc = (n3 + K1_THREADS - 1) / K1_THREADS;
-#define VJ_MOMENT(A) \
-  moment_partial<A><<<grid, K1_THREADS, 0, st>>>(a, br, bc, bs, part, P, ncp, nchunk)
-  if (acc <= 1) VJ_MOMENT(1);
-  else if (acc <= 2) VJ_MOMENT(2);
-  else if (acc <= 4) VJ_MOMENT(4);
-  else if (acc <= 6) VJ_MOMENT(6);
-  else if (acc <= 8) VJ_MOMENT(8);
-  else if (acc <= 12) VJ_MOMENT(12);
-  else VJ_MOMENT(16);
+  const int vec4 = P % 4 == 0 && aligned16(a) && aligned16(br) &&
+                   aligned16(bc) && aligned16(bs);
+  int err;
+#define VJ_MOMENT(C)                                                       \
+  case C:                                                                  \
+    err = launch_moment<C>(a, br, bc, bs, part, N, P, nchunk, vec4, st);   \
+    break
+  switch (ncp) {
+    VJ_MOMENT(1); VJ_MOMENT(2); VJ_MOMENT(3); VJ_MOMENT(4);
+    VJ_MOMENT(5); VJ_MOMENT(6); VJ_MOMENT(7); VJ_MOMENT(8);
+    VJ_MOMENT(9); VJ_MOMENT(10); VJ_MOMENT(11); VJ_MOMENT(12);
+    VJ_MOMENT(13); VJ_MOMENT(14); VJ_MOMENT(15); VJ_MOMENT(16);
+    default: return (int)cudaErrorInvalidValue;
+  }
 #undef VJ_MOMENT
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_chunks<<<dim3((n3 + 255) / 256, N), 256, 0, st>>>(part, out, nchunk, n3);
+  if (err != 0) return err;
+  const int n3 = ncp * ncp * ncp;
+  reduce_chunks<<<dim3((n3 + 255) / 256, N), 256, 0, st>>>(part, out, nchunk,
+                                                            n3);
   return (int)cudaGetLastError();
 }
 

@@ -21,12 +21,11 @@
 // order that changes from run to run, and N4's convergence test can flip on
 // the last bit of a sum.  Each contribution is therefore rounded once to a
 // 64-bit fixed-point integer (2^-32 units; a lane's total stays below 2^63
-// while sum |wv| < 2^31) and added with integer atomics, which are
-// associative: every run gives the same bits.  Each warp owns a copy of the
-// histogram in shared memory (fewer collisions), a block folds its copies
-// into a per-chunk partial, and a second kernel adds the chunks and converts
-// to float32.  The result is the exact sum to within 2^-33 per contribution,
-// closer to it than a float32 running sum.
+// while sum |wv| < 2^31) and added as integers, which are associative:
+// every run, and every partition of the sum over threads, blocks and
+// chunks, gives the same bits.  A second kernel adds the chunk partials and
+// converts to float32.  The result is the exact sum to within 2^-33 per
+// contribution, closer to it than a float32 running sum.
 //
 // Bit-exactness (K5).  Every operation is written with the _rn intrinsics so
 // that nvcc cannot contract a multiply and an add into an FMA: the kernel
@@ -34,12 +33,19 @@
 //
 // What bounds them on this card.  Both read two to three float32 vectors of
 // [N, P] once (K5 writes one), a few hundred KB per lane: device-memory
-// bandwidth and launch latency, not arithmetic.  K4's shared-memory 64-bit
-// atomics serialise within a warp when lanes hit one bin; the per-warp
-// copies keep warps from contending with each other.  The TPU kernels'
-// (hi, lo) one-hot matmuls and double-bf16 splits were matrix-unit
-// workarounds for a scatter and a gather; here a voxel adds to its own bin
-// and reads its own table entry, in float32.
+// bandwidth and launch latency, not arithmetic.  K4's danger is contention:
+// once N4 has narrowed the residual, most voxels of a warp fall into one
+// or two bins, and per-voxel atomics on one shared-memory address
+// serialise.  K4 (hist_partial) therefore adds warp-aggregated: the lanes
+// of a warp that share a slot find each other with __match_any_sync, sum
+// their fixed-point contributions with shuffles (reduce_peers, log2 of the
+// group size steps), and one lane of each group does the two atomics; a
+// block keeps one shared histogram.  Blocks of 1,024 voxels (four per
+// thread, read with 16-byte loads where P is a multiple of 4) fill the
+// card at the slice's shapes.  The TPU kernels' (hi, lo) one-hot matmuls
+// and double-bf16 splits were matrix-unit workarounds for a scatter and a
+// gather; here a voxel adds to its own bin and reads its own table entry,
+// in float32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (never --use_fast_math), by ventjax_torch/_build.py.
@@ -50,11 +56,12 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;   // histogram copies per block
-constexpr int CHUNK = 4096;           // voxels per block
-constexpr int MAX_SLOTS = 768;        // WARPS * MAX_SLOTS * 8 B = 48 KiB
+constexpr int CHUNK = 4096;           // voxels per K5 block
+constexpr int HIST_CHUNK = 1024;      // voxels per K4 block: 4 per thread
+constexpr int MAX_SLOTS = 768;        // bins + 2 at most
 constexpr float FIX = 4294967296.0f;  // 2^32 fixed-point units per 1.0
 constexpr double UNFIX = 1.0 / 4294967296.0;
+constexpr unsigned FULL = 0xffffffffu;
 
 typedef unsigned long long u64;
 
@@ -72,57 +79,123 @@ __device__ __forceinline__ int slot(float fl, int bins) {
   return (int)fl;
 }
 
-// K4, pass 1: one block per (voxel chunk, lane); per-warp fixed-point
-// histograms in shared memory, folded into the chunk's partial.
-__global__ void __launch_bounds__(THREADS) hist_partial(
-    const float* __restrict__ logu, const float* __restrict__ wv,
-    const float* __restrict__ binmin, const float* __restrict__ slope,
-    u64* __restrict__ part, int P, int bins, int nchunk) {
-  extern __shared__ u64 s_hist[];   // [WARPS][slots]
-  const int slots = bins + 2;
-  const int lane = blockIdx.y;
-  const int chunk = blockIdx.x;
-  for (int i = threadIdx.x; i < WARPS * slots; i += THREADS) s_hist[i] = 0;
-  __syncthreads();
-
-  u64* mine = s_hist + (threadIdx.x / 32) * slots;
-  const size_t vec = (size_t)lane * P;
-  const float bmn = binmin[lane];
-  const float sl = slope[lane];
-  const float top = (float)(bins - 1);
-  const int p1 = min((chunk + 1) * CHUNK, P);
-  for (int p = chunk * CHUNK + threadIdx.x; p < p1; p += THREADS) {
-    const float w = wv[vec + p];
-    const float t = t_index(logu[vec + p], w, bmn, sl, top);
-    const float fl = floorf(t);
-    const float f = __fsub_rn(t, fl);
-    const int i0 = slot(fl, bins);
-    const float w0 = __fmul_rn(w, __fsub_rn(1.f, f));
-    const float w1 = __fmul_rn(w, f);
-    if (w0 != 0.f) atomicAdd(mine + i0, (u64)__float2ll_rn(w0 * FIX));
-    if (w1 != 0.f) atomicAdd(mine + i0 + 1, (u64)__float2ll_rn(w1 * FIX));
-  }
-  __syncthreads();
-  u64* out = part + ((size_t)lane * nchunk + chunk) * slots;
-  for (int s = threadIdx.x; s < slots; s += THREADS) {
-    u64 acc = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) acc += s_hist[w * slots + s];
-    out[s] = acc;
+// Sum x and y over the lanes of `peers` (the lanes of this one's group),
+// into the group's lowest lane: a tree over the group's members, each step
+// adding the next remaining member's value and retiring every other one.
+// Integer sums, so the order does not matter.  Every lane of the warp
+// calls it, each with its own group.
+__device__ __forceinline__ void reduce_peers(unsigned peers, long long& x,
+                                             long long& y) {
+  const int lane = threadIdx.x & 31;
+  int rel = __popc(peers & ((1u << lane) - 1u));   // rank within the group
+  unsigned rest = peers & (0xfffffffeu << lane);   // members above this lane
+  while (__any_sync(FULL, rest != 0u)) {
+    const int next = __ffs(rest);                  // 1-based, 0 if none
+    const long long tx = __shfl_sync(FULL, x, (next - 1) & 31);
+    const long long ty = __shfl_sync(FULL, y, (next - 1) & 31);
+    if (next) {
+      x += tx;
+      y += ty;
+    }
+    rest &= __ballot_sync(FULL, !(rel & 1));
+    rel >>= 1;
   }
 }
 
-// K4, pass 2: hist[lane, b] = float32 of the chunk partials' sum, b < bins.
-__global__ void hist_finish(const u64* __restrict__ part,
-                            float* __restrict__ hist, int bins, int nchunk) {
-  const int lane = blockIdx.y;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= bins) return;
+// One voxel's two fixed-point contributions, added warp-aggregated into the
+// block's histogram h.  Every lane of the warp calls it (a lane past the
+// end passes w = 0, which adds 0 to slot 0).
+__device__ __forceinline__ void hist_add(float lu, float w, float bmn,
+                                         float sl, float top, int bins,
+                                         u64* h) {
+  const float t = t_index(lu, w, bmn, sl, top);
+  const float fl = floorf(t);
+  const float f = __fsub_rn(t, fl);
+  const int i0 = slot(fl, bins);
+  long long v0 = __float2ll_rn(__fmul_rn(w, __fsub_rn(1.f, f)) * FIX);
+  long long v1 = __float2ll_rn(__fmul_rn(w, f) * FIX);
+  const unsigned peers = __match_any_sync(FULL, i0);
+  reduce_peers(peers, v0, v1);
+  if ((peers & ((1u << (threadIdx.x & 31)) - 1u)) == 0u) {   // group leader
+    if (v0 != 0) atomicAdd(h + i0, (u64)v0);
+    if (v1 != 0) atomicAdd(h + i0 + 1, (u64)v1);
+  }
+}
+
+// K4, pass 1: one block per (voxel chunk of HIST_CHUNK, lane); one
+// fixed-point histogram per block in shared memory, written out as the
+// chunk's partial.
+__global__ void __launch_bounds__(THREADS) hist_partial(
+    const float* __restrict__ logu, const float* __restrict__ wv,
+    const float* __restrict__ binmin, const float* __restrict__ slope,
+    u64* __restrict__ part, int P, int bins, int nchunk, int vec4) {
+  __shared__ u64 s_hist[MAX_SLOTS];
   const int slots = bins + 2;
-  const u64* p = part + (size_t)lane * nchunk * slots + b;
+  const int lane = blockIdx.y;
+  const int chunk = blockIdx.x;
+  for (int i = threadIdx.x; i < slots; i += THREADS) s_hist[i] = 0;
+
+  const float* lu_l = logu + (size_t)lane * P;
+  const float* wv_l = wv + (size_t)lane * P;
+  const float bmn = binmin[lane];
+  const float sl = slope[lane];
+  const float top = (float)(bins - 1);
+  const int p0 = chunk * HIST_CHUNK;
+  const int p = p0 + 4 * threadIdx.x;
+  float lu[4] = {0.f, 0.f, 0.f, 0.f};
+  float w[4] = {0.f, 0.f, 0.f, 0.f};
+  if (vec4) {
+    // voxels p .. p + 3; P is a multiple of 4, so they are all in or all out
+    if (p < P) {
+      const float4 l4 = *reinterpret_cast<const float4*>(lu_l + p);
+      const float4 w4 = *reinterpret_cast<const float4*>(wv_l + p);
+      lu[0] = l4.x; lu[1] = l4.y; lu[2] = l4.z; lu[3] = l4.w;
+      w[0] = w4.x; w[1] = w4.y; w[2] = w4.z; w[3] = w4.w;
+    }
+  } else {
+    // scalar reads, neighbouring threads on neighbouring voxels
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int q = p0 + j * THREADS + threadIdx.x;
+      if (q < P) {
+        lu[j] = lu_l[q];
+        w[j] = wv_l[q];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    hist_add(lu[j], w[j], bmn, sl, top, bins, s_hist);
+  __syncthreads();
+  u64* out = part + ((size_t)lane * nchunk + chunk) * slots;
+  for (int i = threadIdx.x; i < slots; i += THREADS) out[i] = s_hist[i];
+}
+
+// K4, pass 2: hist[lane, b] = float32 of the chunk partials' sum, b < bins.
+// A block takes 32 bins of one lane; warp k adds the chunks k, k + 8, ...
+// for them, and the eight warp sums are added (integers: any order).
+__global__ void __launch_bounds__(THREADS) hist_finish(
+    const u64* __restrict__ part, float* __restrict__ hist, int bins,
+    int nchunk) {
+  __shared__ u64 s_sum[THREADS / 32][32];
+  const int lane = blockIdx.y;
+  const int t = threadIdx.x & 31;
+  const int k = threadIdx.x >> 5;
+  const int b = blockIdx.x * 32 + t;
+  const int slots = bins + 2;
   u64 acc = 0;
-  for (int c = 0; c < nchunk; ++c) acc += p[(size_t)c * slots];
-  hist[(size_t)lane * bins + b] = (float)((double)(long long)acc * UNFIX);
+  if (b < bins) {
+    const u64* p = part + (size_t)lane * nchunk * slots + b;
+    for (int c = k; c < nchunk; c += THREADS / 32) acc += p[(size_t)c * slots];
+  }
+  s_sum[k][t] = acc;
+  __syncthreads();
+  if (k == 0 && b < bins) {
+#pragma unroll
+    for (int j = 1; j < THREADS / 32; ++j) acc += s_sum[j][t];
+    hist[(size_t)lane * bins + b] = (float)((double)(long long)acc * UNFIX);
+  }
 }
 
 // K5: one block per (voxel chunk, lane), the lane's table in shared memory.
@@ -164,22 +237,23 @@ bool bad_shape(int N, int P, int bins) {
 
 }  // namespace
 
-extern "C" int vj_sharpen_chunk(void) { return CHUNK; }
+extern "C" int vj_sharpen_chunk(void) { return HIST_CHUNK; }
 extern "C" int vj_sharpen_max_slots(void) { return MAX_SLOTS; }
 
 extern "C" int vj_sharpen_hist(const float* logu, const float* wv,
                                const float* binmin, const float* slope,
                                void* part, float* hist, int N, int P, int bins,
                                int nchunk, void* stream) {
-  if (bad_shape(N, P, bins) || nchunk != (P + CHUNK - 1) / CHUNK)
+  if (bad_shape(N, P, bins) || nchunk != (P + HIST_CHUNK - 1) / HIST_CHUNK)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)WARPS * (bins + 2) * sizeof(u64);
-  hist_partial<<<dim3(nchunk, N), THREADS, smem, st>>>(
-      logu, wv, binmin, slope, (u64*)part, P, bins, nchunk);
+  const int vec4 = P % 4 == 0 && ((size_t)logu & 15) == 0 &&
+                   ((size_t)wv & 15) == 0;
+  hist_partial<<<dim3(nchunk, N), THREADS, 0, st>>>(
+      logu, wv, binmin, slope, (u64*)part, P, bins, nchunk, vec4);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  hist_finish<<<dim3((bins + 255) / 256, N), 256, 0, st>>>(
+  hist_finish<<<dim3((bins + 31) / 32, N), THREADS, 0, st>>>(
       (const u64*)part, hist, bins, nchunk);
   return (int)cudaGetLastError();
 }

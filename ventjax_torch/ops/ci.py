@@ -38,8 +38,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ventjax.oracle.ci_oracle import shell_structure, sphere_pixels
 from ventjax_torch.ops.basic import compact_mask_indices
+from ventjax_torch.ops.geometry import shell_structure, sphere_pixels
 
 # Elements of one [N, chunk, rows] gather (float32: 16 MiB, with its int64
 # targets 48 MiB more).

@@ -27,10 +27,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ventjax.oracle.ci_oracle import shell_structure, sphere_pixels
 from ventjax_torch.ops.basic import compact_mask_indices
 from ventjax_torch.ops.ci_cuda import alias_min_d2, head_counts
 from ventjax_torch.ops.ci_densify_cuda import densify_rank, rank
+from ventjax_torch.ops.geometry import shell_structure, sphere_pixels
 
 SENT = 1 << 20   # far-away sentinel coordinate: fails every box check
 

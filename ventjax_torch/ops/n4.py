@@ -30,8 +30,8 @@ from typing import Optional
 
 import torch
 
-from ventjax.oracle.n4_oracle import _next_pow2_padded, bspline_basis_1d
 from ventjax_torch.ops.basic import sort_compact_masked
+from ventjax_torch.ops.geometry import _next_pow2_padded, bspline_basis_1d
 from ventjax_torch.ops.n4_cuda import fit_delta_conv_field, fit_moment
 from ventjax_torch.ops.n4_sharpen_cuda import sharpen_hist, sharpen_resid
 

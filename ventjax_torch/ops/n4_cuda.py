@@ -47,8 +47,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib():
-    lib = _build.load("n4_fit")
+def _typed(lib):
+    """lib with the C signatures of csrc/n4_fit.cu set."""
     if not getattr(lib, "_vj_typed", False):
         lib.vj_n4_chunk.argtypes = []
         lib.vj_n4_chunk.restype = _I
@@ -62,6 +62,10 @@ def _lib():
         lib.vj_fit_delta_conv.restype = _I
         lib._vj_typed = True
     return lib
+
+
+def _lib():
+    return _typed(_build.load("n4_fit"))
 
 
 def _check_rows(name, br, bc, bs):

@@ -9,7 +9,8 @@ in three steps; the first and last are kernels (``csrc/n4_sharpen.cu``):
   voxel adds ``wv*(1-f)`` to bin ``floor(t)`` and ``wv*f`` to the next,
   ``t = clip((logu - binmin)/slope, 0, bins-1) * wv``.  The kernel sums in
   64-bit fixed point with integer atomics, so it gives the same bits on
-  every run.
+  every run; ``sharpen_hist_fixed_plain`` is that arithmetic in plain
+  PyTorch, and equals the kernel bit for bit.
 - ``ops.n4._sharpen_expectation`` (plain PyTorch, FFTs): the conditional
   expectation table ``e_loc`` [N, bins+2] of the slots ``t + 1`` can reach.
 - ``sharpen_resid`` (K5; replaces ``sharpen_resid_pallas``): the B-spline fit
@@ -22,7 +23,8 @@ give finite output.  Each wrapper runs its plain version for a CPU tensor,
 launches its kernel for a CUDA tensor, and raises for anything else.  K5
 and its plain version compute the same float32 operations in the same
 order: they agree bit for bit.  K4 agrees with its plain version up to the
-plain version's float32 summation order.
+plain version's float32 summation order, and with
+``sharpen_hist_fixed_plain`` bit for bit.
 """
 from __future__ import annotations
 
@@ -43,8 +45,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib():
-    lib = _build.load("n4_sharpen")
+def _typed(lib):
+    """lib with the C signatures of csrc/n4_sharpen.cu set."""
     if not getattr(lib, "_vj_typed", False):
         lib.vj_sharpen_chunk.argtypes = []
         lib.vj_sharpen_chunk.restype = _I
@@ -59,6 +61,10 @@ def _lib():
             raise RuntimeError("n4_sharpen: MAX_SLOTS differs from the "
                                "kernel source")
     return lib
+
+
+def _lib():
+    return _typed(_build.load("n4_sharpen"))
 
 
 def _check_shapes(name, logu, wv, binmin, slope, bins):
@@ -100,6 +106,28 @@ def sharpen_hist_plain(logu, wv, binmin, slope, bins):
     hist.scatter_add_(1, i0, wv * (1.0 - f))
     hist.scatter_add_(1, i0 + 1, wv * f)
     return hist[:, :bins]
+
+
+FIX = 2.0 ** 32      # K4's fixed-point units per 1.0
+
+
+def sharpen_hist_fixed_plain(logu, wv, binmin, slope, bins):
+    """K4's exact arithmetic in plain PyTorch: each contribution wv*(1-f)
+    and wv*f rounded once, half to even, to an int64 count of 2^-32 units;
+    the integers added (exactly, in any order); the sums converted through
+    float64 to float32 as the kernel converts them.  Equal to K4 bit for
+    bit on either device; within 2^-33 per contribution of the exact
+    histogram."""
+    N, _ = logu.shape
+    i0, f = _split(_t_index(logu, wv, binmin, slope, bins), bins)
+
+    def fix(v):          # v * 2^32 is exact in float32; round half to even
+        return torch.round(v * FIX).to(torch.int64)
+
+    hist = torch.zeros((N, bins + 2), dtype=torch.int64, device=logu.device)
+    hist.scatter_add_(1, i0, fix(wv * (1.0 - f)))
+    hist.scatter_add_(1, i0 + 1, fix(wv * f))
+    return (hist[:, :bins].to(torch.float64) / FIX).to(torch.float32)
 
 
 def sharpen_hist(logu, wv, binmin, slope, bins):

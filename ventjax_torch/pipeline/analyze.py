@@ -24,7 +24,7 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from ventjax.config import DEFAULT_CONFIG, VentConfig
+from ventjax_torch.config import DEFAULT_CONFIG, VentConfig
 from ventjax_torch.ops.basic import (
     gradient_border, masked_sorted_index, sort_compact_masked,
 )

@@ -1,8 +1,8 @@
 """Cohort driver: streaming, batched, resumable multi-subject runs on one
 device.
 
-Counterpart of ``ventjax/pipeline/cohort.py``, in one process on one card
-(or on the CPU where there is none):
+Counterpart of ``ventjax/pipeline/cohort.py``, in one process on one
+device: the card unless the caller asks for the CPU (``device="cpu"``):
 
 - a manifest (JSON list of {"id", "xenon", "mask", "proton"?}) names the
   cohort;
@@ -26,8 +26,8 @@ in uint8, and the CI values at the defect compaction with their count
 (``_densify_ci`` rebuilds the map).  ventjax's compact pack and its
 multi-host export (``use_mesh``, ``shard_export``) are not ported.
 
-Nothing here imports JAX: decoding and exports go through the jax-free
-``ventjax.io.dicom``, ``ventjax.io.native`` and ``ventjax.report.export``.
+Decoding and exports go through the port's own ``ventjax_torch.io.dicom``,
+``ventjax_torch.io.native`` and ``ventjax_torch.report.export``.
 """
 from __future__ import annotations
 
@@ -43,13 +43,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ventjax.config import DEFAULT_CONFIG, VentConfig
-from ventjax.io import dicom as dcm
-from ventjax.report import export as rexport
+from ventjax_torch.config import DEFAULT_CONFIG, VentConfig
+from ventjax_torch.io import dicom as dcm
 from ventjax_torch.ops.basic import compact_mask_indices
 from ventjax_torch.ops.ci_pairwise import CIPairwiseGeometry
 from ventjax_torch.pipeline.analyze import analyze_cohort, build_geometry
 from ventjax_torch.pipeline.result import StudyMetrics
+from ventjax_torch.report import export as rexport
 
 log = logging.getLogger("ventjax_torch.cohort")
 
@@ -85,7 +85,7 @@ def load_manifest(path: str) -> List[Dict]:
 def _decode_mask_folder_fast(folder: str) -> Optional[np.ndarray]:
     """Native per-slice decode of the mask folder; None -> fall back to the
     Python codec."""
-    from ventjax.io import native
+    from ventjax_torch.io import native
 
     if not native.available():
         return None
@@ -142,6 +142,21 @@ def _decode_subject(entry: Dict) -> Tuple[Optional[np.ndarray], ...]:
         return None, None, None, None, None
 
 
+def _device(device) -> torch.device:
+    """The torch device a run asked for; a CUDA device without a card
+    raises, so nothing falls back to the CPU silently."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"run_cohort: device {device!r} asked for, but no CUDA card "
+                f"is available (torch.cuda.is_available() is False); pass "
+                f"device=\"cpu\" to run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def _pow2_at_least(n: int, floor: int = 256) -> int:
     return max(floor, 1 << int(np.ceil(np.log2(max(n, 1)))))
 
@@ -194,14 +209,12 @@ class _GeometryRunner:
     """
 
     def __init__(self, shape, vox, config: VentConfig, batch_size: int,
-                 adaptive_pad: bool = False, device=None):
+                 adaptive_pad: bool = False, device="cuda"):
         self.shape = tuple(shape)
         self.vox = tuple(vox)
         self.config = config
         self.bs = batch_size
-        self.device = torch.device(device) if device is not None else (
-            torch.device("cuda", 0) if torch.cuda.is_available()
-            else torch.device("cpu"))
+        self.device = _device(device)
         # adaptive_pad (the serving path): pad a partial batch to the next
         # power of two >= its size (at most bs) instead of to bs, so a
         # single subject moves 1 lane, not bs zero lanes.  Offline cohort
@@ -346,10 +359,13 @@ def run_cohort(
     runners: Optional[Dict[Tuple, "_GeometryRunner"]] = None,
     export_npz: bool = False,
     adaptive_pad: bool = False,
+    device="cuda",
 ) -> List[Dict]:
     """Analyse every subject of the manifest; returns per-subject metrics.
 
-    Runs on the first CUDA device, or on the CPU where there is none.
+    Runs on ``device``: the current CUDA card by default, and the CPU only
+    when asked (``device="cpu"``).  Without a card the default raises a
+    RuntimeError before any subject is read.
     Decode prefetch is bounded at two batches ahead and exports run in
     background threads with at most two batches queued, so host memory
     stays O(batch_size x geometries) on any cohort size.
@@ -361,9 +377,11 @@ def run_cohort(
 
     ``runners`` lets a long-lived caller keep the per-geometry runners (and
     their sticky pads) across calls; config, batch_size and adaptive_pad
-    must then stay fixed.  ``adaptive_pad`` pads a partial batch to the
+    must then stay fixed (the runners keep the device they were made on).
+    ``adaptive_pad`` pads a partial batch to the
     next power of two instead of to batch_size.
     """
+    device = _device(device)
     os.makedirs(out_dir, exist_ok=True)
     todo: List[Dict] = []
     results: List[Dict] = []
@@ -471,7 +489,8 @@ def run_cohort(
         geo = (decoded[0].shape, decoded[2])
         if geo not in runners:
             runners[geo] = _GeometryRunner(geo[0], geo[1], config, bs,
-                                           adaptive_pad=adaptive_pad)
+                                           adaptive_pad=adaptive_pad,
+                                           device=device)
         runner = runners[geo]
         if runner.add(entry, decoded):
             batch = runner.take_batch()
