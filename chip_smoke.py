@@ -17,7 +17,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    relative 1e-5 of the largest bin against its float32 plain version,
    bit-equal to its exact fixed-point plain version and from launch to
    launch; K5 bit-equal (the same float32 operations in the same order);
-   K3, K9, K8 bit-equal (integers, and copied values);
+   K3 (on severe-load maps at K 1024, 2048, 4096), K9, K8 bit-equal
+   (integers, and copied values);
 4. paths, each with the launch counts set to 0 just before and read just
    after it:
    a. the slice: 16 phantoms of 128x128x16 through ventjax_torch.pipeline.
@@ -49,14 +50,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    time per call (torch.profiler), its plain version's, the one PyTorch
    call that computes the same function where there is one, and its bound
    (bytes at 3.35 TB/s against float32 operations at 67 TFLOP/s), K1 and
-   K2 at every ncp, K4 and K5 on both residuals; the densify step beside
-   the scatter; the fit chain's iterations, the cohort's subjects/s;
-6. with --parent DIR: DIR/n4_fit.cu and DIR/n4_sharpen.cu (an older
-   version of those sources) built under their own names, K1 at every ncp
-   and K4 on both residuals timed against them in turns, K4 and K2
-   required bit-equal to them;
+   K2 at every ncp, K4 and K5 on both residuals, K3 on the slice's defects
+   (K 512) and on severe-load maps at K 2048 and 4096; the densify step
+   beside the scatter; the fit chain's iterations, the cohort's subjects/s;
+6. with --parent DIR: DIR/n4_fit.cu, DIR/n4_sharpen.cu and DIR/ci_head.cu
+   (an older version of those sources) built under their own names and
+   timed against this tree in turns (older, this, this, older): K1 and K2
+   at every ncp, K6 and K7 at ncp 11, K4 on both residuals, K3 at K 512,
+   2048 and 4096.  Required bit-equal to them: K4, K3, K2's field', logu',
+   min and max, K6's delta and K7's d, and K2's and K7's sums (or, where a
+   design moved their order, within KERNEL_RTOL of the plain version).
+   Then the slice on the older kernels and on this tree's in turns (its
+   outputs required bit-identical), and one profiled batch on the older
+   kernels (chiprun_out/profile_slice_parent.txt);
 7. one slice batch under torch.profiler: its device kernels, device time
-   and busy share, K1's and K4's rows (the table goes to
+   and busy share, the rows of K1, K2, K3 and K4 (the table goes to
    chiprun_out/profile_slice.txt);
 8. one JSON line of kernel records, then the result line
    {"ok": true, "device": {...}} last.
@@ -244,17 +252,12 @@ def phase_kernels(hp, mask, n4_pad, dev):
     from ventjax_torch.ops import ci_pairwise as tcp
 
     geom = tcp.build_ci_pairwise_geometry(VOX, SHAPE, 50, "wrap")
-    ns = min(96, geom.n_balls - 1)
-    r2 = torch.as_tensor(geom.r2_32[:ns], device=dev)
-    combos = tcp._alias_combos(geom)
-    for K in (1024, 4096):
-        coords = severe_coords(K, gen, dev)
-        got = ci_cuda.head_counts(coords, coords, r2, combos, geom.scale,
-                                  geom.rmax)
-        want = ci_cuda.head_counts_plain(coords, coords, r2, combos,
-                                         geom.scale, geom.rmax)
+    for K in (1024, 2048, 4096):
+        args = k3_args(severe_coords(K, dev), geom)
+        got = ci_cuda.head_counts(*args)
+        want = ci_cuda.head_counts_plain(*args)
         equal = bool(torch.equal(got, want))
-        log(f"K3 head_counts K={K} N={BATCH} ns={ns} wrap: "
+        log(f"K3 head_counts K={K} N={BATCH} ns={args[2].shape[0]} wrap: "
             f"bit_equal={equal} max_count={int(want.max())}")
         if not equal:
             raise AssertionError(f"K3 counts differ from the plain version "
@@ -441,13 +444,29 @@ def severe_defects(K, gen):
     return out
 
 
-def severe_coords(K, gen, dev):
+_SEVERE = {}
+
+
+def severe_coords(K, dev):
     """Defect coordinates, as calculate_ci_pairwise builds them, of a
-    severe-load batch."""
+    severe-load batch at pad K (made once per K, from SEED + K)."""
     from ventjax_torch.ops.ci_pairwise import defect_coords
 
-    return defect_coords(torch.from_numpy(severe_defects(K, gen)).to(dev),
-                         K)[0]
+    if K not in _SEVERE:
+        gen = np.random.default_rng(SEED + K)
+        _SEVERE[K] = defect_coords(torch.from_numpy(
+            severe_defects(K, gen)).to(dev), K)[0]
+    return _SEVERE[K]
+
+
+def k3_args(coords, geom):
+    """K3's arguments for centers = witnesses = coords on geom."""
+    from ventjax_torch.ops import ci_pairwise as tcp
+
+    ns = min(96, geom.n_balls - 1)
+    r2 = torch.as_tensor(geom.r2_32[:ns], device=coords[0].device)
+    return (coords, coords, r2, tcp._alias_combos(geom), geom.scale,
+            geom.rmax)
 
 
 def counters():
@@ -880,28 +899,63 @@ def bound(nbytes, flops):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, tries=5):
     """Device time per call of fn in ms: the summed duration of the device
     activities (kernels, copies, fills) that reps calls enqueue, taken by
-    torch.profiler, so host launch overhead between them does not count."""
+    torch.profiler, so host launch overhead between them does not count.
+    The profiler can lose the first activities of a session (a one-call
+    session once recorded none, a K1 turn a tenth of the others), so each
+    session starts with calls that are not counted, and spin kernels mark
+    one call and then the reps timed calls; a session counts only if the
+    timed calls hold reps times the one call's activities."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / reps / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda._sleep(1000)
+            for _ in range(reps):
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if len(marks) != 3:
+            continue
+        one = events[marks[0] + 1:marks[1]]
+        timed = events[marks[1] + 1:marks[2]]
+        if one and len(timed) == len(one) * reps:
+            return sum(e.time_range.elapsed_us() for e in timed) / reps / 1e3
+    raise RuntimeError(f"torch.profiler lost device activities in {tries} "
+                       f"sessions")
 
 
 def nnz_rows(rows):
     """[N, P] count of non-zero basis entries per voxel of [N, ncp, P]."""
     return (rows != 0).sum(1).double()
+
+
+def k3_box_distances(centers, witnesses, r2, combos, scale, rmax):
+    """The distances K3's function needs on this run's data: one for each
+    (center, witness, alias combo) whose offset lies in the rmax box, since
+    no other offset can reach a ball.  Counted on the card, 256 centers at
+    a time."""
+    n = 0
+    for a in range(0, centers[0].shape[1], 256):
+        vi, vj, vk = (c[:, a:a + 256, None] for c in centers)
+        wi, wj, wk = (w[:, None, :] for w in witnesses)
+        for p, q, s in combos:
+            n += int((((wi - vi + p).abs() <= rmax)
+                      & ((wj - vj + q).abs() <= rmax)
+                      & ((wk - vk + s).abs() <= rmax)).sum())
+    return float(n)
 
 
 def k1_record(a, r, wv):
@@ -1035,18 +1089,20 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
         rec[name].update(rec[name]["by_shape"]["late"])
 
     coords, cidx, _, valid = tcp.defect_coords(res.defect, K)
-    ns = min(96, geom.n_balls - 1)
-    r2 = torch.as_tensor(geom.r2_32[:ns], device=dev)
-    combos = tcp._alias_combos(geom)
-    nval = valid.sum(1).double()
-    b3 = bound(BATCH * K * (6 * 4 + ns * 4),
-               5 * len(combos) * float((nval * nval).sum()))
-    rec["head_counts"] = {
-        "ms": device_ms(lambda: ci_cuda.head_counts(
-            coords, coords, r2, combos, geom.scale, geom.rmax)),
-        "plain_ms": device_ms(lambda: ci_cuda.head_counts_plain(
-            coords, coords, r2, combos, geom.scale, geom.rmax), reps=5),
-        "library_ms": None, "bound_ms": b3[0], "bound_by": b3[1]}
+    by_k = {}
+    for k, c in ((K, coords), (2048, severe_coords(2048, dev)),
+                 (4096, severe_coords(4096, dev))):
+        args = k3_args(c, geom)
+        ns = args[2].shape[0]
+        # 8 float32 operations a distance: three scalings, three squares and
+        # two adds
+        b3 = bound(BATCH * k * (6 * 4 + ns * 4), 8 * k3_box_distances(*args))
+        by_k[f"K{k}"] = {
+            "ms": device_ms(lambda: ci_cuda.head_counts(*args)),
+            "plain_ms": device_ms(lambda: ci_cuda.head_counts_plain(*args),
+                                  reps=5),
+            "library_ms": None, "bound_ms": b3[0], "bound_by": b3[1]}
+    rec["head_counts"] = {**by_k[f"K{K}"], "by_shape": by_k}
     V = int(np.prod(SHAPE))
     d01 = (res.defect != 0).reshape(BATCH, V)
     rank = cd.rank(d01)
@@ -1092,106 +1148,311 @@ def lib_of(mod, lib):
         mod._lib = saved
 
 
-def phase_parent(parent, hp, mask, n4_pad, dev):
-    """K1 and K4 of this tree against an older version of their sources
-    (parent/n4_fit.cu, parent/n4_sharpen.cu), built here under their own
-    names, in one run: device ms in turns (older, this, this, older), K1
-    both within KERNEL_RTOL of the plain version, K4 and K2 bit-equal."""
+def under(mod, lib, fn):
+    """fn, run with the wrappers of mod launching from lib."""
+    def run(*args):
+        with lib_of(mod, lib):
+            return fn(*args)
+    return run
+
+
+def older_delta(lib, src):
+    """K2, K6 and K7 of an n4_fit library built from the older source text
+    src, as callables with the wrappers' arguments and results, each
+    counting its launches as the wrappers do.  Sources whose K2 and K7 take
+    no ticket buffer (a second kernel added their statistics) are called
+    with that C signature: only sources older than the ticket need this
+    branch, and the wrappers' own launch path serves any later ones."""
+    import ctypes
+
+    from ventjax_torch.ops import n4_cuda
+    from ventjax_torch.ops._launch import raise_on, stream
+
+    k6 = under(n4_cuda, lib, n4_cuda.fit_delta)
+    if "tickets" in src:            # the same C interface as this tree
+        return (under(n4_cuda, lib, n4_cuda.fit_delta_conv_field), k6,
+                under(n4_cuda, lib, n4_cuda.fit_delta_conv))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    k2c = ctypes.CFUNCTYPE(ci, *[vp] * 12, *[ci] * 4, vp)(
+        ("vj_fit_delta_conv_field", lib))
+    k7c = ctypes.CFUNCTYPE(ci, *[vp] * 8, *[ci] * 4, vp)(
+        ("vj_fit_delta_conv", lib))
+    chunk = ctypes.CFUNCTYPE(ci)(("vj_n4_chunk", lib))()
+
+    def launch(fn, ins, outs, ns, br, name):
+        N, ncp, P = br.shape
+        nchunk = -(-P // chunk)
+        part = torch.empty((N, nchunk, ns), device=br.device)
+        stats = torch.empty((N, ns), device=br.device)
+        raise_on(fn(*(t.data_ptr() for t in (*ins, *outs, part, stats)), N,
+                    P, ncp, nchunk, stream(br.device)), "older delta")
+        n4_cuda.LAUNCHES[name] += 1
+        return (*outs, stats)
+
+    def k2(phi, br, bc, bs, wv, field, logv, done):
+        return launch(k2c, (phi, br, bc, bs, wv, field, logv, done),
+                      (torch.empty_like(wv), torch.empty_like(wv)), 4, br,
+                      "fit_delta_conv_field")
+
+    def k7(phi, br, bc, bs, wv):
+        return launch(k7c, (phi, br, bc, bs, wv), (torch.empty_like(wv),),
+                      2, br, "fit_delta_conv")
+
+    return k2, k6, k7
+
+
+def turns(old, new, reps=20):
+    """Device ms of old and new in turns: old, new, new, old."""
+    a = device_ms(old, reps)
+    b, c = device_ms(new, reps), device_ms(new, reps)
+    d = device_ms(old, reps)
+    return {"parent_ms": (a + d) / 2, "ms": (b + c) / 2, "turns": [a, b, c, d]}
+
+
+def sums_ok(new, old, plain, s_scale):
+    """The sums (stats[:, :2]) of new bit-equal to old's, or within
+    KERNEL_RTOL of the plain version's (s1 against its summed magnitude
+    s_scale, s2 against itself)."""
+    if torch.equal(new[:, :2], old[:, :2]):
+        return True
+    return max(float(((new[:, 0] - plain[:, 0]).abs() / s_scale).max()),
+               float(((new[:, 1] - plain[:, 1]).abs()
+                      / plain[:, 1].abs()).max())) <= KERNEL_RTOL
+
+
+@contextlib.contextmanager
+def older_kernels(libs, old_k2):
+    """The pipeline runs the older libraries' kernels inside the block (K2
+    through old_k2, which takes the older C signature)."""
+    from ventjax_torch.ops import ci_cuda, n4_cuda
+    from ventjax_torch.ops import n4 as tn4
+    from ventjax_torch.ops import n4_sharpen_cuda as sc
+
+    saved = tn4.fit_delta_conv_field
+    tn4.fit_delta_conv_field = old_k2
+    try:
+        with lib_of(n4_cuda, libs["n4_fit"]), \
+                lib_of(sc, libs["n4_sharpen"]), lib_of(ci_cuda, libs["ci_head"]):
+            yield
+    finally:
+        tn4.fit_delta_conv_field = saved
+
+
+def phase_parent(parent, hp, mask, n4_pad, dev, res, geom, cfg, hp_d,
+                 mask_d):
+    """K1, K2, K6, K7, K4 and K3 of this tree against an older version of
+    their sources (parent/n4_fit.cu, n4_sharpen.cu, ci_head.cu), built
+    here under their own names, in one run: device ms in turns (older,
+    this, this, older), K1 both within KERNEL_RTOL of the plain version,
+    K4, K3 and K2's, K6's and K7's per-voxel outputs bit-equal; then the
+    slice in turns on either set of kernels (bit-identical outputs), and
+    one profiled batch on the older kernels."""
+    from ventjax_torch.pipeline import analyze_cohort
+
     from pathlib import Path
 
     from ventjax_torch import _build
+    from ventjax_torch.ops import ci_cuda, n4_cuda
+    from ventjax_torch.ops import ci_pairwise as tcp
     from ventjax_torch.ops import n4 as tn4
-    from ventjax_torch.ops import n4_cuda
     from ventjax_torch.ops import n4_sharpen_cuda as sc
 
     parent = Path(parent).resolve()
-    libs = {n: _build.load(n, parent) for n in ("n4_fit", "n4_sharpen")}
+    libs = {n: _build.load(n, parent)
+            for n in ("n4_fit", "n4_sharpen", "ci_head")}
+    old_k2, old_k6, old_k7 = older_delta(
+        libs["n4_fit"], (parent / "n4_fit.cu").read_text())
     out = {}
     gen = np.random.default_rng(SEED + 3)
-
-    def turns(mod, lib, fn):
-        with lib_of(mod, lib):
-            a = device_ms(fn)
-        b, c = device_ms(fn), device_ms(fn)
-        with lib_of(mod, lib):
-            d = device_ms(fn)
-        return {"parent_ms": (a + d) / 2, "ms": (b + c) / 2,
-                "turns": [a, b, c, d]}
 
     for ncp in FIT_NCPS:
         bv, wv, logv = fit_inputs(hp, mask, n4_pad, ncp, dev)
         r1, r3 = ([tn4._rows(b, k) for b in bv] for k in (1, 3))
         a = smooth_residual(wv, gen)
         want = n4_cuda.fit_moment_plain(a, *r3)
-        with lib_of(n4_cuda, libs["n4_fit"]):
-            old = n4_cuda.fit_moment(a, *r3)
-            phi = torch.where(want != 0, want / want.abs().max(),
-                              torch.zeros_like(want))
-            k2_old = n4_cuda.fit_delta_conv_field(
-                phi, *r1, wv, wv, logv, torch.zeros(BATCH, device=dev))
-        k2_new = n4_cuda.fit_delta_conv_field(
-            phi, *r1, wv, wv, logv, torch.zeros(BATCH, device=dev))
+        old = under(n4_cuda, libs["n4_fit"],
+                    lambda: n4_cuda.fit_moment(a, *r3))()
         errs = {"new": scaled_err(n4_cuda.fit_moment(a, *r3), want),
                 "parent": scaled_err(old, want)}
-        k2_same = all(torch.equal(x, y) for x, y in zip(k2_old, k2_new))
         out[f"fit_moment ncp{ncp}"] = {**turns(
-            n4_cuda, libs["n4_fit"], lambda: n4_cuda.fit_moment(a, *r3)),
-            "rel_err": errs, "K2_bit_equal": k2_same}
-        if not (max(errs.values()) <= KERNEL_RTOL and k2_same):
-            raise AssertionError(f"K1/K2 against the older sources at ncp "
-                                 f"{ncp}: {errs} K2 equal {k2_same}")
+            under(n4_cuda, libs["n4_fit"], lambda: n4_cuda.fit_moment(a, *r3)),
+            lambda: n4_cuda.fit_moment(a, *r3)), "rel_err": errs}
+        if not max(errs.values()) <= KERNEL_RTOL:
+            raise AssertionError(f"K1 against the older sources at ncp "
+                                 f"{ncp}: {errs}")
+
+        # K2 on N4's power-1 rows, a phi from this moment, frozen lanes
+        phi = torch.where(want != 0, want / want.abs().max(),
+                          torch.zeros_like(want))
+        field = 0.01 * torch.from_numpy(gen.normal(
+            size=wv.shape).astype(np.float32)).to(dev) * wv
+        done = torch.zeros(BATCH, device=dev)
+        done[::3] = 1.0
+        k2_args = (phi, *r1, wv, field, logv, done)
+        new2, old2 = n4_cuda.fit_delta_conv_field(*k2_args), old_k2(*k2_args)
+        plain2 = n4_cuda.fit_delta_conv_field_plain(*k2_args)
+        s_scale = (wv * torch.expm1(-n4_cuda.fit_delta_conv_field_plain(
+            phi, *r1, wv, torch.zeros_like(wv), logv,
+            torch.zeros_like(done))[0])).abs().sum(1)
+        same = {"field": bool(torch.equal(new2[0], old2[0])),
+                "logu": bool(torch.equal(new2[1], old2[1])),
+                "min_max": bool(torch.equal(new2[2][:, 2:], old2[2][:, 2:])),
+                "sums": bool(torch.equal(new2[2][:, :2], old2[2][:, :2])),
+                "sums_ok": sums_ok(new2[2], old2[2], plain2[2], s_scale),
+                "K6": bool(torch.equal(n4_cuda.fit_delta(phi, *r1),
+                                       old_k6(phi, *r1)))}
+        new7, old7 = (n4_cuda.fit_delta_conv(phi, *r1, wv),
+                      old_k7(phi, *r1, wv))
+        same["K7_d"] = bool(torch.equal(new7[0], old7[0]))
+        same["K7_sums_ok"] = sums_ok(
+            new7[1], old7[1], n4_cuda.fit_delta_conv_plain(phi, *r1, wv)[1],
+            s_scale)
+        out[f"fit_delta_conv_field ncp{ncp}"] = {
+            **turns(lambda: old_k2(*k2_args),
+                    lambda: n4_cuda.fit_delta_conv_field(*k2_args)),
+            "bit_equal": same}
+        if not all(v for k, v in same.items() if k != "sums"):
+            raise AssertionError(f"K2/K6/K7 against the older sources at "
+                                 f"ncp {ncp}: {same}")
+        if ncp == 11:
+            out["fit_delta ncp11"] = turns(
+                lambda: old_k6(phi, *r1), lambda: n4_cuda.fit_delta(phi, *r1))
+            out["fit_delta_conv ncp11"] = turns(
+                lambda: old_k7(phi, *r1, wv),
+                lambda: n4_cuda.fit_delta_conv(phi, *r1, wv))
+
     for tag, (logu, wv, sv, bmn, slope) in (
             ("first", sharpen_inputs(hp, mask, n4_pad, dev)),
             ("late", late_residual(hp, mask, n4_pad, dev))):
-        with lib_of(sc, libs["n4_sharpen"]):
-            old = sc.sharpen_hist(logu, wv, bmn, slope, BINS)
-        same = bool(torch.equal(old, sc.sharpen_hist(logu, wv, bmn, slope,
-                                                     BINS)))
-        out[f"sharpen_hist {tag}"] = {**turns(
-            sc, libs["n4_sharpen"],
-            lambda: sc.sharpen_hist(logu, wv, bmn, slope, BINS)),
-            "bit_equal": same}
+        hist = lambda: sc.sharpen_hist(logu, wv, bmn, slope, BINS)
+        old_hist = under(sc, libs["n4_sharpen"], hist)
+        same = bool(torch.equal(old_hist(), hist()))
+        out[f"sharpen_hist {tag}"] = {**turns(old_hist, hist),
+                                      "bit_equal": same}
         if not same:
             raise AssertionError(f"K4 differs from the older K4 ({tag})")
+
+    K = cfg.ci_max_defect_voxels
+    slice_coords = tcp.defect_coords(res.defect, K)[0]
+    for k, c in ((K, slice_coords), (2048, severe_coords(2048, dev)),
+                 (4096, severe_coords(4096, dev))):
+        args = k3_args(c, geom)
+        head = lambda: ci_cuda.head_counts(*args)
+        old_head = under(ci_cuda, libs["ci_head"], head)
+        same = bool(torch.equal(old_head(), head()))
+        out[f"head_counts K{k}"] = {**turns(old_head, head, reps=5),
+                                    "bit_equal": same}
+        if not same:
+            raise AssertionError(f"K3 differs from the older K3 at K {k}")
+
+    run = lambda: analyze_cohort(hp_d, mask_d, geom, cfg)
+    with older_kernels(libs, old_k2):
+        old = run()
+    same = all(torch.equal(getattr(old, f), getattr(res, f))
+               for f in ("n4", "defect", "defect_lb", "defect_km", "ci_map"))
+    times = []
+    for older in (True, False, False, True):
+        with older_kernels(libs, old_k2) if older else contextlib.nullcontext():
+            times.append(host_ms(run)[0])
+    out["slice"] = {"parent_ms": (times[0] + times[3]) / 2,
+                    "ms": (times[1] + times[2]) / 2, "turns": times,
+                    "bit_identical": same}
+    if not same:
+        raise AssertionError("the slice on the older kernels differs")
     for k, v in out.items():
         log(f"parent {k}: " + json.dumps(v))
+    with older_kernels(libs, old_k2):
+        phase_profile(cfg, geom, hp_d, mask_d, tag="_parent")
     return out
 
 
-def phase_profile(cfg, geom, hp_d, mask_d):
-    """One slice batch under torch.profiler: device time by kernel and the
-    device's busy share of the traced span, to chiprun_out/."""
-    from pathlib import Path
+# The device kernel that each launch of a wrapper enqueues once (K2, K6 and
+# K7 share theirs; older sources name K2's delta_partial), for matching a
+# profile's activities to the launch counts.
+PROFILE_KERNELS = (
+    (("moment_partial",), ("fit_moment",)),
+    (("delta_kernel", "delta_partial"),
+     ("fit_delta_conv_field", "fit_delta", "fit_delta_conv")),
+    (("hist_partial",), ("sharpen_hist",)),
+    (("resid_kernel",), ("sharpen_resid",)),
+    (("head_counts_kernel",), ("head_counts",)),
+    (("rank_count",), ("rank",)),
+    (("densify_kernel",), ("densify_rank",)),
+)
 
+
+def profiled_batch(cfg, geom, hp_d, mask_d, tries=6):
+    """(profiler, device activities of one slice batch), from the first of
+    two sessions in a row that are complete and agree.  The profiler can
+    lose activities (see device_ms), so spin kernels go first and the last
+    two spins mark the batch; a session is complete when the batch holds
+    one activity of each wrapper's kernel for each launch the wrappers
+    counted in it, and two complete sessions agree when they hold as many
+    activities."""
     from torch.profiler import ProfilerActivity, profile
 
     from ventjax_torch.pipeline import analyze_cohort
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        analyze_cohort(hp_d, mask_d, geom, cfg)
+    last = None
+    for _ in range(tries):
+        reset_counts()
         torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                torch.cuda._sleep(1000)
+            analyze_cohort(hp_d, mask_d, geom, cfg)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        events = events[marks[-2] + 1:marks[-1]] if len(marks) >= 2 else []
+        complete = bool(events) and all(
+            sum(any(m in e.name for m in names) for e in events)
+            == sum(counts[k] for k in keys) for names, keys in PROFILE_KERNELS)
+        if complete and last is not None and len(last[1]) == len(events):
+            return prof, events
+        last = (prof, events) if complete else None
+    raise RuntimeError(f"torch.profiler gave no two complete, agreeing "
+                       f"sessions of a slice batch in {tries}")
+
+
+def phase_profile(cfg, geom, hp_d, mask_d, tag=""):
+    """One slice batch under torch.profiler (profiled_batch): device time by
+    kernel and the device's busy share of the traced span, to chiprun_out/
+    (tag names the kernels' sources in the log and the file)."""
+    from pathlib import Path
+
+    prof, events = profiled_batch(cfg, geom, hp_d, mask_d)
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     span_us = (max(e.time_range.end for e in events)
                - min(e.time_range.start for e in events)) if events else 0
-    averages = prof.key_averages()
-    table = averages.table(sort_by="self_cuda_time_total", row_limit=40)
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=40)
+    by_name = {}
+    for e in events:
+        name = e.name.split("namespace)::", 1)[-1].split("(")[0]
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + e.time_range.elapsed_us())
     for label, names in (("K1", ("moment_partial", "reduce_chunks")),
+                         ("K2", ("delta_kernel", "delta_partial",
+                                 "reduce_stats")),
+                         ("K3", ("head_counts_kernel",)),
                          ("K4", ("hist_partial", "hist_finish"))):
-        rows = [e for e in averages if any(n in e.key for n in names)]
-        log(f"profile {label}: " + "; ".join(
-            f"{e.key.split('namespace)::')[-1].split('(')[0]} x{e.count} "
-            f"{e.self_device_time_total / 1e3:.4f} ms" for e in rows))
+        log(f"profile{tag} {label}: " + "; ".join(
+            f"{k} x{n} {us / 1e3:.4f} ms" for k, (n, us) in by_name.items()
+            if any(m in k for m in names)))
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / "profile_slice.txt").write_text(table)
-    log(f"profile: {len(events)} device kernels, {busy_us / 1e3:.2f} ms "
-        f"device time in a {span_us / 1e3:.2f} ms span (busy share "
+    (out / f"profile_slice{tag}.txt").write_text(table)
+    log(f"profile{tag}: {len(events)} device kernels (every counted launch "
+        f"present, as many as a repeat batch), {busy_us / 1e3:.2f} "
+        f"ms device time in a {span_us / 1e3:.2f} ms span (busy share "
         f"{busy_us / max(span_us, 1):.3f}); table in "
-        f"chiprun_out/profile_slice.txt")
+        f"chiprun_out/profile_slice{tag}.txt")
 
 
 KERNELS = {   # name: (source, the TPU kernel it replaces)
@@ -1221,8 +1482,9 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR", help=(
-        "also build DIR/n4_fit.cu and DIR/n4_sharpen.cu (an older version "
-        "of the sources) and time K1 and K4 against them"))
+        "also build DIR/n4_fit.cu, DIR/n4_sharpen.cu and DIR/ci_head.cu (an "
+        "older version of the sources) and time K1, K2, K6, K7, K4 and K3 "
+        "against them"))
     args = ap.parse_args()
     dev, card = phase_device()
     phase_build()
@@ -1238,7 +1500,8 @@ def main():
     med, rec = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
                             dev)
     if args.parent:
-        phase_parent(args.parent, hp, mask, n4_pad, dev)
+        phase_parent(args.parent, hp, mask, n4_pad, dev, res, geom, cfg,
+                     hp_d, mask_d)
     phase_profile(cfg, geom, hp_d, mask_d)
     log(f"summary: card={card!r} slice_vol_per_s={BATCH * 1e3 / med:.3f} "
         f"cohort_subjects_per_s={rate:.3f} n4_host_syncs={syncs} "

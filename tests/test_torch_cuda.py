@@ -10,8 +10,8 @@ an NVIDIA GPU and nvcc, from the repository root:
 imports no JAX, and nothing of the ventjax package.)  Tolerances:
 K1/K2/K6/K7 relative 1e-5 of each output's largest magnitude, the same
 float32 algorithm in another summation order (and K7 bit-equal to K2 with
-done = 0 and to the flushed, weighted K6: they share their code); K1
-bit-identical from launch to launch; K4 relative 1e-5 of the largest bin
+done = 0 and to the flushed, weighted K6: they share their code); K1 and
+K2 bit-identical from launch to launch; K4 relative 1e-5 of the largest bin
 against its plain version, whose float32 atomics sum in another order (the
 kernel's fixed-point sum is nearer the exact one), bit-equal to its exact
 fixed-point plain version, and bit-identical from launch to launch; K5
@@ -149,6 +149,95 @@ def test_fit_delta_kernels_every_ncp(cuda, ncp):
     nf, _, k2 = n4_cuda.fit_delta_conv_field(
         phi, *rows, wv, zero, torch.ones_like(wv), torch.zeros(N, device=cuda))
     assert torch.equal(nf, d) and torch.equal(k2[:, :2], stats)
+
+
+@pytest.mark.parametrize("P", [4099, 6144])
+@pytest.mark.parametrize("ncp", [1, 4, 5, 7, 11, 16])
+def test_fit_delta_spline_rows(cuda, ncp, P):
+    """K2, K6 and K7 on B-spline rows as N4 gives them (power 1: the
+    windowed contraction at work; the shuffled lane gives every thread of a
+    warp its own windows), at P not a multiple of the tile or the chunk,
+    with a phi that holds exact zeros: K2 within RTOL of the plain version,
+    bit-identical on relaunch, frozen lanes exact, K7 bit-equal to K2 with
+    done = 0 and to the flushed, weighted K6, and the per-lane tickets back
+    at 0 after every launch."""
+    gen = np.random.default_rng(2000 + ncp + P)
+    _, rows = _spline_lanes(ncp, P, gen, cuda, 1)
+    N = 5
+    phi = gen.normal(0.05, 0.02, (N, ncp, ncp * ncp)).astype(np.float32)
+    phi[gen.random(phi.shape) < 0.3] = 0.0
+    phi = torch.from_numpy(phi).to(cuda)
+    wv = (torch.arange(P, device=cuda)[None] < torch.tensor(
+        [P - 37 * n for n in range(N)], device=cuda)[:, None]).float()
+    field = torch.from_numpy(gen.normal(0.0, 0.01, (N, P)).astype(
+        np.float32)).to(cuda) * wv
+    logv = torch.from_numpy(gen.normal(5.0, 0.5, (N, P)).astype(
+        np.float32)).to(cuda) * wv
+    done = torch.tensor([0.0, 1.0, 0.0, 0.0, 1.0], device=cuda)
+    got = n4_cuda.fit_delta_conv_field(phi, *rows, wv, field, logv, done)
+    want = n4_cuda.fit_delta_conv_field_plain(phi, *rows, wv, field, logv,
+                                              done)
+    for g, w in zip(got, want):
+        assert _err(g, w) < RTOL
+    again = n4_cuda.fit_delta_conv_field(phi, *rows, wv, field, logv, done)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert torch.equal(got[0][done == 1], field[done == 1])
+
+    raw = n4_cuda.fit_delta(phi, *rows)
+    assert _err(raw, n4_cuda.fit_delta_plain(phi, *rows)) < RTOL
+    d, stats = n4_cuda.fit_delta_conv(phi, *rows, wv)
+    flushed = torch.where(raw.abs() < 1e-18, torch.zeros_like(raw), raw)
+    assert torch.equal(flushed * wv, d)
+    nf, _, k2 = n4_cuda.fit_delta_conv_field(
+        phi, *rows, wv, torch.zeros_like(wv), logv,
+        torch.zeros(N, device=cuda))
+    assert torch.equal(nf, d) and torch.equal(k2[:, :2], stats)
+    torch.cuda.synchronize()
+    assert all(not bool(t.any()) for t in n4_cuda._TICKETS.values())
+
+
+def _severe_defects(K, N, gen, dev, shape=(128, 128, 16)):
+    """[N, H, W, D] severe-load defect maps: clustered blobs until a lane
+    holds ~3/4 of K defect voxels, the last lane half that."""
+    H, W, D = shape
+    ii, jj, kk = np.meshgrid(np.arange(H), np.arange(W), np.arange(D),
+                             indexing="ij")
+    d = np.zeros((N,) + shape, np.float32)
+    for n in range(N):
+        while d[n].sum() < (0.75 if n < N - 1 else 0.375) * K:
+            c = gen.uniform([20, 20, 0], [H - 20, W - 20, D])
+            r = gen.uniform([3, 3, 1], [10, 10, 3])
+            blob = (((ii - c[0]) / r[0]) ** 2 + ((jj - c[1]) / r[1]) ** 2
+                    + ((kk - c[2]) / r[2]) ** 2) <= 1.0
+            d[n][blob & (gen.random(shape) < 0.8)] = 1.0
+    return torch.from_numpy(d).to(dev)
+
+
+@pytest.mark.parametrize("border", ["wrap", "pad"])
+@pytest.mark.parametrize("K,Kw", [(2048, 2048), (2048, 1777)])
+def test_head_counts_severe_maps(cuda, border, K, Kw):
+    """K3 on clustered severe-load maps (the warp culling at work), and at
+    a ragged Kw != K with sentinel rows in both: bit-equal to the plain
+    version and bit-identical on relaunch."""
+    gen = np.random.default_rng(K + Kw)
+    shape = (128, 128, 16)
+    geom = tcp.build_ci_pairwise_geometry((1.5, 1.5, 10.0), shape, 50,
+                                          border)
+    ns = min(96, geom.n_balls - 1)
+    defect = _severe_defects(K, 3, gen, cuda, shape)
+    centers = tcp.defect_coords(defect, K)[0]
+    witnesses = tcp.defect_coords(defect, Kw)[0]
+    r2 = torch.as_tensor(geom.r2_32[:ns], device=cuda)
+    combos = tcp._alias_combos(geom)
+    got = ci_cuda.head_counts(centers, witnesses, r2, combos, geom.scale,
+                              geom.rmax)
+    want = ci_cuda.head_counts_plain(centers, witnesses, r2, combos,
+                                     geom.scale, geom.rmax)
+    assert torch.equal(got, want)
+    assert int(want.max()) > 0
+    assert torch.equal(got, ci_cuda.head_counts(centers, witnesses, r2,
+                                                combos, geom.scale,
+                                                geom.rmax))
 
 
 @pytest.mark.parametrize("border", ["wrap", "pad"])

@@ -13,7 +13,7 @@
 //     hold whatever their basis rows give).
 // K7  vj_fit_delta_conv        replaces n4_pallas.py:fit_delta_conv_pallas
 //     d = delta flushed below 1e-18, times wv, and (s1, s2) as in K2.
-// K2, K6 and K7 are one kernel body (delta_partial) in three modes: the
+// K2, K6 and K7 are one kernel body (delta_kernel) in three modes: the
 // per-voxel delta, its flush and weight, the convergence sums and their
 // fixed-order reductions are shared code, so K7's d and (s1, s2) equal
 // K2's with done = 0 bit for bit, and flush(K6) * wv equals K7's d.
@@ -49,10 +49,40 @@
 // which each thread owned moment entries and issued three shared-memory
 // loads per multiply-add over all ncp^3 products.
 //
-// K2 does ncp^3 multiply-adds per voxel with phi broadcast from shared
-// memory and streams 3*ncp rows plus five vectors (K6 one vector, K7 two),
-// so all three are bound by the same shared-memory broadcasts: making that
-// contraction fast is later work.
+// K2 (and K6, K7) on this card.  The least it can take is set by bytes:
+// 3*ncp rows and three vectors in, two vectors out per voxel (K6: the rows
+// in, one vector out; K7: rows and wv in, one out).  The kernel
+// (delta_kernel) streams those bytes with all of a voxel's loads issued
+// before its arithmetic, and keeps the contraction off the critical path:
+// - a thread loads its voxel's 3*ncp row values straight into registers
+//   (warps read 32 consecutive voxels of a row: coalesced) and its vectors
+//   beside them; with three blocks an SM (80 registers a thread up to
+//   ncp 11) the 384 blocks of the slice run in one wave, and the loads in
+//   flight cover the memory latency.  Staging the rows through shared
+//   memory with cp.async, as K1 does, measured slower at ncp 5 to 11 and no
+//   faster at ncp 4: here each row value is used by one thread only;
+// - a windowed contraction: a voxel's row has at most 4 non-zero entries
+//   per axis, so above ncp 4 each thread finds, from bit masks of its
+//   non-zero rows, the 4-wide window of each axis, picks the window's
+//   values by selects (registers take no runtime index) and contracts over
+//   4 x 4 x 4 entries of phi (read from shared memory at per-thread
+//   offsets) instead of ncp^3.  A warp in which some voxel has a non-zero
+//   row outside its window (random rows, not N4's) takes the full
+//   contraction, uniformly;
+// - the per-lane statistics folded in: the last block of a lane, found by
+//   a self-resetting ticket, adds the chunks' partials in chunk order, so
+//   a call is one launch.
+// Bits.  Only exact zeros are skipped, and the association stays g over e,
+// h over d, raw over c, each ascending with one fma per term: adding an
+// exact zero product leaves a float sum unchanged, so delta, field', logu'
+// and K7's d are the bits of the full contraction for finite phi (0 * inf
+// in a skipped term would be NaN there: non-finite phi is outside that).
+// A thread takes the same voxels in the same order as before (voxel t +
+// 256 i of its 2048-voxel chunk) and the reductions are the same trees, so
+// the statistics keep their bits too.  What still bounds it: the memory
+// system's rate for this access pattern (3*ncp row streams, 4 bytes per
+// thread from each), not the arithmetic: an exploratory build that skipped
+// the contraction altogether was barely faster.
 //
 // Why float32.  The Pallas kernels fed bf16 operands to the TPU's matrix
 // unit.  Here the products run on the CUDA cores, where f32 costs the
@@ -63,7 +93,8 @@
 // to the next, and float atomics would reorder the sums from run to run,
 // which would let N4's convergence test (and so each lane's iteration
 // count) vary.  Each block therefore writes partial sums for its own voxel
-// chunk, and a second small kernel reduces the chunks in a fixed order.
+// chunk, and the chunks are added in a fixed order: by a second small
+// kernel for K1, by the last block of each lane for K2 and K7.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (never --use_fast_math), by ventjax_torch/_build.py.
@@ -346,37 +377,144 @@ __global__ void reduce_chunks(const float* __restrict__ part,
   out[(size_t)lane * width + f] = s;
 }
 
-// The delta evaluation shared by K2, K6 and K7: raw = sum_c br[c] *
-// sum_{d,e} phi[c, d*ncp+e] bc[d] bs[e] at voxel p, with phi in shared
-// memory (every thread of a warp reads the same coefficient, a broadcast),
-// the bc and bs rows of the voxel in registers and br read once per c.
-// One function, so the three kernels compute the same bits per voxel.
+// ---------------------------------------------------------------------------
+// K2, K6 and K7: one kernel body (delta_kernel) in three modes.  One block
+// per (2048-voxel chunk, lane); thread t takes voxels t, t + 256, ... of its
+// chunk, and holds each voxel's 3*ncp row values in registers
+// (v[c] = br[c], v[ncp + d] = bc[d], v[2 ncp + e] = bs[e]).
+
+// What one launch of the shared delta kernel writes.
+enum DeltaMode {
+  RAW = 0,    // K6: out0 = raw delta; no statistics
+  CONV = 1,   // K7: out0 = flushed delta * wv; stats = (s1, s2)
+  FIELD = 2,  // K2: out0 = field', out1 = logu'; stats = (s1, s2, min, max)
+};
+
+// The full contraction of one voxel: raw = sum_c br[c] * sum_d bc[d] *
+// sum_e phi[c, d*ncp+e] bs[e], each sum ascending, one fma per term; phi in
+// shared memory, read as a broadcast.  Up to ncp 4 (N4's first level) the
+// c loop is unrolled over the registers; above, it serves only rows with
+// non-zeros outside a window (never N4's), so it keeps the code small: the
+// loop over c is rolled and reads br[c] again (brc: this voxel's br, rows
+// P apart; in: the voxel exists).
 template <int NCP>
-__device__ __forceinline__ float delta_raw(
-    const float* __restrict__ s_phi, const float* __restrict__ br,
-    const float* __restrict__ bc, const float* __restrict__ bs, size_t rows,
-    int P, int p) {
+__device__ __forceinline__ float delta_full(const float* __restrict__ s_phi,
+                                            const float (&v)[3 * NCP],
+                                            const float* __restrict__ brc,
+                                            int P, bool in) {
   constexpr int N2 = NCP * NCP;
-  float cb[NCP], sb[NCP];
-#pragma unroll
-  for (int k = 0; k < NCP; ++k) {
-    cb[k] = bc[rows + (size_t)k * P + p];
-    sb[k] = bs[rows + (size_t)k * P + p];
-  }
-  float raw = 0.f;
-  for (int c = 0; c < NCP; ++c) {
+  auto row_sum = [&](int c) {      // sum_d bc[d] sum_e phi[c, d, e] bs[e]
     const float* ph = s_phi + c * N2;
     float h = 0.f;
 #pragma unroll
     for (int d = 0; d < NCP; ++d) {
       float g = 0.f;
 #pragma unroll
-      for (int e = 0; e < NCP; ++e) g += ph[d * NCP + e] * sb[e];
-      h += cb[d] * g;
+      for (int e = 0; e < NCP; ++e)
+        g = fmaf(ph[d * NCP + e], v[2 * NCP + e], g);
+      h = fmaf(v[NCP + d], g, h);
     }
-    raw += br[rows + (size_t)c * P + p] * h;
+    return h;
+  };
+  float raw = 0.f;
+  if constexpr (NCP <= 4) {
+#pragma unroll
+    for (int c = 0; c < NCP; ++c) {
+      raw = fmaf(v[c], row_sum(c), raw);
+      // keep the next row's phi loads below this one: hoisting all ncp^3
+      // of them takes that many registers (and spills)
+      asm volatile("" ::: "memory");
+    }
+  } else {
+#pragma unroll 1
+    for (int c = 0; c < NCP; ++c)
+      raw = fmaf(in ? brc[(size_t)c * P] : 0.f, row_sum(c), raw);
   }
   return raw;
+}
+
+// x[i] = v[off + lo + i] for i < 4 and a runtime lo in [0, NCP - 4], by
+// selects: registers take no runtime index.
+template <int NCP>
+__device__ __forceinline__ void pick4(const float (&v)[3 * NCP], int off,
+                                      int lo, float (&x)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[i] = v[off + i];
+#pragma unroll
+    for (int j = 1; j <= NCP - 4; ++j)
+      if (lo == j) x[i] = v[off + j + i];
+  }
+}
+
+// The same sums over the 4-wide windows starting at lc, ld, le, outside of
+// which the voxel's rows are exactly 0: the terms left out are exact zeros,
+// so the result has the bits of delta_full.  phi is read at per-thread
+// offsets.
+template <int NCP>
+__device__ __forceinline__ float delta_window(
+    const float* __restrict__ s_phi, const float (&v)[3 * NCP], int lc,
+    int ld, int le) {
+  constexpr int N2 = NCP * NCP;
+  float rb[4], cb[4], sb[4];
+  pick4<NCP>(v, 0, lc, rb);
+  pick4<NCP>(v, NCP, ld, cb);
+  pick4<NCP>(v, 2 * NCP, le, sb);
+  const float* ph0 = s_phi + lc * N2 + ld * NCP + le;
+  float raw = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* ph = ph0 + i * N2;
+    float h = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float g = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) g = fmaf(ph[j * NCP + k], sb[k], g);
+      h = fmaf(cb[j], g, h);
+    }
+    raw = fmaf(rb[i], h, raw);
+  }
+  return raw;
+}
+
+// Bit k set where row k of the axis starting at v[off] is non-zero.
+template <int NCP>
+__device__ __forceinline__ unsigned nonzero_rows(const float (&v)[3 * NCP],
+                                                 int off) {
+  unsigned m = 0u;
+#pragma unroll
+  for (int k = 0; k < NCP; ++k) m |= (v[off + k] != 0.f ? 1u : 0u) << k;
+  return m;
+}
+
+// Start of the 4-wide window that holds the non-zero rows of mask m (its
+// first non-zero row, at most NCP - 4); sets wide when some non-zero row
+// lies past the window.
+template <int NCP>
+__device__ __forceinline__ int window(unsigned m, bool& wide) {
+  const int lo = m == 0u ? 0 : min(__ffs(m) - 1, NCP - 4);
+  wide |= (m >> lo) > 15u;
+  return lo;
+}
+
+// The raw delta of one voxel.  Every lane of the warp calls it (voxels past
+// the chunk hold zero rows).
+template <int NCP>
+__device__ __forceinline__ float delta_voxel(const float* __restrict__ s_phi,
+                                             const float (&v)[3 * NCP],
+                                             const float* __restrict__ brc,
+                                             int P, bool in) {
+  if constexpr (NCP <= 4) {
+    return delta_full<NCP>(s_phi, v, brc, P, in);   // the window: the axis
+  } else {
+    bool wide = false;
+    const int lc = window<NCP>(nonzero_rows<NCP>(v, 0), wide);
+    const int ld = window<NCP>(nonzero_rows<NCP>(v, NCP), wide);
+    const int le = window<NCP>(nonzero_rows<NCP>(v, 2 * NCP), wide);
+    if (__any_sync(FULL, wide)) return delta_full<NCP>(s_phi, v, brc, P, in);
+    return delta_window<NCP>(s_phi, v, lc, ld, le);
+  }
 }
 
 // The field update of one voxel: raw flushed below 1e-18, times its weight.
@@ -419,54 +557,102 @@ __device__ __forceinline__ void block_stats(float (*red)[K2_THREADS],
   }
 }
 
-// What one pass of the shared delta kernel writes.
-enum DeltaMode {
-  RAW = 0,    // K6: out0 = raw delta; no statistics
-  CONV = 1,   // K7: out0 = flushed delta * wv; part = per-chunk (s1, s2)
-  FIELD = 2,  // K2: out0 = field', out1 = logu'; part = (s1, s2, min, max)
-};
+// The last block of a lane to finish (a ticket per lane, which atomicInc
+// brings back to 0 as that block takes it) folds the chunks' statistics in
+// chunk order: sums from 0 for slots 0-1, min and max for slots 2-3.  The
+// block's threads load the partials together, K2_THREADS at a time, into
+// buf (K2_THREADS floats of shared memory); NS threads fold them.
+template <int NS>
+__device__ __forceinline__ void fold_lane(const float* __restrict__ part,
+                                          float* __restrict__ stats,
+                                          unsigned* __restrict__ tickets,
+                                          float* __restrict__ buf, int lane,
+                                          int nchunk) {
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  if (t == 0) {
+    __threadfence();           // this block's partial, before its ticket
+    last = atomicInc(&tickets[lane], (unsigned)nchunk - 1u) ==
+           (unsigned)nchunk - 1u;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* p = part + (size_t)lane * nchunk * NS;
+  float s = t < 2 ? 0.f : (t == 2 ? INFINITY : -INFINITY);
+  constexpr int CPR = K2_THREADS / NS;         // chunks per round
+  for (int c0 = 0; c0 < nchunk; c0 += CPR) {
+    const int n = min(CPR, nchunk - c0) * NS;
+    if (t < n) buf[t] = __ldcg(p + (size_t)c0 * NS + t);
+    __syncthreads();
+    if (t < NS) {
+      for (int i = t; i < n; i += NS)
+        s = t < 2 ? s + buf[i] : (t == 2 ? fminf(s, buf[i])
+                                         : fmaxf(s, buf[i]));
+    }
+    __syncthreads();
+  }
+  if (t < NS) stats[(size_t)lane * NS + t] = s;
+}
 
-// K2, K6 and K7, pass 1: one block per (voxel chunk, lane), one thread per
-// voxel at a time.  Per voxel the three share delta_raw (and K2/K7 share
-// flush_weight and conv_accum); per chunk K2 and K7 share block_stats, so
-// K7's d, s1 and s2 are K2's bits with done = 0.
+// Three blocks an SM up to ncp 11 (80 registers a thread), so the 384
+// blocks of the slice run in one wave; two above.
 template <int NCP, int MODE>
-__global__ void __launch_bounds__(K2_THREADS) delta_partial(
+__global__ void __launch_bounds__(K2_THREADS, NCP <= 11 ? 3 : 2) delta_kernel(
     const float* __restrict__ phi, const float* __restrict__ br,
     const float* __restrict__ bc, const float* __restrict__ bs,
     const float* __restrict__ wv, const float* __restrict__ field,
     const float* __restrict__ logv, const float* __restrict__ done,
     float* __restrict__ out0, float* __restrict__ out1,
-    float* __restrict__ part, int P, int nchunk) {
+    float* __restrict__ part, unsigned* __restrict__ tickets,
+    float* __restrict__ stats, int P, int nchunk) {
   constexpr int N3 = NCP * NCP * NCP;
   constexpr int NS = MODE == FIELD ? 4 : 2;
   __shared__ float s_phi[N3];
   __shared__ float red[NS][K2_THREADS];
   const int lane = blockIdx.y;
-  const int chunk = blockIdx.x;
   const int t = threadIdx.x;
+  const size_t rows = (size_t)lane * NCP * P;
+  const size_t vec = (size_t)lane * P;
+  const int p0 = blockIdx.x * CHUNK;
+  const int p1 = min(p0 + CHUNK, P);
   const float* phi_l = phi + (size_t)lane * N3;
   for (int i = t; i < N3; i += K2_THREADS) s_phi[i] = phi_l[i];
   __syncthreads();
-
-  const size_t rows = (size_t)lane * NCP * P;
-  const size_t vec = (size_t)lane * P;
   float live = 0.f;
   if constexpr (MODE == FIELD) live = 1.f - done[lane];
   float s1 = 0.f, s2 = 0.f, mn = INFINITY, mx = -INFINITY;
-  const int p1 = min((chunk + 1) * CHUNK, P);
-  for (int p = chunk * CHUNK + t; p < p1; p += K2_THREADS) {
-    const float raw = delta_raw<NCP>(s_phi, br, bc, bs, rows, P, p);
+  // Every lane runs every trip (the windows' warp vote needs them all).
+  for (int q = p0; q < p1; q += K2_THREADS) {
+    const int p = q + t;
+    const bool in = p < p1;
+    // all of the voxel's loads first, then the arithmetic
+    float v[3 * NCP];
+#pragma unroll
+    for (int k = 0; k < NCP; ++k) {
+      v[k] = in ? br[rows + (size_t)k * P + p] : 0.f;
+      v[NCP + k] = in ? bc[rows + (size_t)k * P + p] : 0.f;
+      v[2 * NCP + k] = in ? bs[rows + (size_t)k * P + p] : 0.f;
+    }
+    float w = 0.f, fo = 0.f, lv = 0.f;
+    if (in) {
+      if constexpr (MODE != RAW) w = wv[vec + p];
+      if constexpr (MODE == FIELD) {
+        fo = field[vec + p];
+        lv = logv[vec + p];
+      }
+    }
+    const float raw = delta_voxel<NCP>(s_phi, v, br + rows + p, P, in);
+    if (!in) continue;
     if constexpr (MODE == RAW) {
       out0[vec + p] = raw;
     } else {
-      const float w = wv[vec + p];
       const float dl = flush_weight(raw, w);
       if constexpr (MODE == CONV) {
         out0[vec + p] = dl;
       } else {
-        const float f2 = field[vec + p] + live * dl;
-        const float l2 = (logv[vec + p] - f2) * w;
+        const float f2 = fo + live * dl;
+        const float l2 = (lv - f2) * w;
         out0[vec + p] = f2;
         out1[vec + p] = l2;
         if (w > 0.f) {
@@ -477,53 +663,31 @@ __global__ void __launch_bounds__(K2_THREADS) delta_partial(
       conv_accum(dl, w, s1, s2);
     }
   }
-  if constexpr (MODE == RAW) return;
-  red[0][t] = s1;
-  red[1][t] = s2;
-  if constexpr (NS == 4) {
-    red[2][t] = mn;
-    red[3][t] = mx;
-  }
-  block_stats<NS>(red, part + ((size_t)lane * nchunk + chunk) * NS);
-}
-
-// K2 and K7, pass 2: one thread per lane folds the chunks' statistics in
-// chunk order (sums for slots 0-1, min and max for slots 2-3).
-template <int NS>
-__global__ void reduce_stats(const float* __restrict__ part,
-                             float* __restrict__ stats, int N, int nchunk) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= N) return;
-  const float* p = part + (size_t)lane * nchunk * NS;
-  float s1 = 0.f, s2 = 0.f, mn = INFINITY, mx = -INFINITY;
-  for (int c = 0; c < nchunk; ++c) {
-    s1 += p[NS * c];
-    s2 += p[NS * c + 1];
+  if constexpr (MODE != RAW) {
+    red[0][t] = s1;
+    red[1][t] = s2;
     if constexpr (NS == 4) {
-      mn = fminf(mn, p[NS * c + 2]);
-      mx = fmaxf(mx, p[NS * c + 3]);
+      red[2][t] = mn;
+      red[3][t] = mx;
     }
-  }
-  stats[NS * lane] = s1;
-  stats[NS * lane + 1] = s2;
-  if constexpr (NS == 4) {
-    stats[NS * lane + 2] = mn;
-    stats[NS * lane + 3] = mx;
+    block_stats<NS>(red, part + ((size_t)lane * nchunk + blockIdx.x) * NS);
+    fold_lane<NS>(part, stats, tickets, red[0], lane, nchunk);
   }
 }
 
-// Launch pass 1 of the shared delta kernel for a runtime ncp.
+// Launch the shared delta kernel for a runtime ncp.
 template <int MODE>
 int launch_delta(const float* phi, const float* br, const float* bc,
                  const float* bs, const float* wv, const float* field,
                  const float* logv, const float* done, float* out0,
-                 float* out1, float* part, int N, int P, int ncp, int nchunk,
-                 cudaStream_t st) {
+                 float* out1, float* part, unsigned* tickets, float* stats,
+                 int N, int P, int ncp, int nchunk, cudaStream_t st) {
   const dim3 grid(nchunk, N);
 #define VJ_DELTA(C)                                                          \
   case C:                                                                    \
-    delta_partial<C, MODE><<<grid, K2_THREADS, 0, st>>>(                     \
-        phi, br, bc, bs, wv, field, logv, done, out0, out1, part, P, nchunk); \
+    delta_kernel<C, MODE><<<grid, K2_THREADS, 0, st>>>(                      \
+        phi, br, bc, bs, wv, field, logv, done, out0, out1, part, tickets,   \
+        stats, P, nchunk);                                                   \
     break
   switch (ncp) {
     VJ_DELTA(1); VJ_DELTA(2); VJ_DELTA(3); VJ_DELTA(4);
@@ -574,18 +738,18 @@ extern "C" int vj_fit_moment(const float* a, const float* br, const float* bc,
   return (int)cudaGetLastError();
 }
 
+// tickets: N unsigned ints, 0 before the launch and 0 again after it (the
+// kernel's last block of each lane resets its own); part: N * nchunk * 4
+// floats of scratch.
 extern "C" int vj_fit_delta_conv_field(
     const float* phi, const float* br, const float* bc, const float* bs,
     const float* wv, const float* field, const float* logv, const float* done,
-    float* nf, float* lu, float* part, float* stats, int N, int P, int ncp,
-    int nchunk, void* stream) {
+    float* nf, float* lu, float* part, unsigned* tickets, float* stats, int N,
+    int P, int ncp, int nchunk, void* stream) {
   if (bad_shape(N, P, ncp, nchunk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int err = launch_delta<FIELD>(phi, br, bc, bs, wv, field, logv, done,
-                                      nf, lu, part, N, P, ncp, nchunk, st);
-  if (err != 0) return err;
-  reduce_stats<4><<<(N + 127) / 128, 128, 0, st>>>(part, stats, N, nchunk);
-  return (int)cudaGetLastError();
+  return launch_delta<FIELD>(phi, br, bc, bs, wv, field, logv, done, nf, lu,
+                             part, tickets, stats, N, P, ncp, nchunk,
+                             (cudaStream_t)stream);
 }
 
 extern "C" int vj_fit_delta(const float* phi, const float* br,
@@ -593,21 +757,18 @@ extern "C" int vj_fit_delta(const float* phi, const float* br,
                             int N, int P, int ncp, int nchunk, void* stream) {
   if (bad_shape(N, P, ncp, nchunk)) return (int)cudaErrorInvalidValue;
   return launch_delta<RAW>(phi, br, bc, bs, nullptr, nullptr, nullptr,
-                           nullptr, out, nullptr, nullptr, N, P, ncp, nchunk,
-                           (cudaStream_t)stream);
+                           nullptr, out, nullptr, nullptr, nullptr, nullptr, N,
+                           P, ncp, nchunk, (cudaStream_t)stream);
 }
 
+// tickets and part as for vj_fit_delta_conv_field (part: N * nchunk * 2).
 extern "C" int vj_fit_delta_conv(const float* phi, const float* br,
                                  const float* bc, const float* bs,
                                  const float* wv, float* d, float* part,
-                                 float* stats, int N, int P, int ncp,
-                                 int nchunk, void* stream) {
+                                 unsigned* tickets, float* stats, int N, int P,
+                                 int ncp, int nchunk, void* stream) {
   if (bad_shape(N, P, ncp, nchunk)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int err = launch_delta<CONV>(phi, br, bc, bs, wv, nullptr, nullptr,
-                                     nullptr, d, nullptr, part, N, P, ncp,
-                                     nchunk, st);
-  if (err != 0) return err;
-  reduce_stats<2><<<(N + 127) / 128, 128, 0, st>>>(part, stats, N, nchunk);
-  return (int)cudaGetLastError();
+  return launch_delta<CONV>(phi, br, bc, bs, wv, nullptr, nullptr, nullptr, d,
+                            nullptr, part, tickets, stats, N, P, ncp, nchunk,
+                            (cudaStream_t)stream);
 }

@@ -33,14 +33,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _lib():
-    lib = _build.load("ci_head")
+def _typed(lib):
+    """lib with the C signature of csrc/ci_head.cu set."""
     if not getattr(lib, "_vj_typed", False):
         lib.vj_head_counts.argtypes = (
             [_P] * 8 + [_I] * 4 + [_P, _I] + [_F] * 3 + [_I, _P])
         lib.vj_head_counts.restype = _I
         lib._vj_typed = True
     return lib
+
+
+def _lib():
+    return _typed(_build.load("ci_head"))
 
 
 def alias_min_d2(centers, witnesses, combos, scale, rmax):
@@ -100,8 +104,9 @@ def head_counts(
     ns = r2.shape[0]
     if not 1 <= ns <= MAX_NS:
         raise ValueError(f"head_counts: ns={ns} outside 1..{MAX_NS}")
-    if not 1 <= len(combos) <= MAX_COMBOS:
-        raise ValueError(f"head_counts: {len(combos)} alias combos")
+    if len(combos) not in (1, MAX_COMBOS):
+        raise ValueError(f"head_counts: {len(combos)} alias combos, not 1 "
+                         f"(pad) or {MAX_COMBOS} (wrap)")
     N, K = centers[0].shape
     Kw = witnesses[0].shape[1]
     for c in centers:

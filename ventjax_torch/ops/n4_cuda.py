@@ -54,11 +54,11 @@ def _typed(lib):
         lib.vj_n4_chunk.restype = _I
         lib.vj_fit_moment.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.vj_fit_moment.restype = _I
-        lib.vj_fit_delta_conv_field.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+        lib.vj_fit_delta_conv_field.argtypes = [_P] * 13 + [_I] * 4 + [_P]
         lib.vj_fit_delta_conv_field.restype = _I
         lib.vj_fit_delta.argtypes = [_P] * 5 + [_I] * 4 + [_P]
         lib.vj_fit_delta.restype = _I
-        lib.vj_fit_delta_conv.argtypes = [_P] * 8 + [_I] * 4 + [_P]
+        lib.vj_fit_delta_conv.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.vj_fit_delta_conv.restype = _I
         lib._vj_typed = True
     return lib
@@ -66,6 +66,21 @@ def _typed(lib):
 
 def _lib():
     return _typed(_build.load("n4_fit"))
+
+
+# One ticket per lane for K2's and K7's last-block fold, per (device,
+# stream): zero before and after every launch (the kernel resets its own),
+# so launches in one stream share them.  Grown, and zeroed once, on demand.
+_TICKETS = {}
+
+
+def _tickets(dev, N):
+    key = (dev.index, stream(dev))
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < N:
+        t = torch.zeros(max(N, 64), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
 
 
 def _check_rows(name, br, bc, bs):
@@ -203,7 +218,8 @@ def fit_delta_conv(phi, br, bc, bs, wv):
     stats = torch.empty((N, 2), **kw)
     rc = lib.vj_fit_delta_conv(
         phi.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
-        wv.data_ptr(), d.data_ptr(), part.data_ptr(), stats.data_ptr(),
+        wv.data_ptr(), d.data_ptr(), part.data_ptr(),
+        _tickets(wv.device, N).data_ptr(), stats.data_ptr(),
         N, P, ncp, nchunk, stream(wv.device))
     raise_on(rc, "fit_delta_conv")
     LAUNCHES["fit_delta_conv"] += 1
@@ -257,7 +273,8 @@ def fit_delta_conv_field(phi, br, bc, bs, wv, field, logv, done):
     rc = lib.vj_fit_delta_conv_field(
         phi.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
         wv.data_ptr(), field.data_ptr(), logv.data_ptr(), done.data_ptr(),
-        nf.data_ptr(), lu.data_ptr(), part.data_ptr(), stats.data_ptr(),
+        nf.data_ptr(), lu.data_ptr(), part.data_ptr(),
+        _tickets(wv.device, N).data_ptr(), stats.data_ptr(),
         N, P, ncp, nchunk, stream(wv.device))
     raise_on(rc, "fit_delta_conv_field")
     LAUNCHES["fit_delta_conv_field"] += 1
