@@ -50,21 +50,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    time per call (torch.profiler), its plain version's, the one PyTorch
    call that computes the same function where there is one, and its bound
    (bytes at 3.35 TB/s against float32 operations at 67 TFLOP/s), K1 and
-   K2 at every ncp, K4 and K5 on both residuals, K3 on the slice's defects
-   (K 512) and on severe-load maps at K 2048 and 4096; the densify step
-   beside the scatter; the fit chain's iterations, the cohort's subjects/s;
-6. with --parent DIR: DIR/n4_fit.cu, DIR/n4_sharpen.cu and DIR/ci_head.cu
-   (an older version of those sources) built under their own names and
-   timed against this tree in turns (older, this, this, older): K1 and K2
-   at every ncp, K6 and K7 at ncp 11, K4 on both residuals, K3 at K 512,
-   2048 and 4096.  Required bit-equal to them: K4, K3, K2's field', logu',
-   min and max, K6's delta and K7's d, and K2's and K7's sums (or, where a
-   design moved their order, within KERNEL_RTOL of the plain version).
-   Then the slice on the older kernels and on this tree's in turns (its
-   outputs required bit-identical), and one profiled batch on the older
-   kernels (chiprun_out/profile_slice_parent.txt);
+   K2 at every ncp, K4 and K5 on both residuals (K5 also with the L2 cache
+   flushed before each call), K3 on the slice's defects (K 512) and on
+   severe-load maps at K 2048 and 4096, K8 on the slice's defects and on
+   a severe-load map at K 4096 beside the scatter it replaces and the
+   K9 + K8 pair; the fit chain's iterations, the cohort's subjects/s;
+6. with --parent DIR: DIR/n4_fit.cu, DIR/n4_sharpen.cu, DIR/ci_head.cu and
+   DIR/ci_densify.cu (an older version of those sources, with the same C
+   interfaces) built under their own names and timed against this tree in
+   turns (older, this, this, older): K1 and K2 at every ncp, K6 and K7 at
+   ncp 11, K4 and K5 on both residuals, K3 at K 512, 2048 and 4096, K9 and
+   K8 at K 512 and 4096.  Required bit-equal to them: K4, K5, K3, K9, K8,
+   K2's field', logu', min and max, K6's delta and K7's d, and K2's and
+   K7's sums (or, where a design moved their order, within KERNEL_RTOL of
+   the plain version).  Then the slice on the older kernels and on this
+   tree's in turns (its outputs required bit-identical), and one profiled
+   batch on the older kernels (chiprun_out/profile_slice_parent.txt);
 7. one slice batch under torch.profiler: its device kernels, device time
-   and busy share, the rows of K1, K2, K3 and K4 (the table goes to
+   and busy share, the rows of K1, K2, K3, K4 and K5 (the table goes to
    chiprun_out/profile_slice.txt);
 8. one JSON line of kernel records, then the result line
    {"ok": true, "device": {...}} last.
@@ -447,16 +450,21 @@ def severe_defects(K, gen):
 _SEVERE = {}
 
 
-def severe_coords(K, dev):
-    """Defect coordinates, as calculate_ci_pairwise builds them, of a
-    severe-load batch at pad K (made once per K, from SEED + K)."""
-    from ventjax_torch.ops.ci_pairwise import defect_coords
-
+def severe_map(K, dev):
+    """A severe-load batch of defect maps for pad K (made once per K, from
+    SEED + K)."""
     if K not in _SEVERE:
         gen = np.random.default_rng(SEED + K)
-        _SEVERE[K] = defect_coords(torch.from_numpy(
-            severe_defects(K, gen)).to(dev), K)[0]
+        _SEVERE[K] = torch.from_numpy(severe_defects(K, gen)).to(dev)
     return _SEVERE[K]
+
+
+def severe_coords(K, dev):
+    """Defect coordinates, as calculate_ci_pairwise builds them, of
+    severe_map(K)."""
+    from ventjax_torch.ops.ci_pairwise import defect_coords
+
+    return defect_coords(severe_map(K, dev), K)[0]
 
 
 def k3_args(coords, geom):
@@ -899,7 +907,7 @@ def bound(nbytes, flops):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def device_ms(fn, reps=20, tries=5):
+def device_ms(fn, reps=20, tries=5, flush=None):
     """Device time per call of fn in ms: the summed duration of the device
     activities (kernels, copies, fills) that reps calls enqueue, taken by
     torch.profiler, so host launch overhead between them does not count.
@@ -907,9 +915,12 @@ def device_ms(fn, reps=20, tries=5):
     session once recorded none, a K1 turn a tenth of the others), so each
     session starts with calls that are not counted, and spin kernels mark
     one call and then the reps timed calls; a session counts only if the
-    timed calls hold reps times the one call's activities."""
+    timed calls hold reps times the one call's activities.  With flush (a
+    call that evicts the L2 cache), every counted call follows a flush, and
+    the activities named as a lone flush's are not counted."""
     from torch.profiler import ProfilerActivity, profile
 
+    step = fn if flush is None else (lambda: (flush(), fn()))
     fn()
     for _ in range(tries):
         torch.cuda.synchronize()
@@ -917,24 +928,35 @@ def device_ms(fn, reps=20, tries=5):
             for _ in range(3):
                 fn()
             torch.cuda._sleep(1000)
-            fn()
+            if flush is not None:
+                flush()
+            torch.cuda._sleep(1000)
+            step()
             torch.cuda._sleep(1000)
             for _ in range(reps):
-                fn()
+                step()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-        if len(marks) != 3:
+        if len(marks) != 4:
             continue
-        one = events[marks[0] + 1:marks[1]]
-        timed = events[marks[1] + 1:marks[2]]
-        if one and len(timed) == len(one) * reps:
-            return sum(e.time_range.elapsed_us() for e in timed) / reps / 1e3
+        skip = {e.name for e in events[marks[0] + 1:marks[1]]}
+        one = events[marks[1] + 1:marks[2]]
+        timed = events[marks[2] + 1:marks[3]]
+        if (flush is None or skip) and one and len(timed) == len(one) * reps:
+            return sum(e.time_range.elapsed_us() for e in timed
+                       if e.name not in skip) / reps / 1e3
     raise RuntimeError(f"torch.profiler lost device activities in {tries} "
                        f"sessions")
+
+
+def l2_flusher(dev):
+    """A call that evicts the card's 50 MB L2 cache: a 128 MB fill."""
+    buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    return lambda: buf.fill_(1)
 
 
 def nnz_rows(rows):
@@ -956,6 +978,42 @@ def k3_box_distances(centers, witnesses, r2, combos, scale, rmax):
                       & ((wj - vj + q).abs() <= rmax)
                       & ((wk - vk + s).abs() <= rmax)).sum())
     return float(n)
+
+
+def k8_record(defect, K, dev):
+    """K8 on one batch of defect maps at pad K: device ms of the kernel, its
+    plain version, the scatter it replaces (the CI map's default route) and
+    the K9 + K8 pair, and its bound: d01 in and the map out (5 bytes a
+    voxel), the 32-byte rank sectors that hold a defect, and cv (bound_9B_ms
+    is the earlier count, rank read for every voxel)."""
+    from ventjax_torch.ops import ci_densify_cuda as cd
+    from ventjax_torch.ops import ci_pairwise as tcp
+
+    V = int(np.prod(SHAPE))
+    d01 = (defect != 0).reshape(BATCH, V)
+    rank = cd.rank(d01)
+    cv = torch.rand((BATCH, K), device=dev)
+    _, cidx, _, valid = tcp.defect_coords(defect, K)
+
+    def scatter():
+        flat = torch.zeros((BATCH, V + 1), device=dev)
+        flat.scatter_(1, torch.where(valid, cidx, torch.full_like(cidx, V)),
+                      cv)
+        return flat[:, :V].reshape(defect.shape)
+
+    sectors = int(torch.unique(torch.nonzero(d01.reshape(-1))[:, 0]
+                               // 8).numel())
+    b8 = bound(BATCH * V * 5 + 32 * sectors + BATCH * K * 4, 0)
+    return {"ms": device_ms(lambda: cd.densify_rank(rank, d01, cv, K)),
+            "plain_ms": device_ms(lambda: cd.densify_rank_plain(
+                rank, d01, cv, K)),
+            "library_ms": None, "bound_ms": b8[0], "bound_by": b8[1],
+            "bound_9B_ms": bound(BATCH * V * 9 + BATCH * K * 4, 0)[0],
+            "scatter_ms": device_ms(scatter),
+            "pair_ms": device_ms(lambda: cd.densify_rank(cd.rank(d01), d01,
+                                                         cv, K)),
+            "defect_share": float(d01.float().mean()),
+            "rank_sectors": sectors}
 
 
 def k1_record(a, r, wv):
@@ -1065,6 +1123,7 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
         rec[name].update({k: v for k, v in rec[name]["by_shape"][
             "ncp11"].items() if k != "library_rel_err"})
 
+    flush = l2_flusher(dev)
     for tag, (logu, wv, sv, bmn, slope) in (
             ("first", sharpen_inputs(hp, mask, n4_pad, dev)),
             ("late", late_residual(hp, mask, n4_pad, dev))):
@@ -1079,16 +1138,17 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
             "plain_ms": device_ms(lambda: sc.sharpen_hist_plain(
                 logu, wv, bmn, slope, BINS)),
             "library_ms": None, "bound_ms": b4[0], "bound_by": b4[1]}
+        resid = lambda: sc.sharpen_resid(logu, wv, sv, e_loc, bmn, slope,
+                                         BINS)
         rec.setdefault("sharpen_resid", {"by_shape": {}})["by_shape"][tag] = {
-            "ms": device_ms(lambda: sc.sharpen_resid(
-                logu, wv, sv, e_loc, bmn, slope, BINS)),
+            "ms": device_ms(resid), "cold_ms": device_ms(resid, flush=flush),
             "plain_ms": device_ms(lambda: sc.sharpen_resid_plain(
                 logu, wv, sv, e_loc, bmn, slope, BINS)),
             "library_ms": None, "bound_ms": b5[0], "bound_by": b5[1]}
     for name in ("sharpen_hist", "sharpen_resid"):
         rec[name].update(rec[name]["by_shape"]["late"])
 
-    coords, cidx, _, valid = tcp.defect_coords(res.defect, K)
+    coords = tcp.defect_coords(res.defect, K)[0]
     by_k = {}
     for k, c in ((K, coords), (2048, severe_coords(2048, dev)),
                  (4096, severe_coords(4096, dev))):
@@ -1105,8 +1165,6 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
     rec["head_counts"] = {**by_k[f"K{K}"], "by_shape": by_k}
     V = int(np.prod(SHAPE))
     d01 = (res.defect != 0).reshape(BATCH, V)
-    rank = cd.rank(d01)
-    cv = torch.rand((BATCH, K), device=dev)
     b9 = bound(BATCH * V * 5, 0)
     rec["rank"] = {
         "ms": device_ms(lambda: cd.rank(d01)),
@@ -1115,24 +1173,15 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
                                                      dtype=torch.int32)),
         "bound_ms": b9[0], "bound_by": b9[1]}
 
-    def scatter():
-        flat = torch.zeros((BATCH, V + 1), device=dev)
-        flat.scatter_(1, torch.where(valid, cidx, torch.full_like(cidx, V)),
-                      cv)
-        return flat[:, :V].reshape(res.defect.shape)
-
-    b8 = bound(BATCH * V * 9 + BATCH * K * 4, 0)
-    rec["densify_rank"] = {
-        "ms": device_ms(lambda: cd.densify_rank(rank, d01, cv, K)),
-        "plain_ms": device_ms(lambda: cd.densify_rank_plain(rank, d01, cv,
-                                                            K)),
-        "library_ms": None, "bound_ms": b8[0], "bound_by": b8[1],
-        "scatter_ms": device_ms(scatter)}
+    by_k = {f"K{k}": k8_record(m, k, dev)
+            for k, m in ((K, res.defect), (4096, severe_map(4096, dev)))}
+    rec["densify_rank"] = {**by_k[f"K{K}"], "by_shape": by_k}
     for k, r in rec.items():
         for shape, x in ([(None, r)] + sorted(r.get("by_shape", {}).items())):
             log(f"time {k}{'' if shape is None else ' ' + shape}: "
                 + " ".join(f"{f} {x[f]:.4f}" for f in (
-                    "ms", "plain_ms", "library_ms", "bound_ms", "scatter_ms")
+                    "ms", "cold_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_9B_ms", "scatter_ms", "pair_ms")
                     if x.get(f) is not None) + f" ({x['bound_by']})")
     return med, rec
 
@@ -1156,56 +1205,12 @@ def under(mod, lib, fn):
     return run
 
 
-def older_delta(lib, src):
-    """K2, K6 and K7 of an n4_fit library built from the older source text
-    src, as callables with the wrappers' arguments and results, each
-    counting its launches as the wrappers do.  Sources whose K2 and K7 take
-    no ticket buffer (a second kernel added their statistics) are called
-    with that C signature: only sources older than the ticket need this
-    branch, and the wrappers' own launch path serves any later ones."""
-    import ctypes
-
-    from ventjax_torch.ops import n4_cuda
-    from ventjax_torch.ops._launch import raise_on, stream
-
-    k6 = under(n4_cuda, lib, n4_cuda.fit_delta)
-    if "tickets" in src:            # the same C interface as this tree
-        return (under(n4_cuda, lib, n4_cuda.fit_delta_conv_field), k6,
-                under(n4_cuda, lib, n4_cuda.fit_delta_conv))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    k2c = ctypes.CFUNCTYPE(ci, *[vp] * 12, *[ci] * 4, vp)(
-        ("vj_fit_delta_conv_field", lib))
-    k7c = ctypes.CFUNCTYPE(ci, *[vp] * 8, *[ci] * 4, vp)(
-        ("vj_fit_delta_conv", lib))
-    chunk = ctypes.CFUNCTYPE(ci)(("vj_n4_chunk", lib))()
-
-    def launch(fn, ins, outs, ns, br, name):
-        N, ncp, P = br.shape
-        nchunk = -(-P // chunk)
-        part = torch.empty((N, nchunk, ns), device=br.device)
-        stats = torch.empty((N, ns), device=br.device)
-        raise_on(fn(*(t.data_ptr() for t in (*ins, *outs, part, stats)), N,
-                    P, ncp, nchunk, stream(br.device)), "older delta")
-        n4_cuda.LAUNCHES[name] += 1
-        return (*outs, stats)
-
-    def k2(phi, br, bc, bs, wv, field, logv, done):
-        return launch(k2c, (phi, br, bc, bs, wv, field, logv, done),
-                      (torch.empty_like(wv), torch.empty_like(wv)), 4, br,
-                      "fit_delta_conv_field")
-
-    def k7(phi, br, bc, bs, wv):
-        return launch(k7c, (phi, br, bc, bs, wv), (torch.empty_like(wv),),
-                      2, br, "fit_delta_conv")
-
-    return k2, k6, k7
-
-
-def turns(old, new, reps=20):
-    """Device ms of old and new in turns: old, new, new, old."""
-    a = device_ms(old, reps)
-    b, c = device_ms(new, reps), device_ms(new, reps)
-    d = device_ms(old, reps)
+def turns(old, new, reps=20, flush=None):
+    """Device ms of old and new in turns: old, new, new, old (each call
+    after a flush, where one is given: see device_ms)."""
+    a = device_ms(old, reps, flush=flush)
+    b, c = (device_ms(new, reps, flush=flush) for _ in range(2))
+    d = device_ms(old, reps, flush=flush)
     return {"parent_ms": (a + d) / 2, "ms": (b + c) / 2, "turns": [a, b, c, d]}
 
 
@@ -1221,49 +1226,46 @@ def sums_ok(new, old, plain, s_scale):
 
 
 @contextlib.contextmanager
-def older_kernels(libs, old_k2):
-    """The pipeline runs the older libraries' kernels inside the block (K2
-    through old_k2, which takes the older C signature)."""
-    from ventjax_torch.ops import ci_cuda, n4_cuda
-    from ventjax_torch.ops import n4 as tn4
+def older_kernels(libs):
+    """Every wrapper launches from the older libraries inside the block."""
+    from ventjax_torch.ops import ci_cuda, ci_densify_cuda, n4_cuda
     from ventjax_torch.ops import n4_sharpen_cuda as sc
 
-    saved = tn4.fit_delta_conv_field
-    tn4.fit_delta_conv_field = old_k2
-    try:
-        with lib_of(n4_cuda, libs["n4_fit"]), \
-                lib_of(sc, libs["n4_sharpen"]), lib_of(ci_cuda, libs["ci_head"]):
-            yield
-    finally:
-        tn4.fit_delta_conv_field = saved
+    with lib_of(n4_cuda, libs["n4_fit"]), lib_of(sc, libs["n4_sharpen"]), \
+            lib_of(ci_cuda, libs["ci_head"]), \
+            lib_of(ci_densify_cuda, libs["ci_densify"]):
+        yield
 
 
 def phase_parent(parent, hp, mask, n4_pad, dev, res, geom, cfg, hp_d,
                  mask_d):
-    """K1, K2, K6, K7, K4 and K3 of this tree against an older version of
-    their sources (parent/n4_fit.cu, n4_sharpen.cu, ci_head.cu), built
-    here under their own names, in one run: device ms in turns (older,
-    this, this, older), K1 both within KERNEL_RTOL of the plain version,
-    K4, K3 and K2's, K6's and K7's per-voxel outputs bit-equal; then the
-    slice in turns on either set of kernels (bit-identical outputs), and
-    one profiled batch on the older kernels."""
+    """Every kernel of this tree against an older version of its source
+    (parent/n4_fit.cu, n4_sharpen.cu, ci_head.cu, ci_densify.cu, with the
+    same C interfaces), built here under their own names, in one run:
+    device ms in turns (older, this, this, older), K1 both within
+    KERNEL_RTOL of the plain version, K4, K5, K3, K9, K8 and K2's, K6's and
+    K7's per-voxel outputs bit-equal; then the slice in turns on either set
+    of kernels (bit-identical outputs), and one profiled batch on the older
+    kernels."""
     from ventjax_torch.pipeline import analyze_cohort
 
     from pathlib import Path
 
     from ventjax_torch import _build
     from ventjax_torch.ops import ci_cuda, n4_cuda
+    from ventjax_torch.ops import ci_densify_cuda as cd
     from ventjax_torch.ops import ci_pairwise as tcp
     from ventjax_torch.ops import n4 as tn4
     from ventjax_torch.ops import n4_sharpen_cuda as sc
 
     parent = Path(parent).resolve()
-    libs = {n: _build.load(n, parent)
-            for n in ("n4_fit", "n4_sharpen", "ci_head")}
-    old_k2, old_k6, old_k7 = older_delta(
-        libs["n4_fit"], (parent / "n4_fit.cu").read_text())
+    libs = {n: _build.load(n, parent) for n in LIBS}
+    old_k2, old_k6, old_k7 = (under(n4_cuda, libs["n4_fit"], f) for f in (
+        n4_cuda.fit_delta_conv_field, n4_cuda.fit_delta,
+        n4_cuda.fit_delta_conv))
     out = {}
     gen = np.random.default_rng(SEED + 3)
+    flush = l2_flusher(dev)
 
     for ncp in FIT_NCPS:
         bv, wv, logv = fit_inputs(hp, mask, n4_pad, ncp, dev)
@@ -1331,6 +1333,17 @@ def phase_parent(parent, hp, mask, n4_pad, dev, res, geom, cfg, hp_d,
                                       "bit_equal": same}
         if not same:
             raise AssertionError(f"K4 differs from the older K4 ({tag})")
+        e_loc = expectation(hist(), bmn, slope)
+        resid = lambda: sc.sharpen_resid(logu, wv, sv, e_loc, bmn, slope,
+                                         BINS)
+        old_resid = under(sc, libs["n4_sharpen"], resid)
+        same = bool(torch.equal(old_resid(), resid()))
+        out[f"sharpen_resid {tag}"] = {**turns(old_resid, resid),
+                                       "bit_equal": same}
+        out[f"sharpen_resid {tag} cold"] = turns(old_resid, resid,
+                                                 flush=flush)
+        if not same:
+            raise AssertionError(f"K5 differs from the older K5 ({tag})")
 
     K = cfg.ci_max_defect_voxels
     slice_coords = tcp.defect_coords(res.defect, K)[0]
@@ -1345,14 +1358,28 @@ def phase_parent(parent, hp, mask, n4_pad, dev, res, geom, cfg, hp_d,
         if not same:
             raise AssertionError(f"K3 differs from the older K3 at K {k}")
 
+    for k, dmap in ((K, res.defect), (4096, severe_map(4096, dev))):
+        d01 = (dmap != 0).reshape(BATCH, -1)
+        rank = cd.rank(d01)
+        cv = torch.rand((BATCH, k), device=dev)
+        for name, fn in (("rank", lambda: cd.rank(d01)),
+                         ("densify_rank",
+                          lambda: cd.densify_rank(rank, d01, cv, k))):
+            old_fn = under(cd, libs["ci_densify"], fn)
+            same = bool(torch.equal(old_fn(), fn()))
+            out[f"{name} K{k}"] = {**turns(old_fn, fn), "bit_equal": same}
+            if not same:
+                raise AssertionError(f"{name} differs from the older kernel "
+                                     f"at K {k}")
+
     run = lambda: analyze_cohort(hp_d, mask_d, geom, cfg)
-    with older_kernels(libs, old_k2):
+    with older_kernels(libs):
         old = run()
     same = all(torch.equal(getattr(old, f), getattr(res, f))
                for f in ("n4", "defect", "defect_lb", "defect_km", "ci_map"))
     times = []
     for older in (True, False, False, True):
-        with older_kernels(libs, old_k2) if older else contextlib.nullcontext():
+        with older_kernels(libs) if older else contextlib.nullcontext():
             times.append(host_ms(run)[0])
     out["slice"] = {"parent_ms": (times[0] + times[3]) / 2,
                     "ms": (times[1] + times[2]) / 2, "turns": times,
@@ -1361,23 +1388,23 @@ def phase_parent(parent, hp, mask, n4_pad, dev, res, geom, cfg, hp_d,
         raise AssertionError("the slice on the older kernels differs")
     for k, v in out.items():
         log(f"parent {k}: " + json.dumps(v))
-    with older_kernels(libs, old_k2):
+    with older_kernels(libs):
         phase_profile(cfg, geom, hp_d, mask_d, tag="_parent")
     return out
 
 
 # The device kernel that each launch of a wrapper enqueues once (K2, K6 and
-# K7 share theirs; older sources name K2's delta_partial), for matching a
-# profile's activities to the launch counts.
+# K7 share theirs; K8 has two, one for each path), for matching a profile's
+# activities to the launch counts.
 PROFILE_KERNELS = (
     (("moment_partial",), ("fit_moment",)),
-    (("delta_kernel", "delta_partial"),
-     ("fit_delta_conv_field", "fit_delta", "fit_delta_conv")),
+    (("delta_kernel",), ("fit_delta_conv_field", "fit_delta",
+                         "fit_delta_conv")),
     (("hist_partial",), ("sharpen_hist",)),
     (("resid_kernel",), ("sharpen_resid",)),
     (("head_counts_kernel",), ("head_counts",)),
     (("rank_count",), ("rank",)),
-    (("densify_kernel",), ("densify_rank",)),
+    (("densify_vec16", "densify_scalar"), ("densify_rank",)),
 )
 
 
@@ -1438,10 +1465,10 @@ def phase_profile(cfg, geom, hp_d, mask_d, tag=""):
         n, us = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, us + e.time_range.elapsed_us())
     for label, names in (("K1", ("moment_partial", "reduce_chunks")),
-                         ("K2", ("delta_kernel", "delta_partial",
-                                 "reduce_stats")),
+                         ("K2", ("delta_kernel",)),
                          ("K3", ("head_counts_kernel",)),
-                         ("K4", ("hist_partial", "hist_finish"))):
+                         ("K4", ("hist_partial", "hist_finish")),
+                         ("K5", ("resid_kernel",))):
         log(f"profile{tag} {label}: " + "; ".join(
             f"{k} x{n} {us / 1e3:.4f} ms" for k, (n, us) in by_name.items()
             if any(m in k for m in names)))
@@ -1482,9 +1509,9 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="DIR", help=(
-        "also build DIR/n4_fit.cu, DIR/n4_sharpen.cu and DIR/ci_head.cu (an "
-        "older version of the sources) and time K1, K2, K6, K7, K4 and K3 "
-        "against them"))
+        "also build DIR/n4_fit.cu, DIR/n4_sharpen.cu, DIR/ci_head.cu and "
+        "DIR/ci_densify.cu (an older version of the sources, with the same "
+        "C interfaces) and time every kernel against them"))
     args = ap.parse_args()
     dev, card = phase_device()
     phase_build()

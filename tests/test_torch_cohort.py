@@ -11,6 +11,7 @@ and a short N4.
 """
 import json
 import os
+import shutil
 import threading
 
 import numpy as np
@@ -144,6 +145,89 @@ def test_run_cohort_resumes_from_markers(two_geometries, monkeypatch):
     redo = tc.run_cohort(manifest[:2], out, config=FAST, device="cpu")
     assert len(redo) == 2 and os.path.exists(os.path.join(out, "s0", ".done"))
     assert _js(redo) == _js([r for r in port if r["id"] != "broken"])
+
+
+def test_resume_with_missing_metrics_answers_as_ventjax(two_geometries,
+                                                      tmp_path):
+    """A done study whose metrics.json is gone resumes as
+    {"id": ..., "resumed": True} in both drivers, and nothing raises."""
+    tmp, manifest, port, _, _ = two_geometries
+    answers = {}
+    for tag in ("port", "ref"):
+        out = str(tmp_path / tag)
+        shutil.copytree(str(tmp / tag), out)
+        os.remove(os.path.join(out, "s0", "metrics.json"))
+        if tag == "port":
+            answers[tag] = tc.run_cohort(manifest[:2], out, config=FAST,
+                                         device="cpu")
+        else:
+            answers[tag] = jax_run_cohort(
+                manifest[:2], out, config=JAX_DEFAULT_CONFIG.replace(**FAST_KW),
+                use_mesh=False, compact_export=False)
+    assert answers["port"][0] == answers["ref"][0] == {"id": "s0",
+                                                       "resumed": True}
+    assert _js(answers["port"][1]) == _js(
+        next(r for r in port if r["id"] == "s1"))
+    assert answers["ref"][1]["id"] == "s1"
+
+
+def test_cohort_mixed_transfer_syntaxes_matches_ventjax(tmp_path):
+    """The mixed-syntax cohort of tests/test_io_jpeg.py (one study as plain
+    Explicit VR LE, with an RLE Lossless mask, and as JPEG 2000 lossless)
+    gives the same metrics for all three encodings, and ventjax's."""
+    pytest.importorskip("PIL")
+    from test_io_jpeg import j2k_encode, write_encap_file
+    from test_io_rle import write_rle_file
+
+    from ventjax.io import dicom as jdcm
+    from ventjax.io.synthetic import write_mask_folder, write_multiframe
+
+    ph = make_phantom(shape=SHAPE, vox=VOX, seed=6)
+    H, W, D = SHAPE
+    frames16 = np.clip(
+        np.transpose(ph.hp, (2, 0, 1)), 0, 65535).astype(np.uint16)
+    mask16 = (np.asarray(ph.mask) > 0).astype(np.uint16)
+    a, b, c = (tmp_path / "a", tmp_path / "b" / "mask", tmp_path / "c" / "mask")
+    for d in (a, b, c):
+        d.mkdir(parents=True)
+    write_multiframe(str(a / "xenon.dcm"), ph.hp, ph.vox)
+    write_mask_folder(str(a / "mask"), ph.mask, ph.vox)
+    for k in range(D):
+        write_rle_file(str(b / f"s{k:03d}.dcm"), mask16[None, :, :, k].copy())
+        write_encap_file(str(c / f"s{k:03d}.dcm"), jdcm.JPEG2000_LOSSLESS,
+                         [j2k_encode(mask16[:, :, k].copy())],
+                         rows=H, cols=W, nframes=1, bits=16)
+    write_encap_file(str(c.parent / "xenon.dcm"), jdcm.JPEG2000_LOSSLESS,
+                     [j2k_encode(f.copy()) for f in frames16],
+                     rows=H, cols=W, nframes=D, bits=16,
+                     extra={"SpacingBetweenSlices": VOX[2],
+                            "PixelSpacing": jdcm.MultiValue(list(VOX[:2])),
+                            "SliceThickness": VOX[2]})
+    manifest = [
+        {"id": "plain", "xenon": str(a / "xenon.dcm"), "mask": str(a / "mask")},
+        {"id": "rle", "xenon": str(a / "xenon.dcm"), "mask": str(b)},
+        {"id": "j2k", "xenon": str(c.parent / "xenon.dcm"), "mask": str(c)},
+    ]
+    port = {r["id"]: r for r in tc.run_cohort(
+        manifest, str(tmp_path / "port"), config=FAST, batch_size=2,
+        device="cpu")}
+    ref = {r["id"]: r for r in jax_run_cohort(
+        manifest, str(tmp_path / "ref"),
+        config=JAX_DEFAULT_CONFIG.replace(**FAST_KW), batch_size=2,
+        use_mesh=False, compact_export=False)}
+    assert set(port) == set(ref) == {"plain", "rle", "j2k"}
+    for sid, want in ref.items():
+        got = port[sid]
+        assert "error" not in got and got["valid"], (sid, got)
+        assert set(got) == set(want)
+        for k in ("VDP", "VDP_lb", "VDP_km"):
+            assert abs(got[k] - want[k]) < 0.1, (sid, k)
+        for k in ("LungVolume", "valid", "CI_overflow", "N4_overflow"):
+            assert got[k] == want[k], (sid, k)
+    for key in ("VDP", "VDP_lb", "SNR", "CI", "LungVolume"):
+        vals = [port[i][key] for i in ("plain", "rle", "j2k")]
+        np.testing.assert_array_equal(vals[1:], vals[:2], key)  # NaN-aware
+    np.testing.assert_array_equal(port["j2k"]["SNR"], ref["j2k"]["SNR"])
 
 
 def test_retry_on_overflow_matches_direct_run(tmp_path):

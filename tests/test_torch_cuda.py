@@ -351,6 +351,73 @@ def test_sharpen_resid_kernel(cuda):
     assert bool((got[wv == 0] == 0).all())
 
 
+def _offset_view(t, off):
+    """A contiguous copy of t that starts off elements into its storage."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("P", [49152, 10001, 4099])
+def test_sharpen_resid_shapes_and_offsets(cuda, P):
+    """K5 bit-equal to its plain version at the slice's P and ragged P, on
+    lanes with zero-weight tails (one of half the lane) and an all-zero
+    lane, with 16-byte loads (P % 4 == 0) and scalar ones, and with inputs
+    that start 4 bytes past a 16-byte boundary of their storage."""
+    gen = np.random.default_rng(P)
+    bins, N = 200, 6
+    lu, wv, bmn, slope = _sharpen_lanes(N, P, gen, cuda, bins)
+    wv[2, P // 2:] = 0.0
+    e_loc = torch.from_numpy(gen.normal(5.0, 1.0, (N, bins + 2)).astype(
+        np.float32)).to(cuda)
+    sv = torch.from_numpy(gen.random((N, P)).astype(np.float32)).to(cuda) \
+        + 0.01
+    want = sc.sharpen_resid_plain(lu, wv, sv, e_loc, bmn, slope, bins)
+    assert bool((want[0] == 0).all()) and bool(torch.isfinite(want).all())
+    assert torch.equal(sc.sharpen_resid(lu, wv, sv, e_loc, bmn, slope, bins),
+                       want)
+    shifted = [_offset_view(t, 1) for t in (lu, wv, sv)]
+    assert torch.equal(sc.sharpen_resid(*shifted, e_loc, bmn, slope, bins),
+                       want)
+    assert torch.equal(sc.sharpen_resid(lu, wv, shifted[2], e_loc, bmn, slope,
+                                        bins), want)
+
+
+@pytest.mark.parametrize("V", [262144, 4112, 100003])
+@pytest.mark.parametrize("case", ["none", "all", "one_per_warp_span",
+                                  "rank_out_of_range"])
+def test_densify_rank_flag_patterns(cuda, case, V):
+    """K8 bit-equal to its plain version with no flag set, every flag set,
+    one defect in each 512-voxel span (one per warp of the 16-byte path, at
+    a random place in it), and set voxels whose rank is < 0 or >= k; with
+    the 16-byte path (V % 16 == 0) and the scalar one, and with d01 or rank
+    starting at an odd element of its storage."""
+    N, K = 3, 512
+    gen = np.random.default_rng(V)
+    d = np.zeros((N, V), bool)
+    if case == "all":
+        d[:] = True
+    elif case == "one_per_warp_span":
+        for n in range(N):
+            span = np.arange(0, V, 512)
+            d[n, np.minimum(span + gen.integers(0, 512, span.size), V - 1)] = 1
+    elif case == "rank_out_of_range":
+        d = gen.random((N, V)) < 0.3
+    d01 = torch.from_numpy(d).to(cuda)
+    r = ci_densify_cuda.rank(d01)
+    if case == "rank_out_of_range":
+        r = torch.from_numpy(gen.integers(-2 * K, 2 * K, (N, V)).astype(
+            np.int32)).to(cuda)
+    cv = torch.from_numpy(gen.random((N, K)).astype(np.float32)).to(cuda) \
+        + 1.0
+    want = ci_densify_cuda.densify_rank_plain(r, d01, cv, K)
+    assert int((want != 0).sum()) == int((d01 & (r >= 0) & (r < K)).sum())
+    assert torch.equal(ci_densify_cuda.densify_rank(r, d01, cv, K), want)
+    for dd, rr in ((_offset_view(d01, 1), r), (d01, _offset_view(r, 1))):
+        assert torch.equal(ci_densify_cuda.densify_rank(rr, dd, cv, K), want)
+
+
 @pytest.mark.parametrize("K", [512, 4096])
 @pytest.mark.parametrize("V", [262144, 100003])
 def test_rank_densify_bit_equal(cuda, K, V):

@@ -1,7 +1,8 @@
 """ventjax_torch stands on its own: its copies of the reference package's
 config, geometry tables, phantoms, DICOM and NIfTI codecs and exports give
 the reference's values, and neither the package nor chip_smoke.py imports
-the reference package.
+the reference package.  The JPEG-family decode is held to the reference's on
+the fixtures of tests/test_io_jpeg.py, which Pillow encodes in-process.
 
 Tolerances: none; every comparison is exact (the copies run the same
 NumPy arithmetic, and files are compared array for array).
@@ -9,6 +10,8 @@ NumPy arithmetic, and files are compared array for array).
 import ast
 import dataclasses
 import json
+import struct
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -181,6 +184,124 @@ def test_exports_equal(tmp_path):
             np.testing.assert_array_equal(zt[k], zj[k], k)
     back = jexport.load_npz(str(tmp_path / "t" / "s.npz"))
     assert back["config"] == jconfig.DEFAULT_CONFIG
+
+
+def _jpeg_case(kind, tmp_path):
+    """One JPEG-family file of tests/test_io_jpeg.py, encoded in-process by
+    Pillow; returns its path."""
+    from test_io_jpeg import j2k_encode, jpeg_encode, smooth16, write_encap_file
+
+    rng = np.random.default_rng(42)
+    path = str(tmp_path / f"{kind}.dcm")
+    j2k = jdicom.JPEG2000_LOSSLESS
+    if kind == "j2k16_multiframe":
+        frames = smooth16(rng, (4, 32, 40))
+        write_encap_file(path, j2k, [j2k_encode(f) for f in frames],
+                         rows=32, cols=40, nframes=4, bits=16)
+    elif kind == "j2k8_single":
+        frame = rng.integers(0, 255, (16, 24)).astype(np.uint8)
+        write_encap_file(path, j2k, [j2k_encode(frame)],
+                         rows=16, cols=24, nframes=1, bits=8)
+    elif kind == "baseline_gray_multiframe":
+        frames = (smooth16(rng, (3, 24, 24), top=250) & 0xFF).astype(np.uint8)
+        write_encap_file(path, jdicom.JPEG_BASELINE,
+                         [jpeg_encode(f) for f in frames],
+                         rows=24, cols=24, nframes=3, bits=8)
+    elif kind == "baseline_rgb":
+        frame = rng.integers(0, 255, (16, 16, 3)).astype(np.uint8)
+        write_encap_file(path, jdicom.JPEG_BASELINE,
+                         [jpeg_encode(frame, quality=90)],
+                         rows=16, cols=16, nframes=1, samples=3, bits=8)
+    elif kind == "split_fragments":
+        stream = j2k_encode(smooth16(rng, (1, 32, 32))[0])
+        cut = (len(stream) // 2) & ~1
+        write_encap_file(path, j2k, [stream[:cut], stream[cut:]],
+                         rows=32, cols=32, nframes=1, bits=16)
+    elif kind == "bot_grouping":
+        frags, bounds, pos = [], [], 0
+        for f in smooth16(rng, (2, 24, 24)):
+            s = j2k_encode(f)
+            s += b"\x00" * (len(s) % 2)
+            cut = (len(s) // 2) & ~1
+            bounds.append(pos)
+            frags += [s[:cut], s[cut:]]
+            pos += 16 + len(s)
+        write_encap_file(path, j2k, frags, rows=24, cols=24, nframes=2,
+                         bits=16, bot=struct.pack("<2I", *bounds))
+    elif kind == "fragment_frame_mismatch":
+        frames = smooth16(rng, (2, 16, 16))
+        s0, s1 = j2k_encode(frames[0]), j2k_encode(frames[1])
+        cut = (len(s1) // 2) & ~1
+        write_encap_file(path, j2k, [s0, s1[:cut], s1[cut:]],
+                         rows=16, cols=16, nframes=2, bits=16)
+    elif kind == "misaligned_bot":
+        frags = [j2k_encode(f) for f in smooth16(rng, (2, 16, 16))]
+        write_encap_file(path, j2k, frags + [b"\x00\x00"], rows=16, cols=16,
+                         nframes=2, bits=16, bot=struct.pack("<2I", 0, 7))
+    elif kind == "corrupt_stream":
+        write_encap_file(path, jdicom.JPEG_BASELINE,
+                         [b"\xff\xd8notajpeg\x00"],
+                         rows=8, cols=8, nframes=1, bits=8)
+    elif kind == "header_size_mismatch":
+        frame = rng.integers(0, 255, (16, 16)).astype(np.uint8)
+        write_encap_file(path, jdicom.JPEG_BASELINE, [jpeg_encode(frame)],
+                         rows=32, cols=32, nframes=1, bits=8)
+    elif kind == "jpeg_lossless":
+        write_encap_file(path, "1.2.840.10008.1.2.4.70", [b"\xff\xd8\x00\x00"],
+                         rows=8, cols=8, nframes=1, bits=16)
+    else:
+        raise KeyError(kind)
+    return path
+
+
+@pytest.mark.parametrize("kind", [
+    "j2k16_multiframe", "j2k8_single", "baseline_gray_multiframe",
+    "baseline_rgb", "split_fragments", "bot_grouping"])
+def test_jpeg_decode_equals_reference(tmp_path, kind):
+    pytest.importorskip("PIL")
+    path = _jpeg_case(kind, tmp_path)
+    got, want = (tdicom.read_file(path).pixel_array,
+                 jdicom.read_file(path).pixel_array)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    _, vol = tdicom.open_single_dicom(path)
+    np.testing.assert_array_equal(vol, jdicom.open_single_dicom(path)[1])
+    # re-save transcodes to native Explicit VR LE in both writers
+    saved = []
+    for mod in (tdicom, jdicom):
+        out = str(tmp_path / f"resaved_{mod.__name__}.dcm")
+        mod.read_file(path).save_as(out)
+        saved.append(Path(out).read_bytes())
+    assert saved[0] == saved[1]
+    back = tdicom.read_file(str(tmp_path / f"resaved_{tdicom.__name__}.dcm"))
+    assert not isinstance(back.get("PixelData"), tdicom.EncapsulatedPixelData)
+    np.testing.assert_array_equal(back.pixel_array, want)
+
+
+@pytest.mark.parametrize("kind,match", [
+    ("fragment_frame_mismatch", "cannot map 3"),
+    ("misaligned_bot", "Offset Table"),
+    ("corrupt_stream", "Pillow could not decode"),
+    ("header_size_mismatch", "header claims"),
+    ("jpeg_lossless", "unsupported transfer syntax"),
+])
+def test_jpeg_malformed_raises_in_both(tmp_path, kind, match):
+    pytest.importorskip("PIL")
+    path = _jpeg_case(kind, tmp_path)
+    for mod in (tdicom, jdicom):
+        ds = mod.read_file(path)
+        with pytest.raises(ValueError, match=match):
+            ds.pixel_array
+
+
+def test_jpeg_decode_without_pillow_raises(tmp_path, monkeypatch):
+    pytest.importorskip("PIL")
+    path = _jpeg_case("j2k8_single", tmp_path)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    ds = tdicom.read_file(path)
+    with pytest.raises(ValueError, match="needs Pillow, which is not installed"):
+        ds.pixel_array
 
 
 def test_run_cohort_without_a_card_raises(tmp_path):

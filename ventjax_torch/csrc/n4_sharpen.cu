@@ -33,7 +33,14 @@
 //
 // What bounds them on this card.  Both read two to three float32 vectors of
 // [N, P] once (K5 writes one), a few hundred KB per lane: device-memory
-// bandwidth and launch latency, not arithmetic.  K4's danger is contention:
+// bandwidth and launch latency, not arithmetic.  So the SM needs many bytes
+// in flight: K5 gives each thread four consecutive voxels, read with three
+// 16-byte loads (logu, wv, sv) issued before the lane's table is staged
+// and before any arithmetic, and written with one float4 store; 1,024-voxel
+// blocks put the slice's 48 x 16 blocks on the card in one wave.  Where P
+// is not a multiple of 4 or a pointer is not 16-byte aligned, the same
+// blocks read four scalars a thread, neighbouring threads on neighbouring
+// voxels.  K4's danger is contention:
 // once N4 has narrowed the residual, most voxels of a warp fall into one
 // or two bins, and per-voxel atomics on one shared-memory address
 // serialise.  K4 (hist_partial) therefore adds warp-aggregated: the lanes
@@ -56,8 +63,7 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int CHUNK = 4096;           // voxels per K5 block
-constexpr int HIST_CHUNK = 1024;      // voxels per K4 block: 4 per thread
+constexpr int CHUNK = 1024;           // voxels per K4 and K5 block: 4 a thread
 constexpr int MAX_SLOTS = 768;        // bins + 2 at most
 constexpr float FIX = 4294967296.0f;  // 2^32 fixed-point units per 1.0
 constexpr double UNFIX = 1.0 / 4294967296.0;
@@ -122,7 +128,7 @@ __device__ __forceinline__ void hist_add(float lu, float w, float bmn,
   }
 }
 
-// K4, pass 1: one block per (voxel chunk of HIST_CHUNK, lane); one
+// K4, pass 1: one block per (voxel chunk of CHUNK, lane); one
 // fixed-point histogram per block in shared memory, written out as the
 // chunk's partial.
 __global__ void __launch_bounds__(THREADS) hist_partial(
@@ -140,7 +146,7 @@ __global__ void __launch_bounds__(THREADS) hist_partial(
   const float bmn = binmin[lane];
   const float sl = slope[lane];
   const float top = (float)(bins - 1);
-  const int p0 = chunk * HIST_CHUNK;
+  const int p0 = chunk * CHUNK;
   const int p = p0 + 4 * threadIdx.x;
   float lu[4] = {0.f, 0.f, 0.f, 0.f};
   float w[4] = {0.f, 0.f, 0.f, 0.f};
@@ -198,36 +204,81 @@ __global__ void __launch_bounds__(THREADS) hist_finish(
   }
 }
 
-// K5: one block per (voxel chunk, lane), the lane's table in shared memory.
+// K5 for one voxel: interpolate the table at t + 1, the residual, its
+// flush and normalisation; 0 where w = 0.
+__device__ __forceinline__ float resid_one(float lu, float w, float sv,
+                                           const float* s_e, float bmn,
+                                           float sl, float top, int bins) {
+  const float s = __fadd_rn(t_index(lu, w, bmn, sl, top), 1.f);
+  const float fl = floorf(s);
+  const float fs = __fsub_rn(s, fl);
+  const int j0 = slot(fl, bins);
+  const float v = __fadd_rn(__fmul_rn(__fsub_rn(1.f, fs), s_e[j0]),
+                            __fmul_rn(fs, s_e[j0 + 1]));
+  float r = __fmul_rn(__fsub_rn(lu, __fmul_rn(v, w)), w);
+  if (fabsf(r) < 1e-18f) r = 0.f;
+  return w > 0.f ? __fdiv_rn(r, fmaxf(sv, 1e-30f)) : 0.f;
+}
+
+// K5: one block per (voxel chunk of CHUNK, lane), four voxels a thread; the
+// voxels' loads are issued first, then the lane's table is staged in shared
+// memory.
 __global__ void __launch_bounds__(THREADS) resid_kernel(
     const float* __restrict__ logu, const float* __restrict__ wv,
     const float* __restrict__ sv, const float* __restrict__ e_loc,
     const float* __restrict__ binmin, const float* __restrict__ slope,
-    float* __restrict__ a, int P, int bins) {
+    float* __restrict__ a, int P, int bins, int vec4) {
   __shared__ float s_e[MAX_SLOTS];
   const int slots = bins + 2;
   const int lane = blockIdx.y;
+  const size_t vec = (size_t)lane * P;
+  const int p0 = blockIdx.x * CHUNK;
+  const int p = p0 + 4 * threadIdx.x;
+  float lu[4] = {0.f, 0.f, 0.f, 0.f};
+  float w[4] = {0.f, 0.f, 0.f, 0.f};
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  if (vec4) {
+    // voxels p .. p + 3; P is a multiple of 4, so they are all in or all out
+    if (p < P) {
+      const float4 l4 = __ldg(reinterpret_cast<const float4*>(logu + vec + p));
+      const float4 w4 = __ldg(reinterpret_cast<const float4*>(wv + vec + p));
+      const float4 s4 = __ldg(reinterpret_cast<const float4*>(sv + vec + p));
+      lu[0] = l4.x; lu[1] = l4.y; lu[2] = l4.z; lu[3] = l4.w;
+      w[0] = w4.x; w[1] = w4.y; w[2] = w4.z; w[3] = w4.w;
+      s[0] = s4.x; s[1] = s4.y; s[2] = s4.z; s[3] = s4.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int q = p0 + j * THREADS + threadIdx.x;
+      if (q < P) {
+        lu[j] = __ldg(logu + vec + q);
+        w[j] = __ldg(wv + vec + q);
+        s[j] = __ldg(sv + vec + q);
+      }
+    }
+  }
   for (int i = threadIdx.x; i < slots; i += THREADS)
     s_e[i] = e_loc[(size_t)lane * slots + i];
   __syncthreads();
 
-  const size_t vec = (size_t)lane * P;
   const float bmn = binmin[lane];
   const float sl = slope[lane];
   const float top = (float)(bins - 1);
-  const int p1 = min((blockIdx.x + 1) * CHUNK, P);
-  for (int p = blockIdx.x * CHUNK + threadIdx.x; p < p1; p += THREADS) {
-    const float w = wv[vec + p];
-    const float lu = logu[vec + p];
-    const float s = __fadd_rn(t_index(lu, w, bmn, sl, top), 1.f);
-    const float fl = floorf(s);
-    const float fs = __fsub_rn(s, fl);
-    const int j0 = slot(fl, bins);
-    const float v = __fadd_rn(__fmul_rn(__fsub_rn(1.f, fs), s_e[j0]),
-                              __fmul_rn(fs, s_e[j0 + 1]));
-    float r = __fmul_rn(__fsub_rn(lu, __fmul_rn(v, w)), w);
-    if (fabsf(r) < 1e-18f) r = 0.f;
-    a[vec + p] = w > 0.f ? __fdiv_rn(r, fmaxf(sv[vec + p], 1e-30f)) : 0.f;
+  float o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    o[j] = resid_one(lu[j], w[j], s[j], s_e, bmn, sl, top, bins);
+  if (vec4) {
+    if (p < P)
+      *reinterpret_cast<float4*>(a + vec + p) =
+          make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int q = p0 + j * THREADS + threadIdx.x;
+      if (q < P) a[vec + q] = o[j];
+    }
   }
 }
 
@@ -237,14 +288,14 @@ bool bad_shape(int N, int P, int bins) {
 
 }  // namespace
 
-extern "C" int vj_sharpen_chunk(void) { return HIST_CHUNK; }
+extern "C" int vj_sharpen_chunk(void) { return CHUNK; }
 extern "C" int vj_sharpen_max_slots(void) { return MAX_SLOTS; }
 
 extern "C" int vj_sharpen_hist(const float* logu, const float* wv,
                                const float* binmin, const float* slope,
                                void* part, float* hist, int N, int P, int bins,
                                int nchunk, void* stream) {
-  if (bad_shape(N, P, bins) || nchunk != (P + HIST_CHUNK - 1) / HIST_CHUNK)
+  if (bad_shape(N, P, bins) || nchunk != (P + CHUNK - 1) / CHUNK)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int vec4 = P % 4 == 0 && ((size_t)logu & 15) == 0 &&
@@ -265,7 +316,10 @@ extern "C" int vj_sharpen_resid(const float* logu, const float* wv,
                                 void* stream) {
   if (bad_shape(N, P, bins)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const int vec4 = P % 4 == 0 && ((size_t)logu & 15) == 0 &&
+                   ((size_t)wv & 15) == 0 && ((size_t)sv & 15) == 0 &&
+                   ((size_t)a & 15) == 0;
   resid_kernel<<<dim3((P + CHUNK - 1) / CHUNK, N), THREADS, 0, st>>>(
-      logu, wv, sv, e_loc, binmin, slope, a, P, bins);
+      logu, wv, sv, e_loc, binmin, slope, a, P, bins, vec4);
   return (int)cudaGetLastError();
 }

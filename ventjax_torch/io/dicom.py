@@ -10,11 +10,13 @@ The port's copy of the reference package's codec, for the cohort driver
 - full-header dumps (``dicom_to_dict``).
 
 Transfer syntaxes: Explicit VR Little Endian, Implicit VR Little Endian,
-Deflated Explicit VR LE, Explicit VR Big Endian and RLE Lossless, read and
-(Explicit VR LE, RLE Lossless) written exactly as the reference package
-does.  The JPEG family, which the reference decodes through Pillow, is read
-as a header only here: ``pixel_array`` raises for it, because the port runs
-where Pillow is absent.
+Deflated Explicit VR LE, Explicit VR Big Endian, RLE Lossless and the
+Pillow-handled encapsulated family (JPEG Baseline .50, 8-bit JPEG Extended
+.51, JPEG 2000 .90/.91), read and (Explicit VR LE, RLE Lossless) written
+exactly as the reference package does.  Pillow is imported only when a
+JPEG-family frame is decoded; where it is absent that decode raises a
+ValueError.  JPEG Lossless (.57/.70) and JPEG-LS (.80/.81) stay rejected,
+as in the reference package.
 """
 from __future__ import annotations
 
@@ -89,6 +91,15 @@ IMPLICIT_VR_LE = "1.2.840.10008.1.2"
 DEFLATED_EXPLICIT_VR_LE = "1.2.840.10008.1.2.1.99"
 EXPLICIT_VR_BE = "1.2.840.10008.1.2.2"  # retired, still seen in archives
 RLE_LOSSLESS = "1.2.840.10008.1.2.5"
+JPEG_BASELINE = "1.2.840.10008.1.2.4.50"      # JPEG Baseline (Process 1)
+JPEG_EXTENDED = "1.2.840.10008.1.2.4.51"      # JPEG Extended (Process 2&4)
+JPEG2000_LOSSLESS = "1.2.840.10008.1.2.4.90"  # JPEG 2000, lossless only
+JPEG2000 = "1.2.840.10008.1.2.4.91"           # JPEG 2000
+
+# Syntaxes decoded through Pillow.  JPEG Lossless (.57/.70) and JPEG-LS
+# (.80/.81) need pylibjpeg/gdcm plugins, so they are rejected, as in the
+# reference package.
+_PIL_SYNTAXES = (JPEG_BASELINE, JPEG_EXTENDED, JPEG2000_LOSSLESS, JPEG2000)
 
 
 class EncapsulatedPixelData:
@@ -260,6 +271,80 @@ def _rle_encode_frame(frame: np.ndarray, bits: int) -> bytes:
     return struct.pack("<16I", *header) + b"".join(segs)
 
 
+def _encapsulated_frames(raw: "EncapsulatedPixelData", nframes: int) -> List[bytes]:
+    """Group encapsulated fragments into one byte string per frame.
+
+    PS3.5 A.4: a frame may span several fragments.  Resolution order —
+    single frame: concatenate everything; one fragment per frame: identity;
+    otherwise the Basic Offset Table (uint32 LE byte offsets of each frame's
+    first fragment item, measured from the first byte after the BOT item)
+    decides the grouping.  Anything else is ambiguous and fails loudly.
+    """
+    frags = raw.fragments
+    if nframes == 1:
+        return [b"".join(frags)]
+    if len(frags) == nframes:
+        return list(frags)
+    bot = raw.offset_table
+    if len(bot) == 4 * nframes:
+        offsets = list(struct.unpack(f"<{nframes}I", bot))
+        # byte position of each fragment's item tag relative to the first
+        positions, pos = [], 0
+        for f in frags:
+            positions.append(pos)
+            pos += 8 + len(f)  # item tag+length header precedes each fragment
+        if offsets[0] != 0 or offsets != sorted(offsets) or not all(
+                o in positions for o in offsets):
+            raise ValueError(
+                f"Basic Offset Table {offsets} does not align with "
+                f"fragment positions {positions}")
+        frames = []
+        bounds = offsets + [pos]
+        for f in range(nframes):
+            frames.append(b"".join(
+                frag for frag, p in zip(frags, positions)
+                if bounds[f] <= p < bounds[f + 1]))
+        if any(not fr for fr in frames):
+            raise ValueError("Basic Offset Table leaves a frame empty")
+        return frames
+    raise ValueError(
+        f"cannot map {len(frags)} encapsulated fragments to {nframes} "
+        f"frames (no usable Basic Offset Table)")
+
+
+def _pil_decode_frame(
+    data: bytes, ts: str, rows: int, cols: int, samples: int, dtype,
+) -> np.ndarray:
+    """Decode one JPEG/JPEG-2000 frame via Pillow (the reference's handler).
+
+    pydicom 2.3.0 routes these syntaxes to its Pillow handler
+    (reference requirements.txt:4-5); decoding through PIL here gives
+    byte-parity with what the reference app's ``pixel_array`` returns.
+    """
+    import io as _io
+
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ValueError(
+            f"decoding transfer syntax {ts} needs Pillow, which is not "
+            "installed") from e
+    try:
+        with Image.open(_io.BytesIO(data)) as im:
+            a = np.asarray(im)
+    except Exception as e:  # e.g. 12-bit JPEG Extended: Pillow can't
+        raise ValueError(
+            f"Pillow could not decode a frame of transfer syntax {ts}: {e} "
+            "(the reference's pydicom+Pillow stack has the same limit)"
+        ) from e
+    got_samples = a.shape[2] if a.ndim == 3 else 1
+    if a.shape[:2] != (rows, cols) or got_samples != samples:
+        raise ValueError(
+            f"decoded frame is {a.shape} but the header claims "
+            f"rows={rows} cols={cols} samples={samples}")
+    return a.astype(dtype, copy=False)
+
+
 MR_STORAGE = "1.2.840.10008.5.1.4.1.1.4"
 ENHANCED_MR_STORAGE = "1.2.840.10008.5.1.4.1.1.4.1"
 _UID_ROOT = "1.2.826.0.1.3680043.10.1453"  # ventjax org root (ad-hoc)
@@ -412,11 +497,17 @@ class Dataset:
                 # [F, samples, npix] -> samples-last like pydicom
                 a = np.stack(frames).astype(dtype)
                 a = np.moveaxis(a, 1, 2)
+            elif ts in _PIL_SYNTAXES:
+                chunks = _encapsulated_frames(raw, nframes)
+                a = np.stack([
+                    _pil_decode_frame(c, ts, rows, cols, samples, dtype)
+                    for c in chunks
+                ])
             else:
                 raise ValueError(
-                    f"encapsulated PixelData with transfer syntax {ts}: "
-                    f"only RLE Lossless is decoded here (the JPEG family "
-                    f"needs Pillow)"
+                    f"encapsulated PixelData with unsupported transfer "
+                    f"syntax {ts} (JPEG Lossless and JPEG-LS need "
+                    f"pylibjpeg/gdcm plugins, which are not used)"
                 )
             if samples > 1:
                 shape = ((nframes, rows, cols, samples) if nframes > 1

@@ -13,7 +13,9 @@ ascend), including its ``mode="drop"`` for defect voxels past the pad.
 
 - ``rank`` (K9, ``csrc/ci_densify.cu``; replaces ``rank_pallas``): int32
   inclusive count minus one, per lane.
-- ``densify_rank`` (K8; replaces ``densify_rank_pallas``): the lookup.
+- ``densify_rank`` (K8; replaces ``densify_rank_pallas``): the lookup.  It
+  reads ``rank`` only where ``d01`` is set, so ``rank`` may hold anything
+  elsewhere.
 
 Both are exact: each kernel and its plain version agree bit for bit, and
 both take any V (the kernels mask their own ragged edge).  Each wrapper runs
@@ -36,8 +38,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib():
-    lib = _build.load("ci_densify")
+def _typed(lib):
+    """lib with the C signatures of csrc/ci_densify.cu set."""
     if not getattr(lib, "_vj_typed", False):
         lib.vj_rank_tile.argtypes = []
         lib.vj_rank_tile.restype = _I
@@ -47,6 +49,10 @@ def _lib():
         lib.vj_densify_rank.restype = _I
         lib._vj_typed = True
     return lib
+
+
+def _lib():
+    return _typed(_build.load("ci_densify"))
 
 
 def _check_d01(name, d01):

@@ -388,8 +388,11 @@ def run_cohort(
     for entry in manifest:
         sdir = os.path.join(out_dir, entry["id"])
         if resume and os.path.exists(os.path.join(sdir, ".done")):
-            with open(os.path.join(sdir, "metrics.json")) as f:
-                results.append(json.load(f))
+            try:
+                with open(os.path.join(sdir, "metrics.json")) as f:
+                    results.append(json.load(f))
+            except OSError:
+                results.append({"id": entry["id"], "resumed": True})
             continue
         todo.append(entry)
     if not todo:
