@@ -18,7 +18,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit-equal to its exact fixed-point plain version and from launch to
    launch; K5 bit-equal (the same float32 operations in the same order);
    K3 (on severe-load maps at K 1024, 2048, 4096), K9, K8 bit-equal
-   (integers, and copied values);
+   (integers, and copied values), K9 also at ragged V (4,112, 100,003), on
+   rows whose flags lie only in their last tile, and on a relaunch right
+   after a call of another shape (its workspace is left zero);
 4. paths, each with the launch counts set to 0 just before and read just
    after it:
    a. the slice: 16 phantoms of 128x128x16 through ventjax_torch.pipeline.
@@ -45,6 +47,17 @@ Phases, in order; any failure raises and the script exits non-zero:
       not decode; every export written, metrics of the first 16 within
       0.1 pp of analyze_cohort on the same volumes, and a second run
       resumes every subject without a kernel launch;
+   f. the watch-folder service: WatchService(device=card) prewarmed for
+      the geometry, then an inbox of 16 back-dated studies of 128x128x16
+      analysed in one batch by the first scan (K1-K5 launched; each
+      study's VDPs within 0.1 pp of analyze_cohort on the same volumes), a
+      second scan with nothing new and no kernel launch, a fresh arrival
+      held pending until back-dated and then analysed by the warm runner,
+      a corrupt study that fails alone, waits in awaiting_retry and is
+      retried, and serve_forever with the scan watchdog armed (its exit
+      seam stubbed, never fired);
+   then the doctor: run_doctor(full=True) on the card, every required
+   check passed and kernel_build naming the four libraries;
 5. timing (information only): the slice's volumes/s, the N4 and CI stages
    (pairwise, densify, ladder) by the host clock; per kernel, its device
    time per call (torch.profiler), its plain version's, the one PyTorch
@@ -52,9 +65,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (bytes at 3.35 TB/s against float32 operations at 67 TFLOP/s), K1 and
    K2 at every ncp, K4 and K5 on both residuals (K5 also with the L2 cache
    flushed before each call), K3 on the slice's defects (K 512) and on
-   severe-load maps at K 2048 and 4096, K8 on the slice's defects and on
-   a severe-load map at K 4096 beside the scatter it replaces and the
-   K9 + K8 pair; the fit chain's iterations, the cohort's subjects/s;
+   severe-load maps at K 2048 and 4096, K9 and K8 on the slice's defects
+   and on a severe-load map at K 4096 (K9 with its device activities per
+   call, K8 beside the scatter it replaces and the K9 + K8 pair); the fit
+   chain's iterations, the cohort's subjects/s, the service's subjects/s
+   and one warm arrival's seconds from scan start to its .done;
 6. with --parent DIR: DIR/n4_fit.cu, DIR/n4_sharpen.cu, DIR/ci_head.cu and
    DIR/ci_densify.cu (an older version of those sources, with the same C
    interfaces) built under their own names and timed against this tree in
@@ -427,7 +442,34 @@ def check_densify(gen, dev):
             if not (eq9 and eq8):
                 raise AssertionError(f"K9/K8 differ from their plain "
                                      f"versions at K={K}, {tag}")
+    check_rank_shapes(gen, dev)
     return {"rank": [0.0], "densify_rank": [0.0]}
+
+
+def check_rank_shapes(gen, dev):
+    """K9 bit-equal to its plain version at ragged V, on rows whose flags
+    lie only in their last tile, and the same again right after a call of
+    another shape (the look-back workspace is left zero by every call)."""
+    from ventjax_torch.ops import ci_densify_cuda as cd
+
+    V = int(np.prod(SHAPE))
+    tile = cd._lib().vj_rank_tile()
+    last = np.zeros((BATCH, V), bool)
+    start = (V - 1) // tile * tile
+    last[:, start:] = gen.random((BATCH, V - start)) < 0.5
+    cases = [(f"V={v}", gen.random((BATCH, v)) < 0.05)
+             for v in (4112, 100003)] + [("last tile only", last)]
+    other = torch.from_numpy(gen.random((3, 7777)) < 0.3).to(dev)
+    for tag, d in cases:
+        d = torch.from_numpy(d).to(dev)
+        want = cd.rank_plain(d)
+        first = torch.equal(cd.rank(d), want)
+        cd.rank(other)
+        again = torch.equal(cd.rank(d), want)
+        log(f"K9 rank {tag} N={BATCH}: bit_equal={first}, after a call of "
+            f"another shape {again}")
+        if not (first and again):
+            raise AssertionError(f"K9 differs from its plain version: {tag}")
 
 
 def severe_defects(K, gen):
@@ -881,6 +923,173 @@ def phase_cohort(dev):
     return rate
 
 
+SERVE_STUDIES = 16
+
+
+def back_date(root, seconds=3600.0):
+    """Set every file's mtime under root to seconds ago (a settled
+    arrival)."""
+    import os
+
+    past = time.time() - seconds
+    for r, _d, files in os.walk(root):
+        for f in files:
+            os.utime(os.path.join(r, f), (past, past))
+
+
+def phase_serve(dev):
+    """Path f: the watch-folder service at full width on the card: warm
+    runner across scans, exactly-once, arrival gating, failure isolation
+    and retry, the scan watchdog; metrics against analyze_cohort.  Returns
+    (scan 1's subjects/s, one warm arrival's seconds to its .done)."""
+    import os
+    import tempfile
+
+    from ventjax_torch.io.synthetic import write_study
+    from ventjax_torch.pipeline import analyze_cohort, build_geometry
+    from ventjax_torch.pipeline import cohort as tc
+    from ventjax_torch.pipeline import serve as serve_mod
+
+    path = ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
+            "sharpen_resid", "head_counts")
+    with tempfile.TemporaryDirectory() as root:
+        inbox, out = os.path.join(root, "inbox"), os.path.join(root, "out")
+        t0 = time.perf_counter()
+        for i in range(SERVE_STUDIES):
+            sdir = os.path.join(inbox, f"f{i:02d}")
+            write_study(sdir, shape=SHAPE, vox=VOX, seed=SEED + 100 + i,
+                        with_proton=False)
+            back_date(sdir)
+        log(f"serve: wrote {SERVE_STUDIES} studies of {SHAPE} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        svc = serve_mod.WatchService(inbox, out, batch_size=SERVE_STUDIES,
+                                     min_age=1.0, retry_backoff=0.0,
+                                     device=dev)
+        warm_s = svc.prewarm([(SHAPE, VOX)])
+        (runner,) = svc.runners.values()
+        batches = []
+        dispatch = tc._GeometryRunner.dispatch
+
+        def counted_dispatch(self, batch):
+            batches.append(len(batch))
+            return dispatch(self, batch)
+
+        tc._GeometryRunner.dispatch = counted_dispatch
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            r1 = svc.scan_once()
+            scan1_s = time.perf_counter() - t0
+            launches1 = launch_counts()
+        finally:
+            tc._GeometryRunner.dispatch = dispatch
+        ids = [f"f{i:02d}" for i in range(SERVE_STUDIES)]
+        checks = {
+            "scan1_all_analyzed": (r1.new, r1.analyzed, r1.failed)
+            == (SERVE_STUDIES, SERVE_STUDIES, 0),
+            "scan1_one_batch": batches == [SERVE_STUDIES],
+            "scan1_kernels_launched": all(launches1[k] > 0 for k in path),
+            "done_markers": all(os.path.exists(os.path.join(out, s, ".done"))
+                                for s in ids),
+        }
+        log(f"serve scan 1: {json.dumps(r1.as_dict())}; batches {batches}; "
+            f"launches {json.dumps(launches1)}; pads ci {runner.ci_bucket} "
+            f"n4 {runner.n4_bucket}")
+
+        # every study against analyze_cohort on the same decoded volumes
+        dec = [tc._decode_subject({"xenon": os.path.join(inbox, s,
+                                                         "xenon.dcm"),
+                                   "mask": os.path.join(inbox, s, "mask")})
+               for s in ids]
+        cfg = runner.config.replace(ci_max_defect_voxels=runner.ci_bucket,
+                                    n4_mask_pad=runner.n4_bucket)
+        direct = analyze_cohort(
+            torch.from_numpy(np.stack([d[0].astype(np.float32)
+                                       for d in dec])).to(dev),
+            torch.from_numpy(np.stack([d[1] for d in dec])).to(dev),
+            build_geometry(VOX, SHAPE, cfg), cfg)
+        dvdp = 0.0
+        for i, s in enumerate(ids):
+            m = json.load(open(os.path.join(out, s, "metrics.json")))
+            for key, name in (("VDP", "vdp"), ("VDP_lb", "vdp_lb"),
+                              ("VDP_km", "vdp_km")):
+                dvdp = max(dvdp, abs(m[key] - float(
+                    getattr(direct.metrics, name)[i])))
+        checks["dvdp_lt_0.1"] = dvdp < 0.1
+
+        reset_counts()
+        r2 = svc.scan_once()
+        checks["scan2_nothing_new"] = (r2.new, r2.analyzed) == (0, 0)
+        checks["scan2_no_launch"] = not any(launch_counts().values())
+
+        late = os.path.join(inbox, "late")
+        write_study(late, shape=SHAPE, vox=VOX, seed=SEED + 200,
+                    with_proton=False)
+        back_date(late, 0.0)   # just arrived
+        r3 = svc.scan_once()
+        checks["fresh_arrival_pending"] = (r3.pending, r3.analyzed) == (1, 0)
+        back_date(late, 60.0)
+        t_scan = time.time()
+        r4 = svc.scan_once()
+        arrival_s = os.path.getmtime(os.path.join(out, "late", ".done")) \
+            - t_scan
+        checks["arrival_analyzed_warm"] = (r4.analyzed == 1
+                                           and len(svc.runners) == 1
+                                           and svc.runners[runner.shape,
+                                                           runner.vox]
+                                           is runner)
+
+        bad = os.path.join(inbox, "bad")
+        os.makedirs(os.path.join(bad, "mask"))
+        with open(os.path.join(bad, "xenon.dcm"), "wb") as f:
+            f.write(b"\x00" * 256)
+        back_date(bad)
+        r5 = svc.scan_once()
+        status = json.load(open(os.path.join(out, "serve_status.json")))
+        checks["corrupt_fails_alone"] = (r5.new, r5.failed, r5.analyzed) \
+            == (1, 1, 0) and status["awaiting_retry"] == ["bad"]
+        r6 = svc.scan_once()
+        checks["corrupt_retried"] = (r6.retried, r6.failed) == (1, 1)
+
+        fired = []
+        exit_fn = serve_mod._watchdog_exit
+        serve_mod._watchdog_exit = fired.append
+        try:
+            n = svc.serve_forever(interval=0.01, max_scans=2,
+                                  scan_timeout=600.0)
+        finally:
+            serve_mod._watchdog_exit = exit_fn
+        checks["serve_forever_watchdog_quiet"] = n == 2 and fired == []
+        log(f"serve checks: {json.dumps(checks)}; max |dVDP| vs "
+            f"analyze_cohort {dvdp:.3e} pp")
+        if not all(checks.values()):
+            raise AssertionError(f"the serve path failed: {checks}")
+        rate = SERVE_STUDIES / scan1_s
+        log(f"time serve: prewarm {warm_s:.2f} s; scan 1 {scan1_s:.2f} s for "
+            f"{SERVE_STUDIES} subjects -> {rate:.2f} subjects/s (decode, "
+            f"analysis, export); warm arrival {arrival_s:.2f} s from scan "
+            f"start to its .done")
+    return rate, arrival_s
+
+
+def phase_doctor():
+    """The deployment self-check on the card: every required check passed
+    and kernel_build naming the four libraries."""
+    from ventjax_torch.utils.doctor import run_doctor
+
+    t0 = time.perf_counter()
+    rep = run_doctor(full=True)
+    by = {c["name"]: c for c in rep["checks"]}
+    log(f"doctor (full) in {time.perf_counter() - t0:.1f} s: ok={rep['ok']}; "
+        + json.dumps({n: {k: v for k, v in c.items() if k != "name"}
+                      for n, c in by.items()}))
+    built = sorted(by["kernel_build"].get("libraries", {}))
+    if not (rep["ok"] and by["kernel_build"]["required"]
+            and built == sorted(LIBS)):
+        raise AssertionError(f"the doctor failed on the card: {rep}")
+
+
 def host_ms(fn, reps=5):
     """Median milliseconds of reps synchronised calls, by the host clock."""
     times = []
@@ -907,7 +1116,17 @@ def bound(nbytes, flops):
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def device_ms(fn, reps=20, tries=5, flush=None):
+def device_events(prof):
+    """The device activities of a profile (kernels, copies, fills) in time
+    order.  The device-side ranges of record_function annotations (the
+    pipeline's stages) span other activities and are left out."""
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.time_range.start)
+
+
+def device_ms(fn, reps=20, tries=5, flush=None, count=False):
     """Device time per call of fn in ms: the summed duration of the device
     activities (kernels, copies, fills) that reps calls enqueue, taken by
     torch.profiler, so host launch overhead between them does not count.
@@ -917,7 +1136,8 @@ def device_ms(fn, reps=20, tries=5, flush=None):
     one call and then the reps timed calls; a session counts only if the
     timed calls hold reps times the one call's activities.  With flush (a
     call that evicts the L2 cache), every counted call follows a flush, and
-    the activities named as a lone flush's are not counted."""
+    the activities named as a lone flush's are not counted.  With count,
+    returns (ms, device activities of one call)."""
     from torch.profiler import ProfilerActivity, profile
 
     step = fn if flush is None else (lambda: (flush(), fn()))
@@ -937,9 +1157,7 @@ def device_ms(fn, reps=20, tries=5, flush=None):
                 step()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
+        events = device_events(prof)
         marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
         if len(marks) != 4:
             continue
@@ -947,8 +1165,9 @@ def device_ms(fn, reps=20, tries=5, flush=None):
         one = events[marks[1] + 1:marks[2]]
         timed = events[marks[2] + 1:marks[3]]
         if (flush is None or skip) and one and len(timed) == len(one) * reps:
-            return sum(e.time_range.elapsed_us() for e in timed
-                       if e.name not in skip) / reps / 1e3
+            ms = sum(e.time_range.elapsed_us() for e in timed
+                     if e.name not in skip) / reps / 1e3
+            return (ms, len(one)) if count else ms
     raise RuntimeError(f"torch.profiler lost device activities in {tries} "
                        f"sessions")
 
@@ -1014,6 +1233,23 @@ def k8_record(defect, K, dev):
                                                          cv, K)),
             "defect_share": float(d01.float().mean()),
             "rank_sectors": sectors}
+
+
+def k9_record(defect):
+    """K9 on one batch of defect maps: device ms of the kernel (and its
+    device activities per call), its plain version and cumsum, and its
+    bound: d01 in and the ranks out, 5 bytes a voxel."""
+    from ventjax_torch.ops import ci_densify_cuda as cd
+
+    d01 = (defect != 0).reshape(BATCH, -1)
+    ms, per_call = device_ms(lambda: cd.rank(d01), count=True)
+    b9 = bound(d01.numel() * 5, 0)
+    return {"ms": ms, "launches_per_call": per_call,
+            "plain_ms": device_ms(lambda: cd.rank_plain(d01)),
+            "library_ms": device_ms(lambda: torch.cumsum(
+                d01, 1, dtype=torch.int32)),
+            "bound_ms": b9[0], "bound_by": b9[1],
+            "defect_share": float(d01.float().mean())}
 
 
 def k1_record(a, r, wv):
@@ -1163,15 +1399,9 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
                                   reps=5),
             "library_ms": None, "bound_ms": b3[0], "bound_by": b3[1]}
     rec["head_counts"] = {**by_k[f"K{K}"], "by_shape": by_k}
-    V = int(np.prod(SHAPE))
-    d01 = (res.defect != 0).reshape(BATCH, V)
-    b9 = bound(BATCH * V * 5, 0)
-    rec["rank"] = {
-        "ms": device_ms(lambda: cd.rank(d01)),
-        "plain_ms": device_ms(lambda: cd.rank_plain(d01)),
-        "library_ms": device_ms(lambda: torch.cumsum(d01, 1,
-                                                     dtype=torch.int32)),
-        "bound_ms": b9[0], "bound_by": b9[1]}
+    by_k = {f"K{k}": k9_record(m)
+            for k, m in ((K, res.defect), (4096, severe_map(4096, dev)))}
+    rec["rank"] = {**by_k[f"K{K}"], "by_shape": by_k}
 
     by_k = {f"K{k}": k8_record(m, k, dev)
             for k, m in ((K, res.defect), (4096, severe_map(4096, dev)))}
@@ -1394,8 +1624,9 @@ def phase_parent(parent, hp, mask, n4_pad, dev, res, geom, cfg, hp_d,
 
 
 # The device kernel that each launch of a wrapper enqueues once (K2, K6 and
-# K7 share theirs; K8 has two, one for each path), for matching a profile's
-# activities to the launch counts.
+# K7 share theirs; K8 has two, one for each path; K9's older source enqueued
+# rank_count and rank_write), for matching a profile's activities to the
+# launch counts.
 PROFILE_KERNELS = (
     (("moment_partial",), ("fit_moment",)),
     (("delta_kernel",), ("fit_delta_conv_field", "fit_delta",
@@ -1403,7 +1634,7 @@ PROFILE_KERNELS = (
     (("hist_partial",), ("sharpen_hist",)),
     (("resid_kernel",), ("sharpen_resid",)),
     (("head_counts_kernel",), ("head_counts",)),
-    (("rank_count",), ("rank",)),
+    (("rank_scan", "rank_count"), ("rank",)),
     (("densify_vec16", "densify_scalar"), ("densify_rank",)),
 )
 
@@ -1432,9 +1663,7 @@ def profiled_batch(cfg, geom, hp_d, mask_d, tries=6):
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         counts = launch_counts()
-        events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
+        events = device_events(prof)
         marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
         events = events[marks[-2] + 1:marks[-1]] if len(marks) >= 2 else []
         complete = bool(events) and all(
@@ -1524,6 +1753,8 @@ def main():
     launches.update(phase_fit_chain(hp, mask, n4_pad, dev))
     phase_ladder(cfg, res, hp_d, mask_d)
     rate = phase_cohort(dev)
+    serve_rate, arrival_s = phase_serve(dev)
+    phase_doctor()
     med, rec = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
                             dev)
     if args.parent:
@@ -1531,7 +1762,9 @@ def main():
                      hp_d, mask_d)
     phase_profile(cfg, geom, hp_d, mask_d)
     log(f"summary: card={card!r} slice_vol_per_s={BATCH * 1e3 / med:.3f} "
-        f"cohort_subjects_per_s={rate:.3f} n4_host_syncs={syncs} "
+        f"cohort_subjects_per_s={rate:.3f} "
+        f"serve_subjects_per_s={serve_rate:.3f} "
+        f"serve_warm_arrival_s={arrival_s:.3f} n4_host_syncs={syncs} "
         f"ci_max_defect_voxels={cfg.ci_max_defect_voxels} "
         f"n4_mask_pad={n4_pad}")
     log("launches per headline batch: " + json.dumps(per_batch))

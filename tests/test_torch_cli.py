@@ -1,0 +1,193 @@
+"""ventjax_torch's command line (cli.py, ``python -m ventjax_torch``) and
+its cohort summary (pipeline/summary.py) on the CPU (``--device cpu``).
+
+The cohort summary is held equal to ventjax's cohort_summary on the same
+results (its file, as JSON text), and on the rows of tests/test_summary.py.
+"""
+import json
+import math
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from ventjax.cli import parse_geometry_spec as jax_parse_geometry_spec
+from ventjax.pipeline.summary import cohort_summary as jax_cohort_summary
+from ventjax_torch.cli import build_parser, main, parse_geometry_spec
+from ventjax_torch.io.synthetic import write_study
+from ventjax_torch.pipeline import summary as summary_mod
+from ventjax_torch.pipeline.summary import cohort_summary
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def study_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("cli_study")
+    write_study(str(root), shape=(32, 32, 8), vox=(1.5, 1.5, 10.0), seed=6)
+    return str(root)
+
+
+def _js(x):
+    return json.dumps(x, sort_keys=True)
+
+
+def test_cli_cohort_summary_resume(study_root, tmp_path, capsys,
+                                   monkeypatch):
+    manifest = [
+        {"id": "s0", "xenon": f"{study_root}/xenon.dcm",
+         "mask": f"{study_root}/mask",
+         "proton": f"{study_root}/proton.dcm"},
+        {"id": "s1", "xenon": f"{study_root}/xenon.dcm",
+         "mask": f"{study_root}/mask"},
+        {"id": "bad", "xenon": "/nonexistent.dcm", "mask": "/nope"},
+    ]
+    mpath = str(tmp_path / "m.json")
+    json.dump(manifest, open(mpath, "w"))
+    out = str(tmp_path / "cohort")
+    seen = []
+    real = summary_mod.cohort_summary
+    monkeypatch.setattr(summary_mod, "cohort_summary",
+                        lambda results: seen.append(list(results))
+                        or real(results))
+    prof = tmp_path / "prof"
+    rc = main(["cohort", "--manifest", mpath, "--out", out, "--batch", "2",
+               "--max-defect", "1024", "--device", "cpu", "--profile-dir",
+               str(prof)])
+    assert rc == 0
+    report = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert report == {"subjects": 3, "valid": 2, "out": out}
+    trace = (prof / "trace.json").read_text()   # the pipeline's stages
+    for name in ("snr", "n4", "vdp_kmeans", "ci"):
+        assert f'"name": "{name}"' in trace, name
+    m0 = json.load(open(os.path.join(out, "s0", "metrics.json")))
+    m1 = json.load(open(os.path.join(out, "s1", "metrics.json")))
+    assert m0["VDP"] == m1["VDP"]
+    summ = json.load(open(os.path.join(out, "cohort_summary.json")))
+    assert _js(summ) == _js(json.loads(json.dumps(
+        jax_cohort_summary(seen[0]))))
+    assert summ["failed"] == [{"id": "bad", "error": "decode_failed"}]
+    assert summ["metrics"]["VDP"]["n"] == 2
+    assert summ["metrics"]["VDP"]["std"] == pytest.approx(0.0)
+    assert os.path.exists(os.path.join(out, "cohort_metrics.csv"))
+
+    rc = main(["cohort", "--manifest", mpath, "--out", out,
+               "--device", "cpu"])
+    assert rc == 0
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["valid"] == 2
+    summ = json.load(open(os.path.join(out, "cohort_summary.json")))
+    assert summ["metrics"]["VDP"]["n"] == 2 and summ["valid"] == 2
+    assert _js(summ) == _js(json.loads(json.dumps(
+        jax_cohort_summary(seen[1]))))
+
+
+def test_cli_without_a_card_stops(study_root, tmp_path, capsys):
+    """The default device without a card: an error and exit 2, nothing
+    run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    mpath = str(tmp_path / "m.json")
+    json.dump([{"id": "s0", "xenon": f"{study_root}/xenon.dcm",
+                "mask": f"{study_root}/mask"}], open(mpath, "w"))
+    out = tmp_path / "out"
+    assert main(["cohort", "--manifest", mpath, "--out", str(out)]) == 2
+    assert "no CUDA card" in capsys.readouterr().err
+    (tmp_path / "inbox").mkdir()
+    assert main(["serve", "--inbox", str(tmp_path / "inbox"), "--out",
+                 str(out), "--once"]) == 2
+    assert "no CUDA card" in capsys.readouterr().err
+    assert not out.exists()
+
+
+def test_cli_info(capsys):
+    assert main(["info"]) == 0
+    info = json.loads(capsys.readouterr().out)
+    assert info["ventjax_torch"] == "0.1.0"
+    assert info["torch"] == torch.__version__
+    assert isinstance(info["devices"], list)
+    assert info["default_config"]["ci_max_defect_voxels"] == 8192
+
+
+def test_cli_commands_and_left_out_flags():
+    sub = next(a for a in build_parser()._actions
+               if a.dest == "cmd")
+    assert sorted(sub.choices) == ["cohort", "doctor", "info", "serve"]
+    for argv in (["cohort", "--manifest", "m", "--out", "o", "--no-mesh"],
+                 ["cohort", "--manifest", "m", "--out", "o",
+                  "--dense-export"],
+                 ["cohort", "--manifest", "m", "--out", "o",
+                  "--shard-export"],
+                 ["serve", "--inbox", "i", "--out", "o", "--no-mesh"],
+                 ["--no-compile-cache", "info"]):
+        with pytest.raises(SystemExit):
+            build_parser().parse_args(argv)
+    args = build_parser().parse_args(["serve", "--inbox", "i", "--out", "o"])
+    assert args.device == "cuda"
+
+
+@pytest.mark.parametrize("spec", ["128x128x16@2.0,2.0,11.5", "64x64x8",
+                                  "32X32X4@1,1,1"])
+def test_parse_geometry_spec_matches_ventjax(spec):
+    assert parse_geometry_spec(spec) == jax_parse_geometry_spec(spec)
+
+
+@pytest.mark.parametrize("bad", ["64x64", "0x64x8", "64x64x8@1.5,1.5",
+                                 "64x64x8@0,1,1", "64x64x8@nan,1.5,10.0",
+                                 "64x64x8@inf,1.5,10.0", "sixtyfour"])
+def test_parse_geometry_spec_errors(bad):
+    with pytest.raises(ValueError, match="bad geometry spec"):
+        parse_geometry_spec(bad)
+
+
+def test_cli_serve_bad_prewarm_spec(tmp_path, capsys):
+    (tmp_path / "inbox").mkdir()
+    rc = main(["serve", "--inbox", str(tmp_path / "inbox"), "--out",
+               str(tmp_path / "o"), "--once", "--prewarm", "garbage",
+               "--device", "cpu"])
+    assert rc == 2
+    assert "geometry spec" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------- summary
+
+def _row(sid, vdp, ci=5.0, valid=True, **extra):
+    r = {"id": sid, "valid": valid, "SNR": 12.0, "VDP": vdp, "VDP_lb": vdp / 2,
+         "VDP_km": vdp / 3, "LungVolume": 4.0, "DefectVolume": 0.1, "CI": ci,
+         "CI_saturated_voxels": 0, "CI_overflow": False, "N4_overflow": False}
+    r.update(extra)
+    return r
+
+
+SUMMARY_CASES = {
+    "stats": [_row(f"s{i}", float(v)) for i, v in enumerate(
+        np.random.default_rng(0).uniform(2.0, 30.0, size=17))],
+    "failed_and_flagged": [
+        _row("ok1", 10.0), _row("ok2", 20.0, CI_overflow=True),
+        _row("sat", 30.0, CI_saturated_voxels=4),
+        {"id": "dead", "valid": False, "error": "decode_failed"},
+        {"id": "ghost", "resumed": True}],
+    "nan_ci": [_row("a", 10.0, ci=4.0), _row("b", 0.0, ci=float("nan"))],
+    "single": [_row("only", 7.5)],
+    "empty": [],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SUMMARY_CASES))
+def test_cohort_summary_matches_ventjax(case):
+    rows = SUMMARY_CASES[case]
+    got, want = cohort_summary(rows), jax_cohort_summary(rows)
+    assert _js(got) == _js(want)
+
+
+def test_cohort_summary_stats_match_numpy():
+    rows = SUMMARY_CASES["stats"]
+    vdps = np.array([r["VDP"] for r in rows])
+    m = cohort_summary(rows)["metrics"]["VDP"]
+    assert m["n"] == 17
+    assert m["mean"] == pytest.approx(np.mean(vdps))
+    assert m["std"] == pytest.approx(np.std(vdps))
+    assert m["p5"] == pytest.approx(np.percentile(vdps, 5))
+    assert m["p95"] == pytest.approx(np.percentile(vdps, 95))
+    ci = cohort_summary(SUMMARY_CASES["nan_ci"])["metrics"]["CI"]
+    assert ci["n"] == 1 and ci["nan"] == 1 and math.isfinite(ci["std"])

@@ -431,6 +431,68 @@ def test_rank_densify_bit_equal(cuda, K, V):
     assert torch.equal(got, ci_densify_cuda.densify_rank_plain(r, d01, cv, K))
 
 
+def _rank_flags(pattern, N, V, gen):
+    """[N, V] bool flags: none, all, only in each row's last K9 tile, or
+    set at a random rate per row."""
+    d = np.zeros((N, V), bool)
+    if pattern == "ones":
+        d[:] = True
+    elif pattern == "last_tile":
+        tile = ci_densify_cuda._lib().vj_rank_tile()
+        start = (V - 1) // tile * tile
+        d[:, start:] = gen.random((N, V - start)) < 0.5
+        d[:, -1] = True
+    elif pattern == "random":
+        d = gen.random((N, V)) < gen.uniform(0.001, 0.9, (N, 1))
+    return d
+
+
+@pytest.mark.parametrize("V", [262144, 4112, 100003, 16 * 4096 + 1])
+@pytest.mark.parametrize("N", [1, 16])
+@pytest.mark.parametrize("pattern", ["zeros", "ones", "last_tile", "random"])
+def test_rank_patterns(cuda, pattern, N, V):
+    """K9 torch.equal to rank_plain on rows with no flag, every flag, flags
+    only in the last tile, and random rates; V a multiple of 16 (the
+    16-byte path) or not (the scalar path), and d01 starting at an odd
+    element of its storage (the scalar path at any V)."""
+    gen = np.random.default_rng(V + N)
+    d01 = torch.from_numpy(_rank_flags(pattern, N, V, gen)).to(cuda)
+    want = ci_densify_cuda.rank_plain(d01)
+    assert torch.equal(ci_densify_cuda.rank(d01), want)
+    assert torch.equal(ci_densify_cuda.rank(_offset_view(d01, 1)), want)
+
+
+def test_rank_workspace_left_zero(cuda):
+    """Calls of different shapes back to back share K9's workspace: each is
+    torch.equal to rank_plain, and the workspace is zero after each."""
+    gen = np.random.default_rng(7)
+    shapes = [(16, 262144), (3, 4112), (1, 16 * 4096 + 1), (16, 262144),
+              (5, 100003)]
+    for N, V in shapes:
+        d01 = torch.from_numpy(gen.random((N, V)) < 0.01).to(cuda)
+        assert torch.equal(ci_densify_cuda.rank(d01),
+                           ci_densify_cuda.rank_plain(d01)), (N, V)
+        torch.cuda.synchronize()
+        for ws in ci_densify_cuda._WORKSPACE.values():
+            assert not bool(ws.any()), (N, V)
+
+
+def test_doctor_on_card(cuda):
+    """The quick doctor on the card: every check passes (kernel_build is
+    required there and names the four libraries), names as on the CPU."""
+    from ventjax_torch.utils import doctor
+
+    report = doctor.run_doctor()
+    by = {c["name"]: c for c in report["checks"]}
+    assert list(by) == ["versions", "backend", "device_probe",
+                        "kernel_build", "native_scanner", "seg_checkpoint",
+                        "codec_roundtrip", "pipeline_selftest"]
+    assert report["ok"], report
+    assert by["kernel_build"]["required"]
+    assert sorted(by["kernel_build"]["libraries"]) == sorted(doctor.LIBRARIES)
+    assert by["pipeline_selftest"]["device"].startswith("cuda")
+
+
 def test_n4_deterministic_on_card(cuda):
     """Two N4 runs on one CUDA batch give the same bits and iteration
     counts: nothing on the path sums with float atomics."""

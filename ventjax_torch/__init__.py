@@ -11,7 +11,11 @@ This package imports ``torch`` and never ``jax``, and nothing of ``ventjax``:
 it keeps its own copies of what it needs from there (``config``, ``io``,
 ``report.export`` and the geometry tables in ``ops/geometry.py``), so it
 runs where the JAX package is absent.
+
+Its command line is ``python -m ventjax_torch`` (``cohort``, ``serve``,
+``doctor``, ``info``), on the card unless ``--device cpu`` is given.
 """
 from ventjax_torch.config import DEFAULT_CONFIG, VentConfig
+from ventjax_torch.config import VERSION as __version__
 
-__all__ = ["DEFAULT_CONFIG", "VentConfig"]
+__all__ = ["DEFAULT_CONFIG", "VentConfig", "__version__"]

@@ -1,0 +1,410 @@
+"""Command line of the port: ``python -m ventjax_torch``.
+
+The counterpart of ``ventjax/cli.py`` for the commands whose modules are
+ported, with the same flags and the same JSON output, plus ``--device``:
+every command runs on the CUDA card unless ``--device cpu`` is given, and
+without a card it stops with an error (exit 2), never falling back to the
+CPU.
+
+Usage:
+  python -m ventjax_torch cohort --manifest subjects.json --out OUT
+      [--batch 16] [--device cuda|cpu]
+  python -m ventjax_torch serve --inbox IN --out OUT [--interval 5] [--once]
+  python -m ventjax_torch doctor [--full]
+  python -m ventjax_torch info
+
+Flags of the reference CLI that name features the port lacks are left out:
+``--no-mesh``, ``--shard-export``, ``--dense-export`` (the port has one
+device and the dense pack) and ``--no-compile-cache`` (no XLA cache).  The
+``analyze``, ``export``, ``twix``, ``train-seg`` and ``gui`` commands wait
+for their modules.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import os
+import sys
+
+
+def _device_or_error(args):
+    """The device asked for, or None after an error message (no card)."""
+    from ventjax_torch.pipeline.cohort import _device
+
+    try:
+        return _device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return None
+
+
+def _config(args):
+    from ventjax_torch.config import DEFAULT_CONFIG
+
+    if args.deterministic:
+        from ventjax_torch.utils.profiling import enable_deterministic
+
+        enable_deterministic()
+    cfg = DEFAULT_CONFIG
+    if args.max_defect:
+        cfg = cfg.replace(ci_max_defect_voxels=args.max_defect)
+    return cfg
+
+
+def _cmd_cohort(args) -> int:
+    from ventjax_torch.pipeline.cohort import load_manifest, run_cohort
+    from ventjax_torch.utils.profiling import trace
+
+    device = _device_or_error(args)
+    if device is None:
+        return 2
+    cfg = _config(args)
+    manifest = load_manifest(args.manifest)
+    watchdog = contextlib.nullcontext()
+    if args.stall_timeout > 0:
+        from ventjax_torch.utils.watchdog import StallWatchdog
+
+        watchdog = StallWatchdog(args.stall_timeout, label="cohort")
+    progress = None
+    if args.progress or args.stall_timeout > 0:
+        # One JSON line per progress event on stderr (stdout stays the
+        # machine-readable result) — tail-able for long cohorts.  The
+        # same events feed the stall watchdog when one is armed.
+        def progress(stage, done, total):
+            if args.stall_timeout > 0:
+                watchdog.touch()
+            if args.progress:
+                print(json.dumps({"stage": stage, "done": done,
+                                  "total": total}),
+                      file=sys.stderr, flush=True)
+    with trace(args.profile_dir), watchdog:
+        results = run_cohort(
+            manifest, args.out, config=cfg, batch_size=args.batch,
+            resume=not args.fresh, export_npz=args.npz, progress=progress,
+            device=device,
+        )
+    ok = sum(1 for r in results if r.get("valid"))
+    print(json.dumps({"subjects": len(results), "valid": ok,
+                      "out": args.out}))
+    # cohort-level aggregate summary: distribution stats per metric plus an
+    # explicit accounting of failed / flagged lanes (pipeline.summary)
+    from ventjax_torch.pipeline.summary import cohort_summary
+
+    with open(os.path.join(args.out, "cohort_summary.json"), "w") as f:
+        json.dump(cohort_summary(results), f, indent=2)
+    # cohort-level CSV (+ parquet when pyarrow exists) aggregation
+    import csv
+    keys = sorted({k for r in results for k in r})
+    with open(os.path.join(args.out, "cohort_metrics.csv"), "w",
+              newline="") as f:
+        w = csv.DictWriter(f, fieldnames=keys)
+        w.writeheader()
+        w.writerows(results)
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except ImportError:
+        pass
+    else:
+        # one typed column per key; heterogenous cells (a metric on one
+        # subject, an error string on another) degrade that column to string
+        cols = {}
+        for k in keys:
+            vals = [r.get(k) for r in results]
+            if all(v is None or isinstance(v, (int, float, bool))
+                   for v in vals):
+                cols[k] = vals
+            else:
+                cols[k] = [None if v is None else str(v) for v in vals]
+        pq.write_table(pa.table(cols),
+                       os.path.join(args.out, "cohort_metrics.parquet"))
+    return 0
+
+
+def parse_geometry_spec(spec: str):
+    """Parse a --prewarm geometry spec ``HxWxD[@vr,vc,vs]`` into
+    ((H, W, D), (vr, vc, vs)); vox defaults to the common clinical
+    (1.5, 1.5, 10.0) mm when omitted."""
+    shape_s, _, vox_s = spec.partition("@")
+    try:
+        shape = tuple(int(x) for x in shape_s.lower().split("x"))
+        vox = ((1.5, 1.5, 10.0) if not vox_s
+               else tuple(float(x) for x in vox_s.split(",")))
+    except ValueError:
+        raise ValueError(f"bad geometry spec {spec!r}: expected "
+                         "HxWxD[@vr,vc,vs], e.g. 128x128x16@1.5,1.5,10.0")
+    # all(v > 0) is False for NaN too (NaN comparisons are all False),
+    # unlike a min(vox) <= 0 test, which NaN would sneak past.
+    if len(shape) != 3 or len(vox) != 3 or not all(d >= 1 for d in shape) \
+            or not all(math.isfinite(v) and v > 0 for v in vox):
+        raise ValueError(f"bad geometry spec {spec!r}: need three positive "
+                         "dims and three positive finite voxel sizes")
+    return shape, vox
+
+
+def _cmd_serve(args) -> int:
+    import signal
+    import threading
+
+    from ventjax_torch.pipeline.serve import WatchService
+
+    device = _device_or_error(args)
+    if device is None:
+        return 2
+    cfg = _config(args)
+    svc = WatchService(
+        args.inbox, args.out, config=cfg, batch_size=args.batch,
+        ready_marker=args.ready_marker, min_age=args.min_age,
+        max_retries=args.max_retries, retry_backoff=args.retry_backoff,
+        settle_scans=args.settle_scans, export_npz=args.npz, device=device,
+    )
+
+    # Validate --prewarm specs FIRST: pure string parsing must fail fast,
+    # not after the preflight battery.
+    geoms = []
+    if args.prewarm:
+        try:
+            geoms = [parse_geometry_spec(s) for s in args.prewarm]
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+
+    # The startup phases (doctor device probe and kernel build, prewarm)
+    # hit the device before serve_forever arms its per-scan watchdog, and a
+    # wedged device is a startup hazard too.  Reuse --scan-timeout as a
+    # per-phase stall budget: preflight completion and every prewarm
+    # progress event feed it.
+    if args.scan_timeout > 0 and (args.preflight or geoms):
+        from ventjax_torch.utils.watchdog import StallWatchdog
+
+        startup_wd = StallWatchdog(args.scan_timeout,
+                                   label="serve startup")
+    else:
+        startup_wd = None
+
+    with (startup_wd or contextlib.nullcontext()):
+        if args.preflight:
+            # Refuse to serve on a broken install: run the doctor battery
+            # before the first scan.  The result (pass or fail) also lands
+            # in the serve_status.json heartbeat for monitors.
+            from ventjax_torch.utils.doctor import format_report
+
+            report = svc.preflight()
+            if not report["ok"]:
+                print(format_report(report), file=sys.stderr)
+                print("error: preflight failed; not serving",
+                      file=sys.stderr)
+                return 2
+            if startup_wd is not None:
+                startup_wd.touch()
+
+        if geoms:
+            secs = svc.prewarm(
+                geoms,
+                progress=(None if startup_wd is None
+                          else lambda *a: startup_wd.touch()),
+            )
+            print(json.dumps({"prewarmed": len(geoms),
+                              "seconds": round(secs, 1)}), file=sys.stderr)
+
+    last_pending = [None]
+
+    def on_scan(report):
+        # One JSON line per scan — machine-tailable service output.  Print
+        # whenever the scan did work (incl. retries, which have new=0) or
+        # the pending count changed; a permanently non-conforming inbox
+        # entry thus prints once, not every interval.  --verbose prints
+        # every scan.
+        did_work = (report.new or report.retried or report.resumed
+                    or report.analyzed or report.failed)
+        pending_changed = report.pending != last_pending[0]
+        last_pending[0] = report.pending
+        if did_work or pending_changed or args.verbose:
+            print(json.dumps(report.as_dict()), flush=True)
+
+    if args.once:
+        report = svc.scan_once()
+        print(json.dumps(report.as_dict()))
+        return 0 if report.failed == 0 else 1
+    stop = threading.Event()
+    # Graceful shutdown under process supervisors (systemd, docker stop):
+    # SIGTERM finishes the in-flight scan, then exits the loop cleanly so
+    # the last subject's export + .done marker are never torn.
+    try:
+        signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    except ValueError:
+        pass  # not the main thread (embedded use); SIGTERM stays default
+    try:
+        svc.serve_forever(interval=args.interval, stop=stop,
+                          max_scans=args.max_scans, on_scan=on_scan,
+                          scan_timeout=args.scan_timeout)
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _cmd_doctor(args) -> int:
+    from ventjax_torch.utils.doctor import format_report, run_doctor
+
+    report = run_doctor(full=args.full, device=args.device)
+    print(format_report(report))
+    return 0 if report["ok"] else 1
+
+
+def _cmd_info(args) -> int:
+    import dataclasses
+
+    import torch
+
+    import ventjax_torch
+    from ventjax_torch.config import DEFAULT_CONFIG
+
+    devices = [f"cuda:{i} {torch.cuda.get_device_name(i)}"
+               for i in range(torch.cuda.device_count())] \
+        if torch.cuda.is_available() else []
+    print(json.dumps({
+        "ventjax_torch": ventjax_torch.__version__,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "devices": devices,
+        "default_config": dataclasses.asdict(DEFAULT_CONFIG),
+    }, indent=2))
+    return 0
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: the CUDA card; "
+                   "'cpu' runs the plain versions of the kernels on the "
+                   "CPU)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The argument parser (split from main so tests and docs can
+    introspect the subcommand surface without invoking anything)."""
+    p = argparse.ArgumentParser(prog="ventjax_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    c = sub.add_parser("cohort", help="batched cohort run from a manifest")
+    c.add_argument("--manifest", required=True)
+    c.add_argument("--out", required=True)
+    c.add_argument("--batch", type=int, default=None)
+    c.add_argument("--fresh", action="store_true", help="ignore done-markers")
+    c.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace (Chrome / Perfetto "
+                   "JSON) of the run into this directory")
+    c.add_argument("--npz", action="store_true",
+                   help="also write each subject's versioned NPZ artifact")
+    c.add_argument("--progress", action="store_true",
+                   help="emit JSON progress events (decode/analyze/"
+                   "export) on stderr as the cohort streams")
+    c.add_argument("--stall-timeout", type=float, default=0.0,
+                   help="watchdog: hard-exit (code 86) if no decode/"
+                   "analyze/export progress for this many seconds — "
+                   "recovers a wedged device under a job scheduler (rerun "
+                   "resumes from .done markers); size it above the "
+                   "worst-case gap incl. the first kernel build; 0 "
+                   "disables")
+    c.add_argument("--max-defect", type=int, default=None,
+                   help="static bound on defect voxels for CI (default 8192)")
+    c.add_argument("--deterministic", action="store_true",
+                   help="TF32 off and deterministic cuDNN")
+    _add_device(c)
+    c.set_defaults(fn=_cmd_cohort)
+
+    s = sub.add_parser(
+        "serve",
+        help="watch an inbox directory and analyze studies as they arrive "
+        "(warm runners across scans; exactly-once via .done markers)",
+    )
+    s.add_argument("--inbox", required=True,
+                   help="directory to watch; each subdirectory holding "
+                   "xenon.dcm + mask/ (optional proton.dcm) is a subject")
+    s.add_argument("--out", required=True, help="output root (one "
+                   "subdirectory per subject id + serve_log.jsonl)")
+    s.add_argument("--interval", type=float, default=5.0,
+                   help="seconds between inbox scans")
+    s.add_argument("--once", action="store_true",
+                   help="single scan, then exit (exit 1 if any new subject "
+                   "failed)")
+    s.add_argument("--max-scans", type=int, default=None,
+                   help="stop after N scans (default: run until SIGINT)")
+    s.add_argument("--ready-marker", default=None, metavar="NAME",
+                   help="only pick up a subject once NAME exists in its "
+                   "directory (producer drops it after the copy completes)")
+    s.add_argument("--min-age", type=float, default=1.0,
+                   help="without --ready-marker: require the subject's "
+                   "newest file mtime to be at least this many seconds old "
+                   "before pickup (guards half-copied studies)")
+    s.add_argument("--max-retries", type=int, default=2,
+                   help="re-attempt a failed subject up to N times with "
+                   "exponential backoff; after that it waits until its "
+                   "files change on disk (which re-arms a fresh budget)")
+    s.add_argument("--retry-backoff", type=float, default=60.0,
+                   help="base seconds before the first retry of a failed "
+                   "subject (doubles on each further attempt)")
+    s.add_argument("--prewarm", action="append", default=[],
+                   metavar="HxWxD[@vr,vc,vs]",
+                   help="warm the pipeline for this study geometry before "
+                   "serving (repeatable), so the first real arrival skips "
+                   "the kernel and geometry builds; vox defaults to "
+                   "1.5,1.5,10.0 mm, e.g. --prewarm 128x128x16@1.5,1.5,10.0")
+    s.add_argument("--scan-timeout", type=float, default=0.0,
+                   help="watchdog: hard-exit (code 86) if one scan runs "
+                   "longer than this many seconds — recovers a wedged "
+                   "device under a process supervisor (systemd Restart=, "
+                   "docker --restart); also budgets each startup phase "
+                   "(--preflight battery, each --prewarm step); 0 disables "
+                   "(ignored with --once except for the startup phases)")
+    s.add_argument("--preflight", action="store_true",
+                   help="run the doctor check battery before serving; "
+                   "exit 2 without scanning if a required check fails "
+                   "(result recorded in serve_status.json)")
+    s.add_argument("--settle-scans", type=int, default=0,
+                   help="require a subject's file signature to be stable "
+                   "across N consecutive scans before first pickup — use "
+                   "N>=1 for producers that preserve source mtimes "
+                   "(rsync -a), which defeat the --min-age test")
+    s.add_argument("--npz", action="store_true",
+                   help="also write each subject's versioned NPZ artifact")
+    s.add_argument("--batch", type=int, default=None)
+    s.add_argument("--max-defect", type=int, default=None,
+                   help="static bound on defect voxels for CI (default 8192)")
+    s.add_argument("--deterministic", action="store_true",
+                   help="TF32 off and deterministic cuDNN")
+    s.add_argument("--verbose", action="store_true",
+                   help="print a JSON line for quiet scans too")
+    _add_device(s)
+    s.set_defaults(fn=_cmd_serve)
+
+    d = sub.add_parser(
+        "doctor",
+        help="deployment self-check: device probe, kernel build, codec "
+        "round-trip, pipeline-vs-oracle self-test; exit 0 iff healthy",
+    )
+    d.add_argument("--full", action="store_true",
+                   help="flagship-geometry self-test incl. CI (slower; "
+                   "times the device path)")
+    _add_device(d)
+    d.set_defaults(fn=_cmd_doctor)
+
+    i = sub.add_parser("info", help="version / device info")
+    i.set_defaults(fn=_cmd_info)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if os.environ.get("VENTJAX_DEBUG_STACKS"):
+        # Hang forensics: dump every thread's Python stack to stderr every
+        # 120 s so a stuck run shows where it is stuck.
+        import faulthandler
+
+        faulthandler.dump_traceback_later(120, repeat=True)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

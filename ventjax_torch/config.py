@@ -13,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+VERSION = "0.1.0"
+
 
 @dataclasses.dataclass(frozen=True)
 class VentConfig:

@@ -10,15 +10,32 @@
 // The identity: the compacted defect indices ascend, so the j-th defect
 // voxel in row-major order owns cv[j], and dense = cv[rank] on the defects.
 //
-// K9's scan.  The Pallas kernel carried its running offset in SMEM across a
-// sequential grid; Hopper's blocks run in no order.  So a first kernel
-// counts each 4096-voxel tile's defects, and the write kernel of tile b adds
-// the counts of tiles 0..b-1 itself (a strided sum over at most V / 4096
-// integers: no inter-block order, no atomics).  Inside a tile, 256 threads
-// take 16 rounds of 256 consecutive voxels; a warp's __ballot_sync and
-// __popc give each voxel its count within the warp, and one warp scans the
-// 128 (round, warp) counts.  Integer sums are exact, so the result is
-// bit-equal to torch.cumsum(d01) - 1.
+// K9's scan, in one launch that reads d01 once.  The Pallas kernel carried
+// its running offset in SMEM across a sequential grid; Hopper's blocks run
+// in no order.  So each block takes the next 16384-voxel tile of its row
+// from the row's ticket (an integer atomicInc, so a block only ever waits
+// on tiles that took their tickets before it and are running: no order of
+// scheduling can deadlock), counts its tile, publishes the count in the
+// tile's status word and finds the tile's offset by a decoupled look-back:
+// warp 0 reads the status words of the 32 tiles before it at once and adds
+// their counts down to the nearest tile that has published its inclusive
+// prefix.  A status word is 0 (not yet published), A | count or P | prefix
+// in one 32-bit store (V < 2^30, so a prefix fits in 30 bits).  The row's
+// last block to finish (a second ticket) clears the row's status words, and
+// both tickets wrap to 0 as their last block takes them, so the workspace
+// is zero before and after every call and no memset runs beside the kernel.
+// Inside a tile, each of 512 threads holds 16 flags from one 16-byte load
+// in each of two rounds; the two rounds' counts are scanned together,
+// packed in the low and high 16 bits of one word (a round of a block holds
+// at most 8192 flags).  The wait for the earlier tiles is the largest cost
+// beyond the bytes (a variant that skipped it measured ~2 us less), and it
+// shrinks with the tiles a row has: 512-thread blocks measured faster than
+// 256-thread ones.  The ranks are 80 % of the bytes, so a warp stores its
+// 512 ranks of a round as four int4 store instructions of 512 consecutive
+// bytes each: lane t stores chunk q * 32 + t and fetches that chunk's flags
+// and offset from the lane that loaded them by shuffles.  Integer sums are
+// exact (no float atomics), so the result is bit-equal to
+// torch.cumsum(d01) - 1.
 //
 // K8 is a gather: the (hi, lo) one-hot table-select matmul at HIGHEST
 // precision was the TPU's way to a gather.  Here each defect voxel loads its
@@ -27,7 +44,7 @@
 // into K9's write pass) so that each is held against its Pallas counterpart.
 //
 // What bounds them on this card: device-memory bandwidth.  K9 reads d01
-// twice (1 byte a voxel) and writes 4 bytes a voxel.  K8's output is 0
+// once (1 byte a voxel) and writes 4 bytes a voxel.  K8's output is 0
 // wherever d01 is 0, which is nearly every voxel (>= 99.8 % at the slice's
 // K 512, ~98.8 % on severe maps), so the rank of a voxel without a defect
 // is never needed: K8 must move 5 bytes a voxel (d01 in, map out), the
@@ -40,8 +57,9 @@
 // blocks the card holds at once (one wave), each warp striding over
 // 512-voxel spans.  Where V is not a multiple of 16 or d01 / out are not
 // 16-byte aligned, densify_scalar takes one voxel a thread and still reads
-// rank only under a set flag.  Ragged V is masked in every pass: any V is
-// taken.
+// rank only under a set flag; likewise K9's scalar instance loads and
+// stores a voxel at a time, still in one launch.  Ragged V is masked in
+// every pass: any V is taken.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (never --use_fast_math), by ventjax_torch/_build.py.
@@ -50,101 +68,176 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;                     // K8
 constexpr int WARPS = THREADS / 32;
-constexpr int ROUNDS = 16;
-constexpr int TILE = THREADS * ROUNDS;   // voxels per block
+constexpr int GROUP = 16;                        // flags in a 16-byte load
+constexpr int RANK_THREADS = 512;                // K9
+constexpr int RANK_WARPS = RANK_THREADS / 32;
+constexpr int ROUNDS = 2;                        // K9: 16-byte loads a thread
+constexpr int TILE = RANK_THREADS * GROUP * ROUNDS;   // K9: voxels a block
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned ST_A = 1u << 30;              // status: the tile's count
+constexpr unsigned ST_P = 2u << 30;              // status: inclusive prefix
+constexpr unsigned ST_VAL = ST_A - 1u;
 
-// Sum of one int per thread across the block (every thread gets it).
-__device__ int block_sum(int x, int* s_warp) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  const int warp = threadIdx.x / 32;
-  __syncthreads();   // s_warp may still be read from an earlier call
-  if ((threadIdx.x & 31) == 0) s_warp[warp] = x;
-  __syncthreads();
-  int s = 0;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) s += s_warp[w];
-  return s;
+// 0x01 in each byte of w that is not 0, else 0x00.
+__device__ __forceinline__ unsigned nz4(unsigned w) {
+  return __vcmpne4(w, 0u) & 0x01010101u;
 }
 
-// K9, pass 1: counts[lane, b] = number of set voxels in tile b.
-__global__ void __launch_bounds__(THREADS) rank_count(
-    const unsigned char* __restrict__ d, int* __restrict__ counts, int V,
-    int ntile) {
-  __shared__ int s_warp[WARPS];
-  const int lane = blockIdx.y;
-  const int v0 = blockIdx.x * TILE;
-  const unsigned char* row = d + (size_t)lane * V;
-  int c = 0;
+__device__ __forceinline__ unsigned nz_count(const uint4& m) {
+  return __popc(m.x) + __popc(m.y) + __popc(m.z) + __popc(m.w);
+}
+
+__device__ __forceinline__ unsigned load_status(const unsigned* p) {
+  return *reinterpret_cast<const volatile unsigned*>(p);
+}
+
+__device__ __forceinline__ void store_status(unsigned* p, unsigned v) {
+  *reinterpret_cast<volatile unsigned*>(p) = v;
+}
+
+// The exclusive prefix of tile (> 0) of a row, by warp 0: each lane waits
+// for one status word of the 32 tiles below the window's top, then the warp
+// adds the counts down to the nearest inclusive prefix (tile 0 publishes
+// one at once, so a window never reaches below it).
+__device__ unsigned look_back(const unsigned* status, int tile, int lid) {
+  unsigned excl = 0u;
+  for (int top = tile - 1;; top -= 32) {
+    const int idx = top - lid;
+    unsigned s = ST_P;
+    if (idx >= 0) {
+      do {
+        s = load_status(status + idx);
+      } while (s == 0u);
+    }
+    const unsigned pmask = __ballot_sync(FULL, s >= ST_P);
+    unsigned v = s & ST_VAL;
+    if (pmask != 0u && lid >= __ffs(pmask)) v = 0u;
 #pragma unroll
-  for (int r = 0; r < ROUNDS; ++r) {
-    const int v = v0 + r * THREADS + threadIdx.x;
-    c += (v < V && row[v] != 0) ? 1 : 0;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+    excl += v;
+    if (pmask != 0u) return excl;
   }
-  c = block_sum(c, s_warp);
-  if (threadIdx.x == 0) counts[(size_t)lane * ntile + blockIdx.x] = c;
 }
 
-// K9, pass 2: the tile's offset from the earlier tiles' counts, then each
-// voxel's inclusive count minus one.
-__global__ void __launch_bounds__(THREADS) rank_write(
-    const unsigned char* __restrict__ d, const int* __restrict__ counts,
-    int* __restrict__ rank, int V, int ntile) {
-  __shared__ int s_warp[WARPS];
-  __shared__ int s_pre[ROUNDS * WARPS];   // exclusive prefix per (round, warp)
-  const int lane = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int wid = threadIdx.x / 32;
+// K9.  ws: tickets[N], finish tickets[N], status[N][ntile], all zero before
+// and after the call.  VEC: V % 16 == 0 and d, rank 16-byte aligned.
+template <bool VEC>
+__global__ void __launch_bounds__(RANK_THREADS, 2) rank_scan(
+    const unsigned char* __restrict__ d, int* __restrict__ rank,
+    unsigned* __restrict__ ws, int N, int V, int ntile) {
+  static_assert(ROUNDS == 2, "the packed scan holds two rounds");
+  __shared__ unsigned s_warp[RANK_WARPS];
+  __shared__ int s_tile;
+  __shared__ unsigned s_off;
+  __shared__ bool s_last;
+  const int row = blockIdx.y;
   const int lid = threadIdx.x & 31;
-  const int* cnt = counts + (size_t)lane * ntile;
-  int off = 0;
-  for (int c = threadIdx.x; c < tile; c += THREADS) off += cnt[c];
-  off = block_sum(off, s_warp);
+  const int wid = threadIdx.x >> 5;
+  unsigned* status = ws + 2 * (size_t)N + (size_t)row * ntile;
+  if (threadIdx.x == 0)
+    s_tile = (int)atomicInc(ws + row, (unsigned)ntile - 1u);
+  __syncthreads();
+  const int tile = s_tile;
+  const unsigned char* drow = d + (size_t)row * V;
 
-  const int v0 = tile * TILE;
-  const unsigned char* row = d + (size_t)lane * V;
-  unsigned ballot[ROUNDS];
+  uint4 m[ROUNDS];   // per-byte flags (0x00 / 0x01) of the thread's groups
 #pragma unroll
   for (int r = 0; r < ROUNDS; ++r) {
-    const int v = v0 + r * THREADS + threadIdx.x;
-    ballot[r] = __ballot_sync(FULL, v < V && row[v] != 0);
-    if (lid == 0) s_pre[r * WARPS + wid] = __popc(ballot[r]);
+    const int v =
+        tile * TILE + r * RANK_THREADS * GROUP + threadIdx.x * GROUP;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (VEC) {
+      if (v < V) x = __ldg(reinterpret_cast<const uint4*>(drow + v));
+    } else {
+      unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k)
+        if (v + k < V) w[k >> 2] |= (unsigned)drow[v + k] << (8 * (k & 3));
+      x = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+    m[r] = make_uint4(nz4(x.x), nz4(x.y), nz4(x.z), nz4(x.w));
   }
+
+  // block scan of both rounds' counts at once (round 1 in the high half)
+  const unsigned c = nz_count(m[0]) | (nz_count(m[1]) << 16);
+  unsigned inc = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(FULL, inc, o);
+    if (lid >= o) inc += y;
+  }
+  if (lid == 31) s_warp[wid] = inc;
   __syncthreads();
+  unsigned below = 0u, total = 0u;
+#pragma unroll
+  for (int w = 0; w < RANK_WARPS; ++w) {
+    const unsigned t = s_warp[w];
+    below += w < wid ? t : 0u;
+    total += t;
+  }
+  const unsigned ex = below + inc - c;     // exclusive, both rounds packed
+  const unsigned t0 = total & 0xffffu;     // round 0's count
+  const unsigned agg = t0 + (total >> 16);
+
   if (wid == 0) {
-    // 128 counts in (round, warp) order: 4 consecutive ones per lane.
-    int e[4], sum = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      e[i] = s_pre[lid * 4 + i];
-      sum += e[i];
-    }
-    int inc = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, inc, o);
-      if (lid >= o) inc += y;
-    }
-    int run = inc - sum;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      s_pre[lid * 4 + i] = run;
-      run += e[i];
+    if (lid == 0) store_status(status + tile, (tile == 0 ? ST_P : ST_A) | agg);
+    const unsigned excl = tile > 0 ? look_back(status, tile, lid) : 0u;
+    if (lid == 0) {
+      if (tile > 0) store_status(status + tile, ST_P | (excl + agg));
+      s_off = excl;
+      __threadfence();   // this block's status stores before its ticket
+      s_last = atomicInc(ws + N + row, (unsigned)ntile - 1u) ==
+               (unsigned)ntile - 1u;
     }
   }
   __syncthreads();
-  const unsigned below = (1u << lid) - 1u;
-  int* out = rank + (size_t)lane * V;
+  if (s_last)   // every block of the row is past its look-back
+    for (int i = threadIdx.x; i < ntile; i += RANK_THREADS) status[i] = 0u;
+
+  int* rrow = rank + (size_t)row * V;
 #pragma unroll
   for (int r = 0; r < ROUNDS; ++r) {
-    const int v = v0 + r * THREADS + threadIdx.x;
-    if (v < V) {
-      const int set = (ballot[r] >> lid) & 1u;
-      out[v] = off + s_pre[r * WARPS + wid] + __popc(ballot[r] & below) +
-               set - 1;
+    // voxels before this thread's group of round r
+    const unsigned base = s_off + (r == 0 ? (ex & 0xffffu) : t0 + (ex >> 16));
+    const int g0 = tile * TILE + r * RANK_THREADS * GROUP;
+    if (VEC) {
+      // the warp's 512 voxels of the round as 128 int4 chunks; chunk
+      // q * 32 + t holds word t % 4 of lane 8 q + t / 4's group
+      const int span = g0 + 512 * wid;
+      int4* o4 = reinterpret_cast<int4*>(rrow + span);
+      const int sel = lid & 3;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int src = 8 * q + (lid >> 2);
+        const unsigned x = __shfl_sync(FULL, m[r].x, src);
+        const unsigned y = __shfl_sync(FULL, m[r].y, src);
+        const unsigned z = __shfl_sync(FULL, m[r].z, src);
+        const unsigned u = __shfl_sync(FULL, m[r].w, src);
+        const unsigned b = __shfl_sync(FULL, base, src);
+        const unsigned w = sel == 0 ? x : sel == 1 ? y : sel == 2 ? z : u;
+        const unsigned pre = (sel > 0 ? __popc(x) : 0) +
+                             (sel > 1 ? __popc(y) : 0) +
+                             (sel > 2 ? __popc(z) : 0);
+        const unsigned p = w * 0x01010101u;   // inclusive count by byte
+        const int r0 = (int)(b + pre) - 1;
+        const int chunk = 32 * q + lid;
+        if (span + 4 * chunk < V)
+          o4[chunk] = make_int4(r0 + (int)(p & 0xffu),
+                                r0 + (int)((p >> 8) & 0xffu),
+                                r0 + (int)((p >> 16) & 0xffu),
+                                r0 + (int)(p >> 24));
+      }
+    } else {
+      const int v = g0 + threadIdx.x * GROUP;
+      const unsigned w[4] = {m[r].x, m[r].y, m[r].z, m[r].w};
+      unsigned run = base;
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k) {
+        run += (w[k >> 2] >> (8 * (k & 3))) & 1u;
+        if (v + k < V) rrow[v + k] = (int)run - 1;
+      }
     }
   }
 }
@@ -158,7 +251,6 @@ __global__ void __launch_bounds__(THREADS) rank_write(
 // instruction of the warp covers 512 consecutive bytes; the flags of chunk
 // q * 32 + t are word t % 4 of lane 8 q + t / 4's group, fetched by
 // shuffles where the span holds a defect.
-constexpr int GROUP = 16;
 
 __global__ void __launch_bounds__(THREADS) densify_vec16(
     const int* __restrict__ rank, const unsigned char* __restrict__ d,
@@ -253,16 +345,21 @@ int densify_wave() {
 
 extern "C" int vj_rank_tile(void) { return TILE; }
 
+// counts: the look-back workspace, N * (ntile + 2) ints, zero before the
+// call; the kernel leaves it zero.
 extern "C" int vj_rank(const unsigned char* d, int* counts, int* rank, int N,
                        int V, int ntile, void* stream) {
-  if (N < 1 || N > 65535 || V < 1 || ntile != (V + TILE - 1) / TILE)
+  if (N < 1 || N > 65535 || V < 1 || V >= (1 << 30) ||
+      ntile != (V + TILE - 1) / TILE)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  unsigned* ws = reinterpret_cast<unsigned*>(counts);
   const dim3 grid(ntile, N);
-  rank_count<<<grid, THREADS, 0, st>>>(d, counts, V, ntile);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  rank_write<<<grid, THREADS, 0, st>>>(d, counts, rank, V, ntile);
+  if (V % GROUP == 0 && ((size_t)d & 15) == 0 && ((size_t)rank & 15) == 0)
+    rank_scan<true><<<grid, RANK_THREADS, 0, st>>>(d, rank, ws, N, V, ntile);
+  else
+    rank_scan<false><<<grid, RANK_THREADS, 0, st>>>(d, rank, ws, N, V,
+                                                    ntile);
   return (int)cudaGetLastError();
 }
 

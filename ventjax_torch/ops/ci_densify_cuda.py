@@ -12,7 +12,9 @@ which equals the scatter of ``cv`` to the compacted defect indices (they
 ascend), including its ``mode="drop"`` for defect voxels past the pad.
 
 - ``rank`` (K9, ``csrc/ci_densify.cu``; replaces ``rank_pallas``): int32
-  inclusive count minus one, per lane.
+  inclusive count minus one, per lane, in one launch that reads ``d01``
+  once (a decoupled look-back over a small workspace that the kernel
+  leaves zero).
 - ``densify_rank`` (K8; replaces ``densify_rank_pallas``): the lookup.  It
   reads ``rank`` only where ``d01`` is set, so ``rank`` may hold anything
   elsewhere.
@@ -65,6 +67,23 @@ def _check_d01(name, d01):
 # ---------------------------------------------------------------------------
 # K9: rank = cumsum - 1.
 
+# K9's look-back workspace (tickets and tile status words), one zeroed int32
+# buffer per (library, device, stream): the kernel leaves it zero, so calls
+# in one stream share it, and no memset runs beside a call.  Keyed by the
+# library too, since an older build of the source (a benchmark's parent)
+# may use the buffer otherwise and leave it dirty.  Grown, and zeroed once,
+# on demand.
+_WORKSPACE = {}
+
+
+def _workspace(lib, dev, n):
+    key = (lib._name, dev.index, stream(dev))
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < n:
+        ws = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _WORKSPACE[key] = ws
+    return ws
+
 
 def rank_plain(d01):
     """Plain PyTorch version of K9: [N, V] int32."""
@@ -79,9 +98,9 @@ def rank(d01):
         return rank_plain(d01)
     lib = _lib()
     ntile = -(-V // lib.vj_rank_tile())
-    counts = torch.empty((N, ntile), dtype=torch.int32, device=d01.device)
+    ws = _workspace(lib, d01.device, N * (ntile + 2))
     out = torch.empty((N, V), dtype=torch.int32, device=d01.device)
-    rc = lib.vj_rank(d01.data_ptr(), counts.data_ptr(), out.data_ptr(), N, V,
+    rc = lib.vj_rank(d01.data_ptr(), ws.data_ptr(), out.data_ptr(), N, V,
                      ntile, stream(d01.device))
     raise_on(rc, "rank")
     LAUNCHES["rank"] += 1

@@ -39,6 +39,7 @@ from ventjax_torch.ops.n4 import n4_bias_correction
 from ventjax_torch.ops.snr import calculate_snr
 from ventjax_torch.ops.vdp import vdp_linear_binning, vdp_mean_anchored
 from ventjax_torch.pipeline.result import StudyMetrics, VentResult
+from ventjax_torch.utils.profiling import stage
 
 
 Geometry = Union[CIPairwiseGeometry, CIGeometry]
@@ -73,49 +74,56 @@ def analyze_cohort(
     safe_mask = torch.where(valid[:, None, None, None], mask,
                             torch.ones_like(mask))
 
-    snr = calculate_snr(hp, safe_mask, c.snr_fov_buffer)
+    with stage("snr"):
+        snr = calculate_snr(hp, safe_mask, c.snr_fov_buffer)
 
-    # One mask compaction, shared by N4 (which sub-masks img > 0 through
-    # its weights) and k-means (which consumes N4's compacted output).
-    V = int(np.prod(hp.shape[1:]))
-    P = V if c.n4_mask_pad is None else min(int(c.n4_mask_pad), V)
-    comp = sort_compact_masked(hp.reshape(N, -1),
-                               safe_mask.reshape(N, -1) > 0, P)
-    n4_out = n4_bias_correction(
-        hp, safe_mask,
-        fitting_levels=c.n4_fitting_levels,
-        max_iters=c.n4_max_iters,
-        convergence_threshold=c.n4_convergence_threshold,
-        bins=c.n4_histogram_bins,
-        fwhm=c.n4_bias_fwhm,
-        wiener_noise=c.n4_wiener_noise,
-        control_points=c.n4_control_points,
-        mask_pad=c.n4_mask_pad,
-        return_overflow=True,
-        return_phi=export_compact,
-        return_compacted=True,
-        compacted=comp,
-    )
-    if export_compact:
-        n4, n4_overflow, n4_phi, n4_comp = n4_out
-    else:
-        n4, n4_overflow, n4_comp = n4_out
+    with stage("n4"):
+        # One mask compaction, shared by N4 (which sub-masks img > 0
+        # through its weights) and k-means (which consumes N4's compacted
+        # output).
+        V = int(np.prod(hp.shape[1:]))
+        P = V if c.n4_mask_pad is None else min(int(c.n4_mask_pad), V)
+        comp = sort_compact_masked(hp.reshape(N, -1),
+                                   safe_mask.reshape(N, -1) > 0, P)
+        n4_out = n4_bias_correction(
+            hp, safe_mask,
+            fitting_levels=c.n4_fitting_levels,
+            max_iters=c.n4_max_iters,
+            convergence_threshold=c.n4_convergence_threshold,
+            bins=c.n4_histogram_bins,
+            fwhm=c.n4_bias_fwhm,
+            wiener_noise=c.n4_wiener_noise,
+            control_points=c.n4_control_points,
+            mask_pad=c.n4_mask_pad,
+            return_overflow=True,
+            return_phi=export_compact,
+            return_compacted=True,
+            compacted=comp,
+        )
+        if export_compact:
+            n4, n4_overflow, n4_phi, n4_comp = n4_out
+        else:
+            n4, n4_overflow, n4_comp = n4_out
 
-    defect, vdp = vdp_mean_anchored(n4, safe_mask, c.vdp_thresh)
-    defect_border = (gradient_border(defect) == 1).to(torch.float32)
-    defect_lb, vdp_lb = vdp_linear_binning(n4, safe_mask, c.lb_edges,
-                                           c.lb_percentile)
-    _, n4_vals_c, wv_c = n4_comp
-    defect_km, vdp_km = vdp_kmeans(
-        n4, safe_mask, c.kmeans_clusters, c.kmeans_iters,
-        c.kmeans_defect_clusters, compacted=(n4_vals_c, wv_c))
-    if isinstance(geom, CIPairwiseGeometry):
-        ci_map, n_saturated, ci_overflow = calculate_ci_pairwise(
-            defect, geom, c.ci_max_defect_voxels, tail_k=c.ci_tail_k)
-    else:
-        ci_map, n_saturated, ci_overflow, stage_ovf = calculate_ci_staged(
-            defect, geom, c.ci_max_defect_voxels)
-        ci_overflow = ci_overflow | (stage_ovf > 0)
+    with stage("vdp_mean_anchored"):
+        defect, vdp = vdp_mean_anchored(n4, safe_mask, c.vdp_thresh)
+        defect_border = (gradient_border(defect) == 1).to(torch.float32)
+    with stage("vdp_linear_binning"):
+        defect_lb, vdp_lb = vdp_linear_binning(n4, safe_mask, c.lb_edges,
+                                               c.lb_percentile)
+    with stage("vdp_kmeans"):
+        _, n4_vals_c, wv_c = n4_comp
+        defect_km, vdp_km = vdp_kmeans(
+            n4, safe_mask, c.kmeans_clusters, c.kmeans_iters,
+            c.kmeans_defect_clusters, compacted=(n4_vals_c, wv_c))
+    with stage("ci"):
+        if isinstance(geom, CIPairwiseGeometry):
+            ci_map, n_saturated, ci_overflow = calculate_ci_pairwise(
+                defect, geom, c.ci_max_defect_voxels, tail_k=c.ci_tail_k)
+        else:
+            ci_map, n_saturated, ci_overflow, stage_ovf = calculate_ci_staged(
+                defect, geom, c.ci_max_defect_voxels)
+            ci_overflow = ci_overflow | (stage_ovf > 0)
 
     # Subject CI: the floor-index percentile of the CI map over defect
     # voxels; NaN when there are none.
