@@ -14,9 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit-identical on relaunch, and K7 bit-equal to the flushed, weighted K6
    and to K2 with done = 0 (shared code); K4, on the first iteration's
    residual and on a late one (LATE_ITERS iterations of level 0 run here),
-   relative 1e-5 of the largest bin against its float32 plain version,
-   bit-equal to its exact fixed-point plain version and from launch to
-   launch; K5 bit-equal (the same float32 operations in the same order);
+   relative 1e-5 of the largest bin against its plain version summed in
+   float64, bit-equal to its exact fixed-point plain version and from
+   launch to launch; K5 bit-equal (the same float32 operations in the same order);
    K3 (on severe-load maps at K 1024, 2048, 4096), K9, K8 bit-equal
    (integers, and copied values), K9 also at ragged V (4,112, 100,003), on
    rows whose flags lie only in their last tile, and on a relaunch right
@@ -56,6 +56,25 @@ Phases, in order; any failure raises and the script exits non-zero:
       a corrupt study that fails alone, waits in awaiting_retry and is
       retried, and serve_forever with the scan watchdog armed (its exit
       seam stubbed, never fired);
+   g. the reference's class on the card: Vent_Analysis (no device
+      argument: the card is its default) on a written study of 128x128x16
+      and a severe one whose CI pad reaches K >= 2048, calculate_VDP and
+      calculate_CI (K1, K2, K4, K5 launched, and K3 for each study), a
+      second calculate_VDP bit-identical, editMask on the card equal to
+      the CPU, every export read back with the port's codecs (NIfTI
+      channel 4, overlay DICOMs plain and RLE pure red exactly at the
+      defects, NPZ and pickle restoring the metrics), process_RAW of a
+      128x128x16 TWIX file within 1e-5 of numpy's recon, and the twix,
+      analyze and export --recalculate commands (where Pillow is absent,
+      analyze must stop with exit 2 naming it); then, outside the counted
+      run, for each study: K1 and K2 at every ncp and K4 and K5 on a first
+      and a late residual against their plain versions on its N4 operands
+      (N 1, P config.n4_mask_pad; tolerances as in phase 3), K3 bit-equal
+      to its plain version on its defect coordinates at its CI pad
+      (ci_module.defect_pad; whether the first pairwise call overflowed,
+      so that the facade retried at tail_k = pad, is logged), and its
+      defect arrays (mean-anchored, LB, KM) and CI map equal to
+      analyze_study's on the same arrays, its VDPs within 0.1 pp;
    then the doctor: run_doctor(full=True) on the card, every required
    check passed and kernel_build naming the four libraries;
 5. timing (information only): the slice's volumes/s, the N4 and CI stages
@@ -69,7 +88,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and on a severe-load map at K 4096 (K9 with its device activities per
    call, K8 beside the scatter it replaces and the K9 + K8 pair); the fit
    chain's iterations, the cohort's subjects/s, the service's subjects/s
-   and one warm arrival's seconds from scan start to its .done;
+   and one warm arrival's seconds from scan start to its .done; path g's
+   calculate_VDP and calculate_CI per study by the host clock;
 6. with --parent DIR: DIR/n4_fit.cu, DIR/n4_sharpen.cu, DIR/ci_head.cu and
    DIR/ci_densify.cu (an older version of those sources, with the same C
    interfaces) built under their own names and timed against this tree in
@@ -84,7 +104,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. one slice batch under torch.profiler: its device kernels, device time
    and busy share, the rows of K1, K2, K3, K4 and K5 (the table goes to
    chiprun_out/profile_slice.txt);
-8. one JSON line of kernel records, then the result line
+8. one JSON line of kernel records (``launches_path_g``: each kernel's
+   launches in path g), then the result line
    {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the ventjax package.
@@ -174,14 +195,14 @@ def headline_cohort():
 
 
 def fit_inputs(hp, mask, n4_pad, ncp, dev):
-    """The N4 fit operands of the headline cohort at one level: powered
+    """The N4 fit operands of a [N, H, W, D] batch at one level: powered
     basis rows of the compacted masked voxels, weights, log values."""
     from ventjax_torch.ops import n4 as tn4
     from ventjax_torch.ops.basic import sort_compact_masked
 
-    H, W, D = SHAPE
-    flat = torch.from_numpy(hp.reshape(BATCH, -1)).to(dev)
-    m = torch.from_numpy(mask.reshape(BATCH, -1) > 0).to(dev)
+    N, H, W, D = hp.shape
+    flat = torch.from_numpy(hp.reshape(N, -1)).to(dev)
+    m = torch.from_numpy(mask.reshape(N, -1) > 0).to(dev)
     idx, vals, n = sort_compact_masked(flat, m, n4_pad)
     wv = ((torch.arange(n4_pad, device=dev)[None] < n[:, None])
           & (vals > 0)).float()
@@ -207,10 +228,38 @@ def smooth_residual(wv, gen):
 
 def phase_kernels(hp, mask, n4_pad, dev):
     """Each kernel against its plain version at the main path's shapes."""
-    from ventjax_torch.ops import ci_cuda, n4_cuda
-    from ventjax_torch.ops import n4 as tn4
+    from ventjax_torch.ops import ci_cuda
+    from ventjax_torch.ops import ci_pairwise as tcp
 
     gen = np.random.default_rng(SEED)
+    errs = check_fit(hp, mask, n4_pad, dev, gen, freeze=True, k6_k7=True)
+    geom = tcp.build_ci_pairwise_geometry(VOX, SHAPE, 50, "wrap")
+    for K in (1024, 2048, 4096):
+        args = k3_args(severe_coords(K, dev), geom)
+        got = ci_cuda.head_counts(*args)
+        want = ci_cuda.head_counts_plain(*args)
+        equal = bool(torch.equal(got, want))
+        log(f"K3 head_counts K={K} N={BATCH} ns={args[2].shape[0]} wrap: "
+            f"bit_equal={equal} max_count={int(want.max())}")
+        if not equal:
+            raise AssertionError(f"K3 counts differ from the plain version "
+                                 f"at K={K}")
+    errs["head_counts"] = [0.0]
+    errs.update(check_sharpen(hp, mask, n4_pad, dev))
+    errs.update(check_densify(gen, dev))
+    return {k: max(v) for k, v in errs.items()}
+
+
+def check_fit(hp, mask, n4_pad, dev, gen, freeze, k6_k7):
+    """K1 and K2 against their plain versions at every ncp on the N4
+    operands of the [N, H, W, D] batch hp, mask (K1 also bit-identical on
+    relaunch); with ``freeze`` every third lane of K2 is done and must keep
+    its field; with ``k6_k7`` K6 and K7 at ncp 11 too.  Returns the
+    largest absolute errors of each kernel, as lists."""
+    from ventjax_torch.ops import n4 as tn4
+    from ventjax_torch.ops import n4_cuda
+
+    N = hp.shape[0]
     errs = {}
     for ncp in FIT_NCPS:
         bv, wv, logv = fit_inputs(hp, mask, n4_pad, ncp, dev)
@@ -229,11 +278,12 @@ def phase_kernels(hp, mask, n4_pad, dev):
             errs.setdefault("fit_moment", []).append(
                 float((got - want).abs().max()))
         phi = torch.from_numpy((0.05 * (1 + 0.2 * gen.normal(
-            size=(BATCH, ncp, ncp * ncp)))).astype(np.float32)).to(dev)
+            size=(N, ncp, ncp * ncp)))).astype(np.float32)).to(dev)
         field = 0.01 * torch.from_numpy(gen.normal(
             size=wv.shape).astype(np.float32)).to(dev) * wv
-        done = torch.zeros(BATCH, device=dev)
-        done[::3] = 1.0
+        done = torch.zeros(N, device=dev)
+        if freeze:
+            done[::3] = 1.0
         got = n4_cuda.fit_delta_conv_field(phi, *r1, wv, field, logv, done)
         want = n4_cuda.fit_delta_conv_field_plain(phi, *r1, wv, field, logv,
                                                   done)
@@ -251,10 +301,10 @@ def phase_kernels(hp, mask, n4_pad, dev):
         span = want[2][:, 3] - want[2][:, 2]
         k2["min"] = float(((got[2][:, 2] - want[2][:, 2]).abs() / span).max())
         k2["max"] = float(((got[2][:, 3] - want[2][:, 3]).abs() / span).max())
-        frozen = bool((got[0][::3] == field[::3]).all())
+        frozen = bool((got[0][done > 0] == field[done > 0]).all())
         errs.setdefault("fit_delta_conv_field", []).append(
             float((got[0] - want[0]).abs().max()))
-        log(f"K1 fit_moment ncp={ncp} N={BATCH} P={n4_pad}: "
+        log(f"K1 fit_moment ncp={ncp} N={N} P={n4_pad}: "
             + json.dumps({k: f"{v:.2e}" for k, v in k1.items()}))
         log(f"K2 fit_delta_conv_field ncp={ncp}: "
             + json.dumps({k: f"{v:.2e}" for k, v in k2.items()})
@@ -263,27 +313,10 @@ def phase_kernels(hp, mask, n4_pad, dev):
         if bad or not frozen:
             raise AssertionError(f"K1/K2 disagree with their plain versions "
                                  f"at ncp={ncp}: {bad} frozen={frozen}")
-        if ncp == 11:        # the finest level: K6 and K7's shapes
+        if k6_k7 and ncp == 11:   # the finest level: K6 and K7's shapes
             for k, v in check_fit_delta(phi, r1, wv, logv, s_scale).items():
                 errs.setdefault(k, []).append(v)
-
-    from ventjax_torch.ops import ci_pairwise as tcp
-
-    geom = tcp.build_ci_pairwise_geometry(VOX, SHAPE, 50, "wrap")
-    for K in (1024, 2048, 4096):
-        args = k3_args(severe_coords(K, dev), geom)
-        got = ci_cuda.head_counts(*args)
-        want = ci_cuda.head_counts_plain(*args)
-        equal = bool(torch.equal(got, want))
-        log(f"K3 head_counts K={K} N={BATCH} ns={args[2].shape[0]} wrap: "
-            f"bit_equal={equal} max_count={int(want.max())}")
-        if not equal:
-            raise AssertionError(f"K3 counts differ from the plain version "
-                                 f"at K={K}")
-    errs["head_counts"] = [0.0]
-    errs.update(check_sharpen(hp, mask, n4_pad, dev))
-    errs.update(check_densify(gen, dev))
-    return {k: max(v) for k, v in errs.items()}
+    return errs
 
 
 def check_fit_delta(phi, r1, wv, logv, s_scale):
@@ -379,11 +412,26 @@ def mass_err(hist, wv):
     return float((hist.double().sum(1) - wv.double().sum(1)).abs().max())
 
 
+def hist_f64(logu, wv, bmn, slope):
+    """K4's plain version with its float32 contributions summed in float64:
+    the histogram that K4 and its float32 plain version both round."""
+    from ventjax_torch.ops import n4_sharpen_cuda as sc
+
+    i0, f = sc._split(sc._t_index(logu, wv, bmn, slope, BINS), BINS)
+    hist = torch.zeros((logu.shape[0], BINS + 2), dtype=torch.float64,
+                       device=logu.device)
+    hist.scatter_add_(1, i0, (wv * (1.0 - f)).double())
+    hist.scatter_add_(1, i0 + 1, (wv * f).double())
+    return hist[:, :BINS]
+
+
 def check_sharpen(hp, mask, n4_pad, dev):
-    """K4 and K5 against their plain versions at the slice's shapes, on the
+    """K4 and K5 against their plain versions at the given shapes, on the
     first iteration's residual and on a late one: K4 within KERNEL_RTOL of
-    the largest bin of its float32 plain version, bit-equal to its exact
-    fixed-point plain version and to itself on relaunch; K5 bit-equal."""
+    the largest bin of its plain version summed in float64 (the float32
+    plain version's own summation error, logged beside it, passes 1e-5 on
+    one lane of 65,536 voxels), bit-equal to its exact fixed-point plain
+    version and to itself on relaunch; K5 bit-equal."""
     from ventjax_torch.ops import n4_sharpen_cuda as sc
 
     errs = {"sharpen_hist": [], "sharpen_resid": []}
@@ -393,14 +441,16 @@ def check_sharpen(hp, mask, n4_pad, dev):
         got = sc.sharpen_hist(logu, wv, bmn, slope, BINS)
         again = sc.sharpen_hist(logu, wv, bmn, slope, BINS)
         want = sc.sharpen_hist_plain(logu, wv, bmn, slope, BINS)
-        k4 = scaled_err(got, want)
+        exact = hist_f64(logu, wv, bmn, slope)
+        k4 = scaled_err(got, exact)
         same = {"relaunch": bool(torch.equal(got, again)),
                 "fixed_plain": bool(torch.equal(
                     got, sc.sharpen_hist_fixed_plain(logu, wv, bmn, slope,
                                                      BINS)))}
-        log(f"K4 sharpen_hist {tag} residual N={BATCH} P={n4_pad} "
-            f"bins={BINS}: rel {k4:.2e} bit_identical {json.dumps(same)} "
-            f"mass_err {mass_err(got, wv):.2e}")
+        log(f"K4 sharpen_hist {tag} residual N={wv.shape[0]} P={n4_pad} "
+            f"bins={BINS}: rel {k4:.2e} to the float64 sum (the float32 "
+            f"plain version's {scaled_err(want, exact):.2e}) bit_identical "
+            f"{json.dumps(same)} mass_err {mass_err(got, wv):.2e}")
         if not (k4 <= KERNEL_RTOL and all(same.values())):
             raise AssertionError(f"K4 on the {tag} residual: rel {k4}, "
                                  f"{same}")
@@ -414,7 +464,7 @@ def check_sharpen(hp, mask, n4_pad, dev):
             f"finite={bool(torch.isfinite(a).all())}")
         if not torch.equal(a, a_plain):
             raise AssertionError(f"K5 differs from its plain version: {k5}")
-        errs["sharpen_hist"].append(float((got - want).abs().max()))
+        errs["sharpen_hist"].append(float((got.double() - exact).abs().max()))
         errs["sharpen_resid"].append(k5)
     return errs
 
@@ -1071,6 +1121,281 @@ def phase_serve(dev):
             f"analysis, export); warm arrival {arrival_s:.2f} s from scan "
             f"start to its .done")
     return rate, arrival_s
+
+
+FACADE_RECIPE = "close:1,fillholes,erode:1"
+
+
+def facade_studies(root):
+    """Path g's two studies of SHAPE: a typical one and a severe one
+    (large clustered defects, whose CI pad reaches K >= 2048)."""
+    import os
+
+    from ventjax_torch.io.phantom import make_phantom
+    from ventjax_torch.io.synthetic import write_study
+
+    studies = {}
+    for name, kw in (("typical", {}),
+                     ("severe", dict(n_defects=8,
+                                     defect_radius_vox=(8.0, 10.0, 12.0)))):
+        sdir = os.path.join(root, name)
+        write_study(sdir, phantom=make_phantom(shape=SHAPE, vox=VOX,
+                                               seed=SEED + 300, **kw))
+        studies[name] = {"xenon_path": f"{sdir}/xenon.dcm",
+                         "mask_path": f"{sdir}/mask",
+                         "proton_path": f"{sdir}/proton.dcm"}
+    return studies
+
+
+def png_ok(path):
+    """A PNG that Pillow decodes to a non-empty RGB(A) image."""
+    from PIL import Image
+
+    with open(path, "rb") as f:
+        if f.read(8) != b"\x89PNG\r\n\x1a\n":
+            return False
+    with Image.open(path) as im:
+        im.load()
+        return im.size[0] > 0 and im.size[1] > 0
+
+
+def run_cli(argv):
+    """(exit code, stdout, stderr) of ventjax_torch.cli.main(argv)."""
+    import io
+
+    from ventjax_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def phase_facade(dev):
+    """Path g: the reference's Vent_Analysis class on the card (its default
+    device) over two written studies, its mask editing, every export read
+    back, TWIX recon, and the analyze / export / twix commands; then the
+    facade's metrics against analyze_study on the same arrays.  Returns
+    its launch counts, host-clock timings and the kernels' largest errors
+    against their plain versions at the shapes path g gave them."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from ventjax_torch.compat import Vent_Analysis
+    from ventjax_torch.config import DEFAULT_CONFIG
+    from ventjax_torch.io import dicom as dcm
+    from ventjax_torch.io.nifti import load as nifti_load
+    from ventjax_torch.io.twix import write_synthetic_twix
+    from ventjax_torch.pipeline import analyze_study, build_geometry
+
+    has_pil = importlib.util.find_spec("PIL") is not None
+    n4_path = ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
+               "sharpen_resid")
+    checks, times, facades = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        studies = facade_studies(root)
+        log(f"facade: wrote 2 studies of {SHAPE} in "
+            f"{time.perf_counter() - t0:.1f} s; Pillow importable: {has_pil}")
+        torch.cuda.synchronize()
+        reset_counts()
+        for name, paths in studies.items():
+            k3_before = counters()[2]["head_counts"]
+            v = Vent_Analysis(**paths)
+            t = time.perf_counter()
+            v.calculate_VDP()
+            torch.cuda.synchronize()
+            t_vdp = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            v.calculate_CI()
+            torch.cuda.synchronize()
+            t_ci = (time.perf_counter() - t) * 1e3
+            first_n4 = v.N4HPvent.copy()
+            v.calculate_VDP()
+            times[name] = {"calculate_VDP_ms": round(t_vdp, 3),
+                           "calculate_CI_ms": round(t_ci, 3)}
+            checks[f"{name}_device_cuda"] = v.device.type == "cuda"
+            checks[f"{name}_k3_launched"] = \
+                counters()[2]["head_counts"] > k3_before
+            checks[f"{name}_n4_repeat_bit_identical"] = np.array_equal(
+                first_n4, v.N4HPvent)
+            checks[f"{name}_finite"] = all(np.isfinite(float(
+                v.metadata[k])) for k in ("SNR", "VDP", "VDP_lb",
+                                           "VDP_km", "CI"))
+            facades[name] = v
+            log(f"facade {name}: defect voxels "
+                f"{int(v.defectArray.sum())}; VDP "
+                f"{v.metadata['VDP']:.4f} VDP_lb "
+                f"{v.metadata['VDP_lb']:.4f} VDP_km "
+                f"{v.metadata['VDP_km']:.4f} CI {v.metadata['CI']:.4f}")
+        v = facades["typical"]
+
+        # mask editing on the card against the same recipe on the CPU
+        on_cpu = Vent_Analysis(**studies["typical"], device="cpu")
+        edited = Vent_Analysis(**studies["typical"])
+        checks["edit_mask_equals_cpu"] = np.array_equal(
+            edited.editMask(FACADE_RECIPE), on_cpu.editMask(FACADE_RECIPE)) \
+            and edited.metadata["LungVolume"] == on_cpu.metadata["LungVolume"]
+
+        # every export, read back with the port's codecs
+        out = os.path.join(root, "exports")
+        os.makedirs(out)
+        nii = v.exportNifti(out, "g")
+        checks["nifti_defect_channel"] = np.array_equal(
+            nifti_load(nii)[0][..., 4], v.defectArray)
+        hdr = json.load(open(v.dicom_to_json(v.ds, os.path.join(out,
+                                                                "g.json"))))
+        checks["header_json"] = "PatientName" in json.dumps(hdr)
+        pkl = v.pickleMe(os.path.join(out, "g.pkl"))
+        npz = v.saveNpz(os.path.join(out, "g.npz"))
+        red_ok = True
+        for tag, compress in (("plain", False), ("rle", True)):
+            os.makedirs(os.path.join(out, tag))
+            ddir = v.exportDICOM(v.ds, os.path.join(out, tag), "g",
+                                 compress=compress)
+            for i in range(SHAPE[2]):
+                rgb = dcm.read_file(os.path.join(ddir, f"dicom_{i}.dcm")
+                                    ).pixel_array.astype(np.int32)
+                red = (rgb[..., 0] == 255) & (rgb[..., 1] == 0) \
+                    & (rgb[..., 2] == 0)
+                gray = (rgb[..., 0] == rgb[..., 1]) & (rgb[..., 1]
+                                                       == rgb[..., 2])
+                dmask = v.defectArray[:, :, i] == 1
+                red_ok &= bool(np.all(red[dmask]) and np.all(gray[~dmask]))
+        checks["overlay_red_exactly_at_defects"] = red_ok
+        keys = ("SNR", "VDP", "VDP_lb", "VDP_km", "CI", "LungVolume")
+        for tag, kw in (("npz", {"npz_path": npz}),
+                        ("pickle", {"pickle_path": pkl})):
+            back = Vent_Analysis(**kw)
+            checks[f"{tag}_restores_metrics"] = all(
+                float(back.metadata[k]) == float(v.metadata[k])
+                for k in keys) and np.array_equal(back.defectArray,
+                                                  v.defectArray)
+
+        # TWIX: process_RAW on the card against numpy's float64 recon
+        gen = np.random.default_rng(SEED + 301)
+        kspace = (gen.normal(size=SHAPE) + 1j * gen.normal(size=SHAPE)
+                  ).astype(np.complex64)
+        dat = os.path.join(root, "meas.dat")
+        write_synthetic_twix(dat, kspace)
+        img = v.process_RAW(dat)
+        want = np.transpose(np.fft.fftshift(np.fft.fft2(np.fft.fftshift(
+            kspace.astype(np.complex128), axes=(0, 1)), axes=(0, 1)),
+            axes=(0, 1)), (1, 0, 2))[:, ::-1, :]
+        twix_err = float(np.abs(img - want).max() / np.abs(want).max())
+        checks["twix_recon_1e-5"] = twix_err < 1e-5 \
+            and img.dtype == np.complex64
+        rc, so, se = run_cli(["twix", "--dat", dat, "--out",
+                              os.path.join(root, "twix")])
+        checks["cli_twix"] = rc == 0 and np.array_equal(
+            np.load(json.loads(so)["out"]), img)
+
+        # the analyze and export commands on the card
+        cli_out = os.path.join(root, "cli")
+        paths = studies["typical"]
+        rc, so, se = run_cli([
+            "analyze", "--xenon", paths["xenon_path"], "--mask",
+            paths["mask_path"], "--proton", paths["proton_path"], "--out",
+            cli_out, "--npz", "--histogram"])
+        if has_pil:
+            got = json.loads(so) if rc == 0 else {}
+            base = os.path.join(cli_out, "VENTJAX_PHANTOM")
+            checks["cli_analyze"] = rc == 0 and all(
+                abs(got[k] - v.metadata[k]) < 0.1
+                for k in ("VDP", "VDP_lb", "VDP_km")) \
+                and png_ok(base + ".png") and png_ok(base + "_hist.png")
+            rc, so, se = run_cli(["export", "--npz-in", base + ".npz",
+                                  "--out", os.path.join(root, "cli_export"),
+                                  "--recalculate"])
+            got = json.loads(so)["metrics"] if rc == 0 else {}
+            checks["cli_export_recalculate"] = rc == 0 and all(
+                abs(got[k] - v.metadata[k]) < 0.1
+                for k in ("VDP", "VDP_lb", "VDP_km"))
+        else:
+            checks["cli_analyze_stops_without_pillow"] = rc == 2 \
+                and "Pillow" in se and not os.path.exists(cli_out)
+            log("facade: Pillow is absent here, so the PNG route of analyze "
+                "and export was not exercised (the commands stop with exit 2)")
+        launches = launch_counts()
+        checks["kernels_launched"] = all(launches[k] > 0 for k in n4_path) \
+            and launches["head_counts"] >= 2
+        log(f"facade launches: {json.dumps(launches)}")
+
+        # outside the counted run: the kernels at path g's shapes, and the
+        # facade against analyze_study on the same arrays, on the card
+        errs, dvdp = {}, 0.0
+        for name, f in facades.items():
+            pad, retried, k_errs = check_facade_kernels(f, dev)
+            for k, e in k_errs.items():
+                errs.setdefault(k, []).extend(e)
+            log(f"facade {name}: CI pad {pad}, tail_k retry ran: {retried}")
+            if name == "severe":
+                checks["severe_pad_ge_2048"] = pad >= 2048
+            # the facade's pad, and its full-width tail (its retry)
+            cfg = DEFAULT_CONFIG.replace(ci_max_defect_voxels=pad,
+                                         ci_tail_k=pad)
+            res = analyze_study(
+                torch.from_numpy(np.asarray(f.HPvent, np.float32)).to(dev),
+                torch.from_numpy(np.asarray(f.mask, np.float32)).to(dev),
+                build_geometry(VOX, SHAPE, cfg), cfg)
+            for key, attr in (("VDP", "vdp"), ("VDP_lb", "vdp_lb"),
+                              ("VDP_km", "vdp_km")):
+                dvdp = max(dvdp, abs(f.metadata[key]
+                                     - float(getattr(res.metrics, attr))))
+            for attr, want in (("defectArray", res.defect),
+                               ("defectArrayLB", res.defect_lb),
+                               ("defectArrayKM", res.defect_km),
+                               ("CIarray", res.ci_map)):
+                checks[f"{name}_{attr}_equals_analyze_study"] = \
+                    np.array_equal(getattr(f, attr), want.cpu().numpy())
+        checks["dvdp_vs_analyze_study_lt_0.1"] = dvdp < 0.1
+    checks = {k: bool(x) for k, x in checks.items()}
+    log(f"facade checks: {json.dumps(checks)}; max |dVDP| vs analyze_study "
+        f"{dvdp:.3e} pp; TWIX recon error {twix_err:.3e} of max |image|")
+    if not all(checks.values()):
+        raise AssertionError(f"the facade path failed: {checks}")
+    log(f"time facade (host clock, ms per study): {json.dumps(times)}")
+    return launches, times, {k: max(v) for k, v in errs.items()}
+
+
+def check_facade_kernels(f, dev):
+    """One facade study's kernels against their plain versions at the
+    shapes the facade gives them: K1 and K2 at every ncp, K4 and K5 on the
+    first and a late residual, on its N4 operands (N 1, P
+    config.n4_mask_pad); K3 bit-equal on its defect coordinates at its CI
+    pad (the shape of both of the facade's pairwise calls).  Returns the
+    pad, whether the facade's first pairwise call overflowed (so that it
+    retried at tail_k = pad), and the largest errors, as lists."""
+    from ventjax_torch.compat import ci_module
+    from ventjax_torch.ops import ci_cuda
+    from ventjax_torch.ops import ci_pairwise as tcp
+    from ventjax_torch.pipeline import build_geometry
+
+    hp = np.asarray(f.HPvent, np.float32)[None]
+    mask = np.asarray(f.mask, np.float32)[None]
+    n4_pad = min(f.config.n4_mask_pad, hp[0].size)
+    gen = np.random.default_rng(SEED + 302)
+    errs = check_fit(hp, mask, n4_pad, dev, gen, freeze=False, k6_k7=False)
+    errs.update(check_sharpen(hp, mask, n4_pad, dev))
+
+    pad = ci_module.defect_pad(f.defectArray)
+    geom = build_geometry(tuple(f.vox), f.defectArray.shape, f.config)
+    if not isinstance(geom, tcp.CIPairwiseGeometry):
+        raise AssertionError(f"the facade's geometry is not the pairwise "
+                             f"engine's: {type(geom).__name__}")
+    d = torch.from_numpy(f.defectArray.astype(np.float32))[None].to(dev)
+    args = k3_args(tcp.defect_coords(d, pad)[0], geom)
+    equal = bool(torch.equal(ci_cuda.head_counts(*args),
+                             ci_cuda.head_counts_plain(*args)))
+    log(f"K3 head_counts K={pad} N=1 (the facade's study): "
+        f"bit_equal={equal}")
+    if not equal:
+        raise AssertionError(f"K3 differs from its plain version on the "
+                             f"facade's study at K={pad}")
+    errs["head_counts"] = [0.0]
+    retried = bool(tcp.calculate_ci_pairwise(d, geom, pad)[2][0])
+    return pad, retried, errs
 
 
 def phase_doctor():
@@ -1754,6 +2079,9 @@ def main():
     phase_ladder(cfg, res, hp_d, mask_d)
     rate = phase_cohort(dev)
     serve_rate, arrival_s = phase_serve(dev)
+    facade_launches, _, facade_err = phase_facade(dev)
+    for k, e in facade_err.items():
+        max_err[k] = max(max_err[k], e)
     phase_doctor()
     med, rec = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
                             dev)
@@ -1771,6 +2099,7 @@ def main():
     kernels = [{"name": k, "route": "cuda", "source": s, "replaces": r,
                 "launches": launches[k],
                 "launches_per_batch": per_batch[k],
+                "launches_path_g": facade_launches[k],
                 "max_abs_err": max_err[k], **rec[k]}
                for k, (s, r) in KERNELS.items()]
     bad = sorted(m for m in sys.modules

@@ -112,8 +112,14 @@ def test_cli_info(capsys):
 def test_cli_commands_and_left_out_flags():
     sub = next(a for a in build_parser()._actions
                if a.dest == "cmd")
-    assert sorted(sub.choices) == ["cohort", "doctor", "info", "serve"]
-    for argv in (["cohort", "--manifest", "m", "--out", "o", "--no-mesh"],
+    assert sorted(sub.choices) == ["analyze", "cohort", "doctor", "export",
+                                   "info", "serve", "twix"]
+    analyze = ["analyze", "--xenon", "x", "--mask", "m", "--out", "o"]
+    for argv in (analyze + ["--auto-mask"],
+                 analyze + ["--seg-ckpt", "c"],
+                 analyze + ["--seg-base", "16"],
+                 analyze + ["--shard-slices", "2"],
+                 ["cohort", "--manifest", "m", "--out", "o", "--no-mesh"],
                  ["cohort", "--manifest", "m", "--out", "o",
                   "--dense-export"],
                  ["cohort", "--manifest", "m", "--out", "o",
@@ -122,8 +128,10 @@ def test_cli_commands_and_left_out_flags():
                  ["--no-compile-cache", "info"]):
         with pytest.raises(SystemExit):
             build_parser().parse_args(argv)
-    args = build_parser().parse_args(["serve", "--inbox", "i", "--out", "o"])
-    assert args.device == "cuda"
+    for argv in (["serve", "--inbox", "i", "--out", "o"], analyze,
+                 ["export", "--pickle", "p", "--out", "o"],
+                 ["twix", "--dat", "d", "--out", "o"]):
+        assert build_parser().parse_args(argv).device == "cuda"
 
 
 @pytest.mark.parametrize("spec", ["128x128x16@2.0,2.0,11.5", "64x64x8",

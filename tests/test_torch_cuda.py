@@ -16,7 +16,10 @@ against its plain version, whose float32 atomics sum in another order (the
 kernel's fixed-point sum is nearer the exact one), bit-equal to its exact
 fixed-point plain version, and bit-identical from launch to launch; K5
 bit-equal, the same float32 operations in the same order; K3, K8, K9 and
-the CI maps of both engines bit-equal.
+the CI maps of both engines bit-equal.  The Vent_Analysis facade on the
+card against the CPU: defect arrays and CI map equal, VDPs within 0.1 pp;
+mask editing equal; the k-space recon within 1e-5 of max |image| (cuFFT
+against PyTorch's CPU FFT, both float32).
 """
 import numpy as np
 import pytest
@@ -592,3 +595,72 @@ def test_grouped_on_card_within_pipeline_tolerances(cuda):
         d = getattr(grouped.metrics, name) - getattr(whole.metrics, name)
         assert float(d.abs().max()) < 0.1, name
     assert _err(grouped.n4, whole.n4) < RTOL
+
+
+def test_facade_on_card_matches_cpu(cuda, tmp_path):
+    """Vent_Analysis on the card (its default device) against itself on the
+    CPU on one written 64x64x8 study: defect arrays equal, VDPs within
+    0.1 pp, the CI map equal where the defect arrays agree, and N4 (K4, K5,
+    K1, K2) and the CI head (K3) launched."""
+    from ventjax_torch.compat import Vent_Analysis
+    from ventjax_torch.io.synthetic import write_study
+    from ventjax_torch.ops import ci_cuda
+
+    write_study(str(tmp_path), shape=(64, 64, 8), vox=(1.5, 1.5, 10.0),
+                seed=6)
+    paths = {"xenon_path": f"{tmp_path}/xenon.dcm",
+             "mask_path": f"{tmp_path}/mask",
+             "proton_path": f"{tmp_path}/proton.dcm"}
+    k1 = n4_cuda.LAUNCHES["fit_moment"]
+    k3 = ci_cuda.LAUNCHES["head_counts"]
+    gpu = Vent_Analysis(**paths)
+    assert gpu.device.type == "cuda"
+    gpu.calculate_VDP()
+    gpu.calculate_CI()
+    assert n4_cuda.LAUNCHES["fit_moment"] > k1
+    assert ci_cuda.LAUNCHES["head_counts"] > k3
+    cpu = Vent_Analysis(**paths, device="cpu")
+    cpu.calculate_VDP()
+    cpu.calculate_CI()
+    for name in ("defectArray", "defectArrayLB", "defectArrayKM"):
+        assert np.array_equal(getattr(gpu, name), getattr(cpu, name)), name
+    for key in ("VDP", "VDP_lb", "VDP_km"):
+        assert abs(gpu.metadata[key] - cpu.metadata[key]) < 0.1, key
+    assert np.array_equal(gpu.CIarray, cpu.CIarray)
+    assert gpu.metadata["CI"] == cpu.metadata["CI"]
+    assert np.abs(gpu.N4HPvent - cpu.N4HPvent).max() <= \
+        2e-3 * np.abs(cpu.N4HPvent).max()
+
+
+def test_edit_mask_and_recon_on_card_match_cpu(cuda):
+    from ventjax_torch.ops.fft_recon import (
+        recon_2d_multislice, recon_2d_multislice_rss,
+    )
+    from ventjax_torch.ops.morphology import edit_mask, fill_holes
+
+    rng = np.random.default_rng(4)
+    vol = (rng.random((40, 36, 5)) > 0.55).astype(np.float32)
+    for recipe in ("close:1,fillholes,erode:1", "open:2,dilate:1",
+                   "fillholes"):
+        for slicewise in (True, False):
+            got = edit_mask(torch.from_numpy(vol).to(cuda), recipe,
+                            slicewise=slicewise)
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), edit_mask(vol, recipe,
+                                                    slicewise=slicewise))
+    spiral = np.ones((41, 41, 1), np.float32)
+    spiral[0, :, 0] = 0
+    spiral[:, 40, 0] = 0
+    spiral[40, 2:, 0] = 0
+    assert torch.equal(fill_holes(torch.from_numpy(spiral).to(cuda)).cpu(),
+                       fill_holes(spiral))
+    k = (rng.normal(size=(64, 48, 4))
+         + 1j * rng.normal(size=(64, 48, 4))).astype(np.complex64)
+    got = recon_2d_multislice(k, device=cuda)
+    want = recon_2d_multislice(k, device="cpu")
+    assert got.dtype == want.dtype == np.complex64
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    kc = np.stack([k, k * 0.5])
+    got = recon_2d_multislice_rss(kc, device=cuda)
+    want = recon_2d_multislice_rss(kc, device="cpu")
+    assert np.abs(got - want).max() <= 1e-5 * want.max()

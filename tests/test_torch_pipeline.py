@@ -109,8 +109,9 @@ def test_analyze_study_single_volume(runs):
 
 def test_package_imports_no_jax():
     """Every module of ventjax_torch imports without loading jax, any module
-    of the ventjax package, or PIL (the machine with the card lacks all
-    three)."""
+    of the ventjax package, PIL or matplotlib (the machine with the card
+    lacks JAX and ventjax, and may lack the drawing libraries); importing
+    the package itself, which exports Vent_Analysis, loads none of them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ventjax_torch\n"
@@ -122,8 +123,15 @@ def test_package_imports_no_jax():
         "assert 'ventjax_torch._build' in names\n"
         "assert 'ventjax_torch.ops.ci' in names\n"
         "assert 'ventjax_torch.pipeline.cohort' in names\n"
-        "bad = sorted(m for m in sys.modules if m == 'PIL' or "
-        "m.startswith('PIL.'))\n"
+        "for n in ('compat.vent_analysis', 'compat.ci_module', "
+        "'report.screenshot', 'report.histogram', 'report.montage', "
+        "'report.parula', 'ops.morphology', 'ops.wavelet', "
+        "'ops.fft_recon', 'io.twix', 'oracle.ci_oracle'):\n"
+        "    assert 'ventjax_torch.' + n in names, n\n"
+        "assert ventjax_torch.Vent_Analysis.__module__ == "
+        "'ventjax_torch.compat.vent_analysis'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('PIL', 'matplotlib'))\n"
         "assert not bad, bad\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'jaxlib')\n"

@@ -325,10 +325,44 @@ def _imported_modules(path):
     return names
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py"] + sorted(
-    str(p.relative_to(REPO)) for p in (REPO / "ventjax_torch").rglob("*.py")))
+def _module_level_imports(path):
+    """Modules imported by the statements of the module body itself (not
+    inside a function or class)."""
+    names = []
+    for node in ast.parse(Path(path).read_text()).body:
+        for sub in ast.walk(node):
+            if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                ast.ClassDef)):
+                break
+            if isinstance(sub, ast.Import):
+                names += [a.name for a in sub.names]
+            elif isinstance(sub, ast.ImportFrom) and sub.level == 0:
+                names.append(sub.module)
+    return names
+
+
+_PORT_FILES = ["chip_smoke.py"] + sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "ventjax_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", _PORT_FILES)
 def test_no_import_of_ventjax(path):
+    """No import of jax or ventjax anywhere in the port, and none of PIL or
+    matplotlib at module level (the drawing functions import them)."""
     names = _imported_modules(REPO / path)
     bad = [n for n in names if n == "ventjax" or n.startswith("ventjax.")
            or n == "jax" or n.startswith("jax.")]
     assert not bad, bad
+    drawing = [n for n in _module_level_imports(REPO / path)
+               if n.split(".")[0] in ("PIL", "matplotlib")]
+    assert not drawing, drawing
+
+
+def test_import_guard_covers_the_facade_modules():
+    for path in ("compat/vent_analysis.py", "compat/ci_module.py",
+                 "report/screenshot.py", "report/histogram.py",
+                 "ops/morphology.py", "ops/fft_recon.py", "io/twix.py",
+                 "oracle/ci_oracle.py"):
+        assert f"ventjax_torch/{path}" in _PORT_FILES, path
+    # the checker sees the reference's module-level PIL import
+    assert "PIL" in _module_level_imports(REPO / "ventjax/report/screenshot.py")

@@ -12,10 +12,17 @@ it keeps its own copies of what it needs from there (``config``, ``io``,
 ``report.export`` and the geometry tables in ``ops/geometry.py``), so it
 runs where the JAX package is absent.
 
-Its command line is ``python -m ventjax_torch`` (``cohort``, ``serve``,
-``doctor``, ``info``), on the card unless ``--device cpu`` is given.
+The reference application's class, ``Vent_Analysis`` (with
+``extract_attributes``), is exported here as in ``ventjax.compat``; it runs
+on the card unless ``device="cpu"`` is given.  Its command line is
+``python -m ventjax_torch`` (``analyze``, ``export``, ``twix``,
+``cohort``, ``serve``, ``doctor``, ``info``), on the card unless
+``--device cpu`` is given.  Importing the package loads no PIL: the report
+modules import it inside the functions that draw.
 """
 from ventjax_torch.config import DEFAULT_CONFIG, VentConfig
 from ventjax_torch.config import VERSION as __version__
+from ventjax_torch.compat import Vent_Analysis, extract_attributes
 
-__all__ = ["DEFAULT_CONFIG", "VentConfig", "__version__"]
+__all__ = ["DEFAULT_CONFIG", "VentConfig", "Vent_Analysis",
+           "extract_attributes", "__version__"]

@@ -7,17 +7,28 @@ without a card it stops with an error (exit 2), never falling back to the
 CPU.
 
 Usage:
+  python -m ventjax_torch analyze --xenon X.dcm --mask MASKDIR
+      [--proton P.dcm] --out OUT [--irb mepo --id 0039 --visit 1
+      --treatment preAlb] [--user RPT] [--no-ci] [--device cuda|cpu]
+  python -m ventjax_torch export (--pickle S.pkl | --npz-in S.npz) --out OUT
+      [--recalculate]
+  python -m ventjax_torch twix --dat FILE.dat --out OUT
   python -m ventjax_torch cohort --manifest subjects.json --out OUT
       [--batch 16] [--device cuda|cpu]
   python -m ventjax_torch serve --inbox IN --out OUT [--interval 5] [--once]
   python -m ventjax_torch doctor [--full]
   python -m ventjax_torch info
 
+``analyze`` and ``export`` write the report PNG, which needs Pillow: where
+it is absent they stop before any analysis (exit 2) with a message that
+names it.
+
 Flags of the reference CLI that name features the port lacks are left out:
-``--no-mesh``, ``--shard-export``, ``--dense-export`` (the port has one
-device and the dense pack) and ``--no-compile-cache`` (no XLA cache).  The
-``analyze``, ``export``, ``twix``, ``train-seg`` and ``gui`` commands wait
-for their modules.
+``--auto-mask``, ``--seg-ckpt`` and ``--seg-base`` of ``analyze`` (the
+segmentation model is not ported), ``--shard-slices`` (slice-sharded CI
+needs ``dist/``), ``--no-mesh``, ``--shard-export``, ``--dense-export``
+(the port has one device and the dense pack) and ``--no-compile-cache`` (no
+XLA cache).  The ``train-seg`` and ``gui`` commands wait for their modules.
 """
 from __future__ import annotations
 
@@ -31,13 +42,255 @@ import sys
 
 def _device_or_error(args):
     """The device asked for, or None after an error message (no card)."""
-    from ventjax_torch.pipeline.cohort import _device
+    from ventjax_torch.utils.device import resolve_device
 
     try:
-        return _device(args.device)
+        return resolve_device(args.device)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return None
+
+
+def _pillow_or_error(what):
+    """True where Pillow imports; else an error message naming it."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        print(f"error: {what} writes a PNG report, which needs Pillow "
+              "(PIL), and Pillow is not installed", file=sys.stderr)
+        return False
+    return True
+
+
+def _jsonable(x):
+    try:
+        return float(x)
+    except (TypeError, ValueError):
+        return str(x)
+
+
+_SUMMARY_KEYS = ("SNR", "VDP", "VDP_lb", "VDP_km", "LungVolume",
+                 "DefectVolume", "CI")
+
+
+def _cmd_analyze(args) -> int:
+    from ventjax_torch.compat import Vent_Analysis
+    from ventjax_torch.config import DEFAULT_CONFIG, preset
+    from ventjax_torch.report.export import study_filename
+
+    device = _device_or_error(args)
+    if device is None or not _pillow_or_error("analyze"):
+        return 2
+    if args.deterministic:
+        from ventjax_torch.utils.profiling import enable_deterministic
+
+        enable_deterministic()
+
+    study = None
+    cfg = DEFAULT_CONFIG
+    if args.irb:
+        # Per-study schema: validates the treatment/visit arms against the
+        # reference GUI's columns and supplies the study's VentConfig.
+        study = preset(args.irb)
+        study.validate(treatment=args.treatment, visit=args.visit)
+        cfg = study.config
+
+    v = Vent_Analysis(
+        xenon_path=args.xenon, mask_path=args.mask, proton_path=args.proton,
+        config=cfg, device=device,
+    )
+    # Patient-info overrides: the GUI's edit buttons as flags.
+    for flag, key in (
+        (args.set_patient_name, "PatientName"),
+        (args.set_age, "PatientAge"),
+        (args.set_sex, "PatientSex"),
+        (args.set_dob, "PatientBirthDate"),
+        (args.set_study_date, "StudyDate"),
+        (args.set_study_time, "StudyTime"),
+        (args.disease, "Disease"),
+    ):
+        if flag is not None:
+            v.metadata[key] = flag
+    if args.mask_edit:
+        # The reference's "edit mask" roadmap item as a scriptable recipe,
+        # applied before any analysis.
+        try:
+            v.editMask(args.mask_edit)
+        except ValueError as e:
+            print(f"error: --mask-edit {e}", file=sys.stderr)
+            return 2
+    if args.denoise is not None:
+        # The reference's roadmap "Denoise Option", prototyped with Haar
+        # wavelets in its playground script.
+        import numpy as np
+        import torch
+
+        from ventjax_torch.ops.wavelet import denoise_volume
+
+        v.HPvent = denoise_volume(
+            torch.from_numpy(np.asarray(v.HPvent, np.float32)).to(device),
+            args.denoise).cpu().numpy()
+    v.calculate_VDP(thresh=args.thresh)
+    if not args.no_ci:
+        v.calculate_CI()
+    v.metadata["analysisUser"] = args.user
+    v.metadata["DE"] = args.de or ""
+    v.metadata["FEV1"] = args.fev1 or ""
+    v.metadata["FVC"] = args.fvc or ""
+    v.metadata["notes"] = args.notes or ""
+    if args.irb:
+        v.metadata["IRB"] = args.irb
+        v.metadata["treatment"] = args.treatment or "none"
+        v.metadata["visit"] = args.visit or ""
+        v.metadata[study.id_field] = args.id
+        file_name = study_filename(
+            args.irb, v.metadata,
+            genxe_id=args.id, mepo_id=args.id, clinical_id=args.id,
+            visit=args.visit, treatment=args.treatment,
+        )
+    else:
+        file_name = args.filename or str(v.metadata["PatientName"]).replace(
+            "^", "_")
+    v.metadata["fileName"] = file_name
+
+    os.makedirs(args.out, exist_ok=True)
+    v.exportNifti(args.out, file_name)
+    v.dicom_to_json(v.ds, os.path.join(args.out, f"{file_name}.json"))
+    v.pickleMe(os.path.join(args.out, f"{file_name}.pkl"))
+    if args.npz:
+        v.saveNpz(os.path.join(args.out, f"{file_name}.npz"))
+    v.screenShot(os.path.join(args.out, f"{file_name}.png"))
+    if args.histogram:
+        v.exportHistogram(os.path.join(args.out, f"{file_name}_hist.png"))
+    v.exportDICOM(v.ds, args.out, optional_text=file_name, forPACS=True,
+                  compress=args.compress_dicom)
+    if args.archive:
+        os.makedirs(args.archive, exist_ok=True)
+        v.pickleMe(os.path.join(args.archive, f"{file_name}.pkl"))
+
+    print(json.dumps({k: _jsonable(v.metadata[k]) for k in _SUMMARY_KEYS},
+                     indent=2))
+    return 0
+
+
+def _cmd_export(args) -> int:
+    """Regenerate report exports from a saved study artifact.
+
+    The reference GUI's 'Load Pickle' button followed by 'Export', as one
+    command over either checkpoint format (pickle or the versioned NPZ).
+    `--recalculate` reruns the analysis on the stored arrays first, so an
+    archived study can be re-analyzed (e.g. a new --thresh) without the
+    raw DICOMs.
+    """
+    import pickle
+
+    import numpy as np
+
+    from ventjax_torch.compat import Vent_Analysis
+    from ventjax_torch.report.export import ReferencePickleError
+
+    device = _device_or_error(args)
+    if device is None:
+        return 2
+    src = args.pickle or args.npz_in
+    try:
+        if args.pickle:
+            v = Vent_Analysis(pickle_path=args.pickle, device=device)
+        else:
+            v = Vent_Analysis(npz_path=args.npz_in, device=device)
+    except (ReferencePickleError, ValueError, OSError, EOFError,
+            pickle.UnpicklingError) as e:
+        # a missing, truncated or corrupt file is a user-input problem
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if not hasattr(v, "HPvent") or not hasattr(v, "mask"):
+        print(f"error: {src} holds no HPvent/mask arrays; nothing to export",
+              file=sys.stderr)
+        return 2
+    analyzed = not (isinstance(v.defectArray, str)
+                    or isinstance(v.N4HPvent, str))
+    if (analyzed or args.recalculate) and not _pillow_or_error("export"):
+        return 2
+    # Slim artifacts (cohort NPZs) carry only the analysis arrays; derived
+    # display state is recomputed, not required.
+    if not hasattr(v, "mask_border"):
+        v.mask_border = v.calculateBorder(np.asarray(v.mask))
+    if args.recalculate:
+        v.calculate_VDP(thresh=args.thresh)
+        if not args.no_ci:
+            v.calculate_CI()
+        analyzed = True
+
+    file_name = (args.filename or str(v.metadata.get("fileName") or "")
+                 or os.path.splitext(os.path.basename(src))[0])
+    os.makedirs(args.out, exist_ok=True)
+    written, skipped = [], []
+    written.append(v.exportNifti(args.out, file_name))
+    v.pickleMe(os.path.join(args.out, f"{file_name}.pkl"))
+    written.append(os.path.join(args.out, f"{file_name}.pkl"))
+    if args.npz:
+        written.append(v.saveNpz(os.path.join(args.out, f"{file_name}.npz")))
+    if not isinstance(v.ds, str):
+        jpath = os.path.join(args.out, f"{file_name}.json")
+        v.dicom_to_json(v.ds, jpath)
+        written.append(jpath)
+    else:
+        skipped.append("header JSON (artifact carries no DICOM dataset)")
+    if analyzed:
+        ppath = os.path.join(args.out, f"{file_name}.png")
+        v.screenShot(ppath)
+        written.append(ppath)
+        if args.histogram:
+            hpath = os.path.join(args.out, f"{file_name}_hist.png")
+            v.exportHistogram(hpath)
+            written.append(hpath)
+        if not isinstance(v.ds, str):
+            written.append(v.exportDICOM(
+                v.ds, args.out, optional_text=file_name, forPACS=True,
+                compress=args.compress_dicom))
+        else:
+            skipped.append("defect DICOMs (artifact carries no DICOM dataset)")
+    else:
+        skipped.append("screenshot + defect DICOMs (artifact not analyzed; "
+                       "use --recalculate)")
+    summary = {k: _jsonable(v.metadata.get(k, "")) for k in _SUMMARY_KEYS}
+    print(json.dumps({"written": written, "skipped": skipped,
+                      "metrics": summary}, indent=2))
+    return 0
+
+
+def _cmd_twix(args) -> int:
+    import numpy as np
+
+    from ventjax_torch.io.twix import read_twix
+    from ventjax_torch.ops.fft_recon import (
+        recon_2d_multislice, recon_2d_multislice_rss,
+    )
+
+    device = _device_or_error(args)
+    if device is None:
+        return 2
+    tw = read_twix(args.dat)
+    if tw.n_channels > 1:
+        k = tw.kspace_multicoil()
+        img = recon_2d_multislice_rss(k, device=device)
+        combine = "rss"
+    else:
+        k = tw.kspace()
+        img = recon_2d_multislice(k, device=device)
+        combine = "none"
+    os.makedirs(args.out, exist_ok=True)
+    np.save(os.path.join(args.out, "raw_HPvent.npy"), img)
+    print(json.dumps({
+        "protocol": tw.protocol_name,
+        "scan_datetime": tw.scan_datetime,
+        "header_params": tw.header_params,
+        "kspace_shape": list(k.shape),
+        "channels": tw.n_channels,
+        "coil_combine": combine,
+        "out": os.path.join(args.out, "raw_HPvent.npy"),
+    }))
+    return 0
 
 
 def _config(args):
@@ -286,6 +539,96 @@ def build_parser() -> argparse.ArgumentParser:
     introspect the subcommand surface without invoking anything)."""
     p = argparse.ArgumentParser(prog="ventjax_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    a = sub.add_parser("analyze", help="analyze one study and export reports")
+    a.add_argument("--xenon", required=True)
+    a.add_argument("--mask", required=True)
+    a.add_argument("--proton", default=None)
+    a.add_argument("--out", required=True)
+    a.add_argument("--thresh", type=float, default=0.6)
+    a.add_argument("--no-ci", action="store_true")
+    a.add_argument("--user", default="")
+    a.add_argument("--irb", choices=["genxe", "mepo", "clinical"], default=None)
+    a.add_argument("--id", default="0000")
+    a.add_argument("--visit", default=None)
+    a.add_argument("--treatment", default=None)
+    a.add_argument("--de", default=None)
+    a.add_argument("--fev1", default=None)
+    a.add_argument("--fvc", default=None)
+    a.add_argument("--notes", default=None)
+    a.add_argument("--disease", default=None,
+                   help="Disease metadata (GUI radio)")
+    a.add_argument("--set-patient-name", default=None,
+                   help="override PatientName (GUI edit button)")
+    a.add_argument("--set-age", default=None, help="override PatientAge")
+    a.add_argument("--set-sex", default=None, help="override PatientSex")
+    a.add_argument("--set-dob", default=None, help="override PatientBirthDate")
+    a.add_argument("--set-study-date", default=None, help="override StudyDate")
+    a.add_argument("--set-study-time", default=None, help="override StudyTime")
+    a.add_argument("--deterministic", action="store_true",
+                   help="TF32 off and deterministic cuDNN")
+    a.add_argument("--filename", default=None)
+    a.add_argument("--archive", default=None,
+                   help="optional second pickle copy (the GUI's archive box)")
+    a.add_argument("--max-defect", type=int, default=None,
+                   help="accepted for compatibility with the reference CLI "
+                   "and ignored: the CI pad is sized from each study's "
+                   "defect count")
+    a.add_argument("--histogram", action="store_true",
+                   help="also export the masked-signal histogram with the "
+                   "linear-binning edges ({file}_hist.png)")
+    a.add_argument("--mask-edit", default=None, metavar="RECIPE",
+                   help="morphology recipe applied to the mask before "
+                   "analysis, e.g. 'close:1,fillholes,erode:1' (ops: "
+                   "dilate/erode/open/close[:iters], fillholes)")
+    a.add_argument("--compress-dicom", action="store_true",
+                   help="write the defect-overlay DICOMs RLE Lossless "
+                   "compressed (PS3.5 Annex G) instead of Explicit VR LE")
+    a.add_argument("--npz", action="store_true",
+                   help="also export the versioned NPZ study artifact "
+                   "(pickle-free; loads anywhere NumPy exists)")
+    a.add_argument("--denoise", type=float, default=None, metavar="THRESH",
+                   help="Haar-wavelet denoise the xenon volume first")
+    _add_device(a)
+    a.set_defaults(fn=_cmd_analyze)
+
+    e = sub.add_parser(
+        "export",
+        help="regenerate report exports from a saved study artifact "
+        "(pickle or NPZ) — the GUI's Load-Pickle + Export workflow",
+    )
+    esrc = e.add_mutually_exclusive_group(required=True)
+    esrc.add_argument("--pickle", default=None, metavar="STUDY.pkl",
+                      help="study pickle (pickleMe / analyze output; the "
+                      "reference package's pickles load too)")
+    esrc.add_argument("--npz-in", default=None, metavar="STUDY.npz",
+                      help="versioned NPZ study artifact (saveNpz / "
+                      "analyze --npz / cohort --npz output)")
+    e.add_argument("--out", required=True)
+    e.add_argument("--filename", default=None,
+                   help="output basename (default: the artifact's stored "
+                   "fileName, else the input file's stem)")
+    e.add_argument("--recalculate", action="store_true",
+                   help="rerun VDP (+CI) on the stored arrays before "
+                   "exporting — re-analyze without the raw DICOMs")
+    e.add_argument("--thresh", type=float, default=0.6,
+                   help="mean-anchored defect threshold for --recalculate")
+    e.add_argument("--no-ci", action="store_true",
+                   help="skip CI during --recalculate")
+    e.add_argument("--histogram", action="store_true",
+                   help="also export the masked-signal histogram")
+    e.add_argument("--compress-dicom", action="store_true",
+                   help="RLE Lossless defect-overlay DICOMs")
+    e.add_argument("--npz", action="store_true",
+                   help="also (re)write the versioned NPZ artifact")
+    _add_device(e)
+    e.set_defaults(fn=_cmd_export)
+
+    t = sub.add_parser("twix", help="reconstruct a Siemens twix .dat")
+    t.add_argument("--dat", required=True)
+    t.add_argument("--out", required=True)
+    _add_device(t)
+    t.set_defaults(fn=_cmd_twix)
 
     c = sub.add_parser("cohort", help="batched cohort run from a manifest")
     c.add_argument("--manifest", required=True)

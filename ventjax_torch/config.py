@@ -5,8 +5,12 @@ meaning as the reference package's, so one study analysed by either package
 with the default configuration runs the same algorithm.  Every field is
 immutable, so a config is hashable and can key a cache (``make_analyze_fn``).
 Fields that steer only the reference package (``n4_use_pallas``,
-``ci_shard_slices``, ``compute_dtype``) are kept so that the two configs
-stay field for field alike; the port does not read them.
+``compute_dtype``) are kept so that the two configs stay field for field
+alike; the port does not read them, and refuses ``ci_shard_slices > 1``
+(sharding waits for a port of ``dist/``).
+
+``StudyPreset`` and ``STUDY_PRESETS`` are the per-study schemas of the
+reference GUI (GenXe, Mepo, Clinical), read by ``analyze --irb``.
 """
 from __future__ import annotations
 
@@ -14,6 +18,9 @@ import dataclasses
 from typing import Optional, Tuple
 
 VERSION = "0.1.0"
+# Version string of the reference pipeline this build tracks for parity
+# (the reference class sets self.version = '241007_vent').
+REFERENCE_VERSION = "241007_vent"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +75,7 @@ class VentConfig:
     # CI engine: "pairwise", "ladder" or "full" (all exact).
     ci_engine: str = "pairwise"
     # Slice-axis sharding of the CI map over several devices (reference
-    # package only).
+    # package only; the port's ci_module refuses more than 1).
     ci_shard_slices: int = 0
 
     # ---- N4 bias-field correction (ITK defaults) ----------------------------
@@ -105,3 +112,81 @@ class VentConfig:
 
 
 DEFAULT_CONFIG = VentConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class StudyPreset:
+    """One IRB study type: the reference GUI's GenXe / Mepo / Clinical
+    columns as data.
+
+    Carries the per-study metadata schema (which ID key the study uses,
+    which treatment arms are valid, which extra metadata fields the GUI
+    collected) plus the scientific VentConfig.  The CLI uses this to
+    validate --treatment/--visit against the study's arms and to stamp
+    study provenance into exported metadata; the filename grammar
+    (``ventjax_torch.report.export.study_filename``) consumes the same
+    ``irb`` key.
+    """
+
+    irb: str                      # grammar key ('genxe'|'mepo'|'clinical')
+    id_field: str                 # metadata key for the subject ID
+    id_label: str                 # GUI label (provenance)
+    treatments: Tuple[str, ...]   # valid treatment/timepoint arms
+    visits: Tuple[str, ...]       # valid visit choices ('' = free-form #)
+    extra_fields: Tuple[str, ...]  # additional per-study metadata keys
+    config: VentConfig = DEFAULT_CONFIG
+
+    def validate(self, treatment: str = None, visit: str = None) -> None:
+        if treatment and self.treatments and treatment not in self.treatments:
+            raise ValueError(
+                f"{self.irb}: treatment {treatment!r} not in "
+                f"{self.treatments}"
+            )
+        if visit and self.visits and visit not in self.visits:
+            raise ValueError(
+                f"{self.irb}: visit {visit!r} not in {self.visits}"
+            )
+
+
+# Study schemas of the reference GUI's columns and its export filename
+# grammar.
+STUDY_PRESETS = {
+    "genxe": StudyPreset(
+        irb="genxe",
+        id_field="genxe_id",
+        id_label="General Xenon ID",
+        # the metadata['treatment'] values the GUI sets
+        treatments=("preAlbuterol", "postAlbuterol",
+                    "preSildenafil", "postSildenafil"),
+        visits=(),
+        extra_fields=("Disease",),  # Healthy/Asthma/CF/COPD/Other radio
+    ),
+    "mepo": StudyPreset(
+        irb="mepo",
+        id_field="mepo_id",
+        id_label="Mepo ID",
+        treatments=("preAlb", "postAlb"),
+        visits=("1", "2", "3"),     # Baseline / 4-week / 12-week radios
+        extra_fields=("mepo_subject_number",),
+    ),
+    "clinical": StudyPreset(
+        irb="clinical",
+        id_field="clinical_id",
+        id_label="Clinical Subject Initials",
+        # metadata['treatment'] is 'none' or 'Albuterol' in the reference;
+        # the filename grammar keys off 'Albuterol' vs anything else
+        # ('baseline').
+        treatments=("baseline", "Albuterol"),
+        visits=(),                  # free-form visit number
+        extra_fields=(),
+    ),
+}
+
+
+def preset(name: str) -> StudyPreset:
+    try:
+        return STUDY_PRESETS[name.lower()]
+    except KeyError:
+        raise KeyError(
+            f"unknown study preset {name!r}; available: {sorted(STUDY_PRESETS)}"
+        ) from None

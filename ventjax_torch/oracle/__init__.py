@@ -1,6 +1,6 @@
 """CPU oracle: NumPy/SciPy re-statements of the reference formulas.
 
-The port's copy of ``ventjax/oracle`` (less the CI oracle): the same names
+The port's copy of ``ventjax/oracle``: the same names
 and arithmetic, held bit-equal to the original by a CPU test.  These
 functions replicate the behaviour of the reference application, quirks
 included, and are the ground truth of the doctor's pipeline self-test.
@@ -16,6 +16,10 @@ from ventjax_torch.oracle.reference import (
     vdp_kmeans,
     build_4d_array,
 )
+from ventjax_torch.oracle.ci_oracle import (
+    sphere_pixels,
+    calculate_ci_oracle,
+)
 from ventjax_torch.oracle.n4_oracle import n4_bias_correction_oracle
 
 __all__ = [
@@ -27,5 +31,7 @@ __all__ = [
     "vdp_linear_binning",
     "vdp_kmeans",
     "build_4d_array",
+    "sphere_pixels",
+    "calculate_ci_oracle",
     "n4_bias_correction_oracle",
 ]

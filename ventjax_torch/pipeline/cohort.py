@@ -50,6 +50,7 @@ from ventjax_torch.ops.ci_pairwise import CIPairwiseGeometry
 from ventjax_torch.pipeline.analyze import analyze_cohort, build_geometry
 from ventjax_torch.pipeline.result import StudyMetrics
 from ventjax_torch.report import export as rexport
+from ventjax_torch.utils.device import resolve_device
 
 log = logging.getLogger("ventjax_torch.cohort")
 
@@ -142,21 +143,6 @@ def _decode_subject(entry: Dict) -> Tuple[Optional[np.ndarray], ...]:
         return None, None, None, None, None
 
 
-def _device(device) -> torch.device:
-    """The torch device a run asked for; a CUDA device without a card
-    raises, so nothing falls back to the CPU silently."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"run_cohort: device {device!r} asked for, but no CUDA card "
-                f"is available (torch.cuda.is_available() is False); pass "
-                f"device=\"cpu\" to run on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
 def _pow2_at_least(n: int, floor: int = 256) -> int:
     return max(floor, 1 << int(np.ceil(np.log2(max(n, 1)))))
 
@@ -214,7 +200,7 @@ class _GeometryRunner:
         self.vox = tuple(vox)
         self.config = config
         self.bs = batch_size
-        self.device = _device(device)
+        self.device = resolve_device(device)
         # adaptive_pad (the serving path): pad a partial batch to the next
         # power of two >= its size (at most bs) instead of to bs, so a
         # single subject moves 1 lane, not bs zero lanes.  Offline cohort
@@ -381,7 +367,7 @@ def run_cohort(
     ``adaptive_pad`` pads a partial batch to the
     next power of two instead of to batch_size.
     """
-    device = _device(device)
+    device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     todo: List[Dict] = []
     results: List[Dict] = []

@@ -54,7 +54,8 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from ventjax_torch.config import DEFAULT_CONFIG, VentConfig
-from ventjax_torch.pipeline.cohort import _device, run_cohort
+from ventjax_torch.pipeline.cohort import run_cohort
+from ventjax_torch.utils.device import resolve_device
 
 log = logging.getLogger("ventjax_torch.serve")
 
@@ -193,7 +194,7 @@ class WatchService:
         export_npz: bool = False,
         device="cuda",
     ):
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self.inbox = inbox
         self.out_dir = out_dir
         self.config = config

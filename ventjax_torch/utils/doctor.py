@@ -48,9 +48,9 @@ def _check(name: str, required: bool, fn: Callable[[], Dict]) -> Dict:
 
 def _dev(device):
     """The device asked for; a CUDA device without a card raises."""
-    from ventjax_torch.pipeline.cohort import _device
+    from ventjax_torch.utils.device import resolve_device
 
-    return _device(device)
+    return resolve_device(device)
 
 
 def _versions() -> Dict:
