@@ -75,6 +75,28 @@ Phases, in order; any failure raises and the script exits non-zero:
       so that the facade retried at tail_k = pad, is logged), and its
       defect arrays (mean-anchored, LB, KM) and CI map equal to
       analyze_study's on the same arrays, its VDPs within 0.1 pp;
+   h. the segmentation model: the shipped checkpoint
+      (ventjax_torch/models/seg_ckpt.npz) loaded on the card equal to its
+      CPU load; predict_mask on the 24 held-out make_random_phantom seeds
+      10,000-10,023 (random shapes): every Dice >= 0.9 and the mean >=
+      0.93, each card mask equal to the port's CPU mask except where the
+      CPU |logit| < 1e-3 (counted and logged), a second prediction
+      bit-identical; out-of-family Dice on 24 make_oof_phantom seeds
+      logged; mask_qc passing a healthy prediction and flagging the
+      prediction on a pure-noise proton and four bad masks; the analyze
+      --auto-mask command on a written make_phantom(seed=77) study (the
+      counted run: K1, K2, K4, K5 and K3 launched) within 2.0 pp VDP and
+      12 % lung volume of the hand-mask run, reporting automask_suspect;
+      train-seg --steps 5 and analyze --auto-mask on its checkpoint (exit
+      0, or exit 2 naming an empty mask: five steps from flax's init may
+      predict no lung); 20
+      train steps at train-seg's defaults (base 16, 8 x 16 slices of 128 x
+      128, lr 1e-3, seed 0) with a finite, falling loss; one step on the
+      card and on the CPU on the same batch from flax's init (seed 0) and
+      from the shipped parameters: the losses within 1e-5 relative, the
+      gradients within 1e-4 of max |g|, and from the init the parameters
+      within 1e-5 absolute (from the converged checkpoint Adam's first step
+      magnifies gradient differences near its eps: logged);
    then the doctor: run_doctor(full=True) on the card, every required
    check passed and kernel_build naming the four libraries;
 5. timing (information only): the slice's volumes/s, the N4 and CI stages
@@ -89,7 +111,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    call, K8 beside the scatter it replaces and the K9 + K8 pair); the fit
    chain's iterations, the cohort's subjects/s, the service's subjects/s
    and one warm arrival's seconds from scan start to its .done; path g's
-   calculate_VDP and calculate_CI per study by the host clock;
+   calculate_VDP and calculate_CI per study by the host clock; path h's
+   predict_mask per 128x128x16 study, train step and analyze --auto-mask
+   by the host clock;
 6. with --parent DIR: DIR/n4_fit.cu, DIR/n4_sharpen.cu, DIR/ci_head.cu and
    DIR/ci_densify.cu (an older version of those sources, with the same C
    interfaces) built under their own names and timed against this tree in
@@ -104,8 +128,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. one slice batch under torch.profiler: its device kernels, device time
    and busy share, the rows of K1, K2, K3, K4 and K5 (the table goes to
    chiprun_out/profile_slice.txt);
-8. one JSON line of kernel records (``launches_path_g``: each kernel's
-   launches in path g), then the result line
+8. one JSON line of kernel records (``launches_path_g`` and
+   ``launches_path_h``: each kernel's launches in path g and in path h's
+   analyze --auto-mask), then the result line
    {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the ventjax package.
@@ -1398,6 +1423,238 @@ def check_facade_kernels(f, dev):
     return pad, retried, errs
 
 
+# ---------------------------------------------------------------------------
+# Path h: the segmentation model
+# ---------------------------------------------------------------------------
+
+SEG_HELDOUT = range(10_000, 10_024)   # tests/test_automask.py's seeds
+SEG_OOF = range(24)
+SEG_NEAR = 1e-3         # card and CPU masks may differ where |logit| < this
+SEG_TRAIN_STEPS = 20
+SEG_BATCH = 8           # train-seg's defaults: 8 x 16 slices of 128 x 128
+SEG_STEP_ATOL = 1e-5    # parameters after one step, as the CPU tests hold
+
+
+def dice(pred, true):
+    return 2 * float((pred * true).sum()) / max(float(pred.sum()
+                                                      + true.sum()), 1.0)
+
+
+def seg_heldout(card, cpu, checks):
+    """Held-out Dice on the card, each card mask against the port's CPU
+    mask (voxels with a CPU |logit| < SEG_NEAR excepted and counted), and a
+    repeat bit-identical.  Returns the Dice scores."""
+    from ventjax_torch.io.phantom import make_random_phantom
+    from ventjax_torch.models import segmentation as seg
+
+    scores, near, near_differ, far_differ, repeat = [], 0, 0, 0, True
+    for s in SEG_HELDOUT:
+        ph = make_random_phantom(s)                  # random H, W and D too
+        got = seg.predict_mask(card.model, ph.proton)
+        repeat &= torch.equal(got, seg.predict_mask(card.model, ph.proton))
+        logits = seg.predict_logits(cpu.model, ph.proton)
+        differ = got.cpu() != (torch.sigmoid(logits) > 0.5).float()
+        small = logits.abs() < SEG_NEAR
+        near += int(small.sum())
+        near_differ += int((differ & small).sum())
+        far_differ += int((differ & ~small).sum())
+        scores.append(dice(got.cpu().numpy(), ph.mask))
+    log(f"segmentation: held-out Dice min {min(scores):.4f} mean "
+        f"{statistics.mean(scores):.4f} over {len(scores)} studies; card vs "
+        f"CPU masks: {far_differ} voxels differ where |logit| >= {SEG_NEAR}, "
+        f"{near_differ} of the {near} voxels with |logit| < {SEG_NEAR}")
+    checks["heldout_dice_each_ge_0.9"] = min(scores) >= 0.9
+    checks["heldout_dice_mean_ge_0.93"] = statistics.mean(scores) >= 0.93
+    checks["card_mask_equals_cpu"] = far_differ == 0
+    checks["repeat_bit_identical"] = repeat
+    return scores
+
+
+def seg_qc(card, checks):
+    """mask_qc passes a healthy prediction and flags the prediction on a
+    pure-noise proton and tests/test_automask.py's four bad masks."""
+    from ventjax_torch.io.phantom import make_random_phantom
+    from ventjax_torch.models import segmentation as seg
+
+    vox = VOX
+    ph = make_random_phantom(10_050, shape=SHAPE)
+    healthy = seg.mask_qc(seg.predict_mask(card.model, ph.proton), ph.vox)
+    gen = np.random.default_rng(5)
+    noise = gen.normal(500.0, 200.0, SHAPE).astype(np.float32)
+    bad = {"noise_prediction": seg.predict_mask(card.model, noise),
+           "speckle": (gen.random(SHAPE) < 0.05).astype(np.float32),
+           "empty": np.zeros(SHAPE, np.float32)}
+    bad["one_sided"] = np.zeros(SHAPE, np.float32)
+    bad["one_sided"][30:90, 8:40, 4:12] = 1.0
+    bad["clipped"] = np.zeros(SHAPE, np.float32)
+    bad["clipped"][:, :30, :] = 1.0
+    checks["qc_healthy_passes"] = not healthy["suspect"]
+    for name, m in bad.items():
+        checks[f"qc_flags_{name}"] = seg.mask_qc(m, vox)["suspect"]
+
+
+def seg_train(dev, checks, times):
+    """SEG_TRAIN_STEPS steps at train-seg's defaults on the card, the loss
+    finite and falling; then one step on the card and on the CPU on the
+    same batch, from the init and from the shipped parameters."""
+    from ventjax_torch.io.phantom import make_random_cohort
+    from ventjax_torch.models import segmentation as seg
+
+    state = seg.create_train_state(torch.Generator().manual_seed(SEED),
+                                   shape=SHAPE[:2], base=16,
+                                   learning_rate=1e-3, device=dev)
+    losses, step_ms = [], []
+    for i in range(SEG_TRAIN_STEPS):
+        _, mask, proton = make_random_cohort(
+            SEG_BATCH, shape=SHAPE, seed=SEED + 1 + i * SEG_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(seg.train_step(state, proton, mask)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    times["train_step_ms"] = round(statistics.median(step_ms[1:]), 3)
+    log(f"segmentation: {SEG_TRAIN_STEPS} train steps of {SEG_BATCH} x "
+        f"{SHAPE[2]} slices, losses {[round(x, 4) for x in losses]}; step "
+        f"ms (host clock, batch upload included) {times['train_step_ms']} "
+        f"median, first {step_ms[0]:.1f}")
+    checks["train_losses_finite"] = all(np.isfinite(losses))
+    checks["train_loss_falls"] = losses[-1] < losses[0]
+
+    # one step on the card and on the CPU on the same batch, from the same
+    # parameters: flax's init (seed 0, the 20 steps' start), and the
+    # shipped checkpoint, a converged model whose gradients are near Adam's
+    # eps, where its first step lr * g / (|g| + eps) turns float32 gradient
+    # differences into parameter differences up to ~lr: there the
+    # gradients are held, as the CPU tests hold them to ventjax's
+    _, mask, proton = make_random_cohort(SEG_BATCH, shape=SHAPE, seed=SEED)
+    start = {"init": lambda d: seg.create_train_state(
+        torch.Generator().manual_seed(SEED), shape=SHAPE[:2], base=16,
+        learning_rate=1e-3, device=d)}
+    start["shipped"] = lambda d: seg.load_checkpoint(
+        seg.default_checkpoint_path(), device=d)
+    for name, make in start.items():
+        states = [make(dev), make("cpu")]
+        for st in states:
+            st.optimizer = seg._adam(st.model, 1e-3)
+        loss = [float(seg.train_step(st, proton, mask)) for st in states]
+        named = [dict(st.model.named_parameters()) for st in states]
+        gmax = max(float(p.grad.abs().max()) for p in named[1].values())
+        gerr = max(float((p.grad.cpu() - named[1][k].grad).abs().max())
+                   for k, p in named[0].items()) / gmax
+        perr = max(float((p.detach().cpu() - named[1][k].detach()).abs().max())
+                   for k, p in named[0].items())
+        lerr = abs(loss[0] - loss[1]) / abs(loss[1])
+        log(f"segmentation: one step from the {name} parameters, card vs "
+            f"CPU: loss {loss[0]:.7f} / {loss[1]:.7f} (relative "
+            f"{lerr:.3e}), gradients max |d| {gerr:.3e} of max |g| "
+            f"{gmax:.3e}, parameters after the step max |d| {perr:.3e}")
+        checks[f"train_step_{name}_loss_equals_cpu"] = lerr <= 1e-5
+        checks[f"train_step_{name}_grads_equal_cpu"] = gerr <= 1e-4
+        if name == "init":
+            checks["train_step_init_params_equal_cpu"] = perr <= SEG_STEP_ATOL
+    return losses
+
+
+def seg_cli(root, checks, times):
+    """analyze --auto-mask on the card against the hand-mask run of the
+    same study, its launches counted; then train-seg --steps 5 and analyze
+    on that checkpoint.  Returns the counted run's launches."""
+    import os
+
+    from ventjax_torch.io.phantom import make_phantom
+    from ventjax_torch.io.synthetic import write_study
+
+    sdir = os.path.join(root, "seg_study")
+    write_study(sdir, phantom=make_phantom(shape=SHAPE, vox=VOX, seed=77))
+    base = ["analyze", "--xenon", f"{sdir}/xenon.dcm"]
+    rc, so, se = run_cli(base + ["--mask", f"{sdir}/mask", "--out",
+                                 os.path.join(root, "seg_hand")])
+    hand = json.loads(so) if rc == 0 else {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, so, se = run_cli(base + ["--proton", f"{sdir}/proton.dcm",
+                                 "--auto-mask", "--out",
+                                 os.path.join(root, "seg_auto")])
+    torch.cuda.synchronize()
+    times["analyze_auto_mask_s"] = round(time.perf_counter() - t0, 3)
+    launches = launch_counts()
+    auto = json.loads(so) if rc == 0 else {}
+    log(f"segmentation: analyze --auto-mask rc {rc} in "
+        f"{times['analyze_auto_mask_s']} s: {json.dumps(auto)}; hand mask: "
+        f"VDP {hand.get('VDP')} LungVolume {hand.get('LungVolume')}; "
+        f"launches {json.dumps(launches)}{se and '; stderr: ' + se[-500:]}")
+    checks["cli_auto_mask"] = rc == 0 and "automask_suspect" in auto \
+        and bool(hand)
+    if checks["cli_auto_mask"]:
+        checks["auto_vdp_within_2pp"] = abs(auto["VDP"] - hand["VDP"]) < 2.0
+        checks["auto_lung_volume_within_12pct"] = abs(
+            auto["LungVolume"] - hand["LungVolume"]) \
+            / hand["LungVolume"] < 0.12
+    checks["auto_mask_kernels_launched"] = all(
+        launches[k] > 0 for k in ("fit_moment", "fit_delta_conv_field",
+                                  "sharpen_hist", "sharpen_resid",
+                                  "head_counts"))
+
+    ck = os.path.join(root, "seg_trained")
+    rc, so, se = run_cli(["train-seg", "--steps", "5", "--out", ck])
+    report = json.loads(so.splitlines()[-1]) if rc == 0 else {}
+    checks["cli_train_seg"] = rc == 0 and os.path.isfile(
+        report.get("checkpoint", ""))
+    rc, so, se = run_cli(base + ["--proton", f"{sdir}/proton.dcm",
+                                 "--auto-mask", "--seg-ckpt",
+                                 report.get("checkpoint", ck), "--no-ci",
+                                 "--out", os.path.join(root, "seg_own")])
+    # five steps from flax's init may predict no lung at all; the command
+    # then reads the checkpoint, predicts, and stops naming the empty mask
+    checks["cli_analyze_trained_checkpoint"] = (
+        rc == 0 and "automask_suspect" in json.loads(so)) or (
+        rc == 2 and "predicted an empty lung mask" in se)
+    log(f"segmentation: train-seg --steps 5 -> {json.dumps(report)}; "
+        f"analyze on it rc {rc}{se and ': ' + se.strip()[-300:]}")
+    return launches
+
+
+def phase_segmentation(dev, card):
+    """Path h: the segmentation model on the card (see the module
+    docstring).  Returns the launches of analyze --auto-mask and the
+    host-clock timings."""
+    import tempfile
+
+    from ventjax_torch.io.phantom import make_random_phantom
+    from ventjax_torch.io.phantom_oof import make_oof_phantom
+    from ventjax_torch.models import segmentation as seg
+
+    t_path = time.perf_counter()
+    checks, times = {}, {}
+    path = seg.default_checkpoint_path()
+    on_card = seg.load_checkpoint(path, device=dev)
+    on_cpu = seg.load_checkpoint(path, device="cpu")
+    checks["checkpoint_equals_cpu_load"] = on_card.step == on_cpu.step \
+        == 800 and all(torch.equal(p.cpu(), on_cpu.params[k])
+                       for k, p in on_card.params.items())
+    scores = seg_heldout(on_card, on_cpu, checks)
+    oof = [dice(seg.predict_mask(on_card.model, p).cpu().numpy(), m)
+           for p, m, _ in (make_oof_phantom(s) for s in SEG_OOF)]
+    log(f"segmentation: out-of-family Dice (information) min {min(oof):.4f} "
+        f"mean {statistics.mean(oof):.4f} over {len(oof)} studies")
+    seg_qc(on_card, checks)
+    proton = torch.from_numpy(make_random_phantom(
+        10_000, shape=SHAPE).proton).to(dev)
+    times["predict_mask_ms"] = round(host_ms(
+        lambda: seg.predict_mask(on_card.model, proton), reps=20)[0], 3)
+    with tempfile.TemporaryDirectory() as root:
+        launches = seg_cli(root, checks, times)
+    seg_train(dev, checks, times)
+    checks = {k: bool(x) for k, x in checks.items()}
+    log(f"segmentation checks: {json.dumps(checks)}")
+    if not all(checks.values()):
+        raise AssertionError(f"the segmentation path failed: {checks}")
+    times["path_s"] = round(time.perf_counter() - t_path, 1)
+    log(f"time segmentation (host clock; {card}): {json.dumps(times)}; "
+        f"held-out Dice mean {statistics.mean(scores):.4f}")
+    return launches, times
+
+
 def phase_doctor():
     """The deployment self-check on the card: every required check passed
     and kernel_build naming the four libraries."""
@@ -2082,6 +2339,7 @@ def main():
     facade_launches, _, facade_err = phase_facade(dev)
     for k, e in facade_err.items():
         max_err[k] = max(max_err[k], e)
+    seg_launches, _ = phase_segmentation(dev, card)
     phase_doctor()
     med, rec = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
                             dev)
@@ -2100,6 +2358,7 @@ def main():
                 "launches": launches[k],
                 "launches_per_batch": per_batch[k],
                 "launches_path_g": facade_launches[k],
+                "launches_path_h": seg_launches[k],
                 "max_abs_err": max_err[k], **rec[k]}
                for k, (s, r) in KERNELS.items()]
     bad = sorted(m for m in sys.modules

@@ -113,12 +113,18 @@ def test_cli_commands_and_left_out_flags():
     sub = next(a for a in build_parser()._actions
                if a.dest == "cmd")
     assert sorted(sub.choices) == ["analyze", "cohort", "doctor", "export",
-                                   "info", "serve", "twix"]
+                                   "info", "serve", "train-seg", "twix"]
     analyze = ["analyze", "--xenon", "x", "--mask", "m", "--out", "o"]
-    for argv in (analyze + ["--auto-mask"],
-                 analyze + ["--seg-ckpt", "c"],
-                 analyze + ["--seg-base", "16"],
-                 analyze + ["--shard-slices", "2"],
+    auto = build_parser().parse_args(
+        ["analyze", "--xenon", "x", "--proton", "p", "--out", "o",
+         "--auto-mask", "--seg-ckpt", "c", "--seg-base", "8"])
+    assert auto.mask is None and auto.auto_mask
+    assert (auto.seg_ckpt, auto.seg_base) == ("c", 8)
+    ts = build_parser().parse_args(["train-seg", "--out", "o"])
+    assert (ts.steps, ts.batch, tuple(ts.shape), ts.base, ts.seed, ts.lr,
+            ts.params_only, ts.plain_phantoms, ts.device) == (
+        200, 8, (128, 128, 16), 16, 0, 1e-3, False, False, "cuda")
+    for argv in (analyze + ["--shard-slices", "2"],
                  ["cohort", "--manifest", "m", "--out", "o", "--no-mesh"],
                  ["cohort", "--manifest", "m", "--out", "o",
                   "--dense-export"],
@@ -199,3 +205,138 @@ def test_cohort_summary_stats_match_numpy():
     assert m["p95"] == pytest.approx(np.percentile(vdps, 95))
     ci = cohort_summary(SUMMARY_CASES["nan_ci"])["metrics"]["CI"]
     assert ci["n"] == 1 and ci["nan"] == 1 and math.isfinite(ci["std"])
+
+
+# ------------------------------------------------- segmentation: --auto-mask
+
+@pytest.fixture(scope="module")
+def seg_study(tmp_path_factory):
+    """make_phantom(seed=77) at 128x128x16, written as a study (the
+    fixed-generator phantom plants defects; its proton contrast lies in
+    the randomized training family), and its hand-mask analysis."""
+    from ventjax_torch.io.phantom import make_phantom
+
+    root = tmp_path_factory.mktemp("seg_study")
+    write_study(str(root), phantom=make_phantom(
+        shape=(128, 128, 16), vox=(1.5, 1.5, 10.0), seed=77))
+    return str(root)
+
+
+def _analyze(capsys, root, out, extra):
+    rc = main(["analyze", "--xenon", f"{root}/xenon.dcm", "--out", out,
+               "--no-ci", "--device", "cpu"] + extra)
+    captured = capsys.readouterr()
+    return rc, (json.loads(captured.out) if rc == 0 else None), captured.err
+
+
+def test_cli_auto_mask_close_to_hand_mask(seg_study, tmp_path, capsys):
+    """analyze --auto-mask on the CPU: within 2.0 pp of the hand-mask VDP
+    and 12 % of its lung volume (tests/test_automask.py's bounds), the QC
+    verdict reported, and the mask analysed equal to ventjax's
+    predict_mask on the same proton DICOM."""
+    pytest.importorskip("PIL")
+    from ventjax.io.dicom import open_single_dicom
+    from ventjax.models.segmentation import (
+        SegUNet, default_checkpoint_path, load_checkpoint, predict_mask,
+    )
+    from ventjax_torch.report.export import load_npz
+
+    rc, hand, _ = _analyze(capsys, seg_study, str(tmp_path / "hand"),
+                           ["--mask", f"{seg_study}/mask"])
+    assert rc == 0 and "automask_suspect" not in hand
+    rc, auto, _ = _analyze(capsys, seg_study, str(tmp_path / "auto"),
+                           ["--proton", f"{seg_study}/proton.dcm",
+                            "--auto-mask", "--npz", "--filename", "a"])
+    assert rc == 0
+    assert abs(hand["VDP"] - auto["VDP"]) < 2.0, (hand["VDP"], auto["VDP"])
+    assert abs(hand["LungVolume"] - auto["LungVolume"]) \
+        / hand["LungVolume"] < 0.12
+    assert auto["automask_suspect"] is False and auto["automask_qc"] == ""
+    _, proton = open_single_dicom(f"{seg_study}/proton.dcm")
+    want = np.asarray(predict_mask(
+        SegUNet(base=16), load_checkpoint(default_checkpoint_path()).params,
+        proton.astype(np.float32)))
+    got = load_npz(str(tmp_path / "auto" / "a.npz"))["mask"]
+    assert np.array_equal(np.asarray(got, np.float32), want)
+
+
+def test_cli_auto_mask_argument_errors(seg_study, tmp_path, capsys):
+    """ventjax's wording and exit 2: no mask source, --auto-mask without
+    --proton; an orbax directory as --seg-ckpt names the converter; a
+    --seg-base the checkpoint was not trained at stops the run."""
+    from ventjax_torch.models.segmentation import default_checkpoint_path
+
+    out = tmp_path / "out"
+    cases = [
+        ([], "provide --mask FOLDER or --auto-mask (with --seg-ckpt)"),
+        (["--auto-mask"], "--auto-mask needs --proton"),
+        (["--proton", f"{seg_study}/proton.dcm", "--auto-mask",
+          "--seg-ckpt", os.path.join(os.path.dirname(os.path.dirname(
+              os.path.abspath(__file__))), "ventjax", "models", "seg_ckpt")],
+         "convert_seg_ckpt.py"),
+        (["--proton", f"{seg_study}/proton.dcm", "--auto-mask",
+          "--seg-ckpt", str(tmp_path / "absent.npz")],
+         "--auto-mask needs --seg-ckpt"),
+        (["--proton", f"{seg_study}/proton.dcm", "--auto-mask",
+          "--seg-ckpt", default_checkpoint_path(), "--seg-base", "8"],
+         "--seg-base 8 does not match"),
+    ]
+    for extra, message in cases:
+        rc, _, err = _analyze(capsys, seg_study, str(out), extra)
+        assert rc == 2 and message in err, (extra, err)
+    assert not out.exists()
+
+
+def test_cli_train_seg_then_auto_mask(seg_study, tmp_path, capsys):
+    """train-seg on the CPU writes the port's checkpoint; analyze
+    --seg-ckpt reads it at its width."""
+    pytest.importorskip("PIL")
+    ck = tmp_path / "ck"
+    rc = main(["train-seg", "--device", "cpu", "--steps", "2", "--batch",
+               "2", "--shape", "32", "32", "4", "--base", "4", "--out",
+               str(ck)])
+    lines = capsys.readouterr().out.splitlines()
+    assert rc == 0 and lines[0].startswith("step 1/2: loss ")
+    report = json.loads(lines[-1])
+    assert report["checkpoint"] == str(ck / "seg_ckpt.npz")
+    assert report["steps"] == 2 and math.isfinite(report["final_loss"])
+    with np.load(report["checkpoint"]) as z:
+        assert int(z["step"]) == 2 and int(z["opt_state/count"]) == 2
+    rc, got, err = _analyze(capsys, seg_study, str(tmp_path / "auto"),
+                            ["--proton", f"{seg_study}/proton.dcm",
+                             "--auto-mask", "--seg-ckpt", str(ck),
+                             "--seg-base", "4"])
+    assert rc == 0, err
+    assert isinstance(got["automask_suspect"], bool)
+    assert isinstance(got["automask_qc"], str)
+
+
+def test_cli_empty_auto_mask_stops(seg_study, tmp_path, capsys):
+    """A checkpoint that predicts no lung: exit 2 before any analysis or
+    export (where the reference package fails in its report's crop)."""
+    from ventjax_torch.models import segmentation as tseg
+
+    state = tseg.create_train_state(torch.Generator().manual_seed(0),
+                                    shape=(32, 32), base=4, device="cpu")
+    with torch.no_grad():
+        state.model.head.bias.fill_(-100.0)
+    ck = tseg.save_checkpoint(str(tmp_path / "empty.npz"), state)
+    out = tmp_path / "out"
+    rc, _, err = _analyze(capsys, seg_study, str(out),
+                          ["--proton", f"{seg_study}/proton.dcm",
+                           "--auto-mask", "--seg-ckpt", ck, "--seg-base",
+                           "4"])
+    assert rc == 2 and "predicted an empty lung mask" in err
+    assert not out.exists()
+
+
+def test_cli_segmentation_without_a_card_stops(seg_study, tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    rc = main(["train-seg", "--steps", "1", "--out", str(tmp_path / "ck")])
+    assert rc == 2 and "no CUDA card" in capsys.readouterr().err
+    rc = main(["analyze", "--xenon", f"{seg_study}/xenon.dcm", "--proton",
+               f"{seg_study}/proton.dcm", "--auto-mask", "--out",
+               str(tmp_path / "o")])
+    assert rc == 2 and "no CUDA card" in capsys.readouterr().err
+    assert not (tmp_path / "ck").exists() and not (tmp_path / "o").exists()

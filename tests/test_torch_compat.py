@@ -301,19 +301,26 @@ def test_foreign_pickle_raises_in_port(tmp_path):
     """A class of ventjax that the port has no copy of is reported, not
     imported; strip_foreign keeps the rest."""
     p = tmp_path / "odd.pkl"
-    # protocol 0 text: GLOBAL 'ventjax.models.segmentation SegUNet',
-    # then a dict holding that class and an array
+    # protocol 0 text: GLOBAL 'ventjax.gui.controller VentController' (the
+    # GUI is not ported), then a dict holding that class and an array
     state = {"mask": np.ones(3), "model": "PLACEHOLDER"}
     raw = pickle.dumps(state, protocol=0)
     raw = raw.replace(b"VPLACEHOLDER",
-                      b"cventjax.models.segmentation\nSegUNet")
+                      b"cventjax.gui.controller\nVentController")
     p.write_bytes(raw)
-    with pytest.raises(texport.ReferencePickleError, match="SegUNet"):
+    with pytest.raises(texport.ReferencePickleError, match="VentController"):
         texport.load_pickle(str(p))
     got = texport.load_pickle(str(p), strip_foreign=True)
     assert np.array_equal(got["mask"], np.ones(3))
     assert got["model"]._foreign_class == \
-        "ventjax.models.segmentation.SegUNet"
+        "ventjax.gui.controller.VentController"
+    # a class the port now has a copy of loads as that copy
+    raw = pickle.dumps(state, protocol=0).replace(
+        b"VPLACEHOLDER", b"cventjax.models.segmentation\nSegUNet")
+    p.write_bytes(raw)
+    from ventjax_torch.models.segmentation import SegUNet
+
+    assert texport.load_pickle(str(p))["model"] is SegUNet
 
 
 # --------------------------------------------------------------- ci_module

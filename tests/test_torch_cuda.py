@@ -19,7 +19,10 @@ bit-equal, the same float32 operations in the same order; K3, K8, K9 and
 the CI maps of both engines bit-equal.  The Vent_Analysis facade on the
 card against the CPU: defect arrays and CI map equal, VDPs within 0.1 pp;
 mask editing equal; the k-space recon within 1e-5 of max |image| (cuFFT
-against PyTorch's CPU FFT, both float32).
+against PyTorch's CPU FFT, both float32).  The segmentation U-Net (cuDNN
+convolutions, TF32 off) against the CPU: masks equal except where the CPU
+|logit| < 1e-3, a repeat bit-identical; one train step's loss within 1e-5
+relative and its parameters within 1e-5 absolute.
 """
 import numpy as np
 import pytest
@@ -664,3 +667,46 @@ def test_edit_mask_and_recon_on_card_match_cpu(cuda):
     got = recon_2d_multislice_rss(kc, device=cuda)
     want = recon_2d_multislice_rss(kc, device="cpu")
     assert np.abs(got - want).max() <= 1e-5 * want.max()
+
+
+def test_predict_mask_on_card_matches_cpu(cuda):
+    """The shipped U-Net on the card against the CPU: masks equal except
+    where the CPU |logit| < 1e-3 (cuDNN's float32 sums in another order),
+    a second prediction bit-identical, and the checkpoint's arrays equal
+    on both devices."""
+    from ventjax_torch.io.phantom import make_random_phantom
+    from ventjax_torch.models import segmentation as seg
+
+    path = seg.default_checkpoint_path()
+    card = seg.load_checkpoint(path, device=cuda)
+    cpu = seg.load_checkpoint(path, device="cpu")
+    for k, p in card.params.items():
+        assert p.device.type == "cuda" and torch.equal(p.cpu(),
+                                                       cpu.params[k]), k
+    for s in (10_000, 10_001, 10_050):
+        proton = make_random_phantom(s).proton
+        got = seg.predict_mask(card.model, proton)
+        assert got.device.type == "cuda"
+        assert torch.equal(seg.predict_mask(card.model, proton), got)
+        logits = seg.predict_logits(cpu.model, proton)
+        want = (torch.sigmoid(logits) > 0.5).float()
+        assert not ((got.cpu() != want) & (logits.abs() >= 1e-3)).any(), s
+        assert not torch.backends.cudnn.allow_tf32
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One Adam step from the same initialisation on the same batch: the
+    losses within 1e-5 relative, the parameters within 1e-5 absolute (a
+    hundredth of the learning rate), as the CPU tests hold the port to
+    ventjax."""
+    from ventjax_torch.io.phantom import make_random_cohort
+    from ventjax_torch.models import segmentation as seg
+
+    _, mask, proton = make_random_cohort(2, (64, 64, 8), seed=3)
+    states = [seg.create_train_state(torch.Generator().manual_seed(0),
+                                     shape=(64, 64), base=16, device=d)
+              for d in (cuda, "cpu")]
+    losses = [float(seg.train_step(st, proton, mask)) for st in states]
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    for k, p in states[0].params.items():
+        assert float((p.cpu() - states[1].params[k]).abs().max()) <= 1e-5, k

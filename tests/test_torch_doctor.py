@@ -40,6 +40,18 @@ def test_run_doctor_cpu_all_required_ok(cpu_report):
     assert by["backend"]["backend"] == "cpu"
 
 
+def test_seg_checkpoint_present_and_loads(cpu_report):
+    """The shipped --auto-mask artifact: present, loaded (step 800, base
+    16) and run on the check's device; optional, as in the reference."""
+    from ventjax_torch.models.segmentation import default_checkpoint_path
+
+    by = {c["name"]: c for c in cpu_report["checks"]}
+    seg = by["seg_checkpoint"]
+    assert seg["ok"] and not seg["required"]
+    assert seg["present"] and seg["path"] == default_checkpoint_path()
+    assert (seg["step"], seg["base"], seg["device"]) == (800, 16, "cpu")
+
+
 def test_check_isolation(monkeypatch):
     """An induced crash in one required check fails the report, and every
     other check still runs and reports."""

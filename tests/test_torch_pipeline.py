@@ -108,8 +108,8 @@ def test_analyze_study_single_volume(runs):
 
 
 def test_package_imports_no_jax():
-    """Every module of ventjax_torch imports without loading jax, any module
-    of the ventjax package, PIL or matplotlib (the machine with the card
+    """Every module of ventjax_torch imports without loading jax, flax,
+    optax, orbax, any module of the ventjax package, PIL or matplotlib (the machine with the card
     lacks JAX and ventjax, and may lack the drawing libraries); importing
     the package itself, which exports Vent_Analysis, loads none of them."""
     code = (
@@ -133,8 +133,10 @@ def test_package_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('PIL', 'matplotlib'))\n"
         "assert not bad, bad\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'jaxlib')\n"
+        "assert 'ventjax_torch.models.segmentation' in names\n"
+        "assert 'ventjax_torch.io.phantom_oof' in names\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax'))\n"
         "assert not bad, bad\n"
         "bad = sorted(m for m in sys.modules if m == 'ventjax' or "
         "m.startswith('ventjax.'))\n"

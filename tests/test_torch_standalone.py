@@ -347,11 +347,12 @@ _PORT_FILES = ["chip_smoke.py"] + sorted(
 
 @pytest.mark.parametrize("path", _PORT_FILES)
 def test_no_import_of_ventjax(path):
-    """No import of jax or ventjax anywhere in the port, and none of PIL or
-    matplotlib at module level (the drawing functions import them)."""
+    """No import of jax, flax, optax, orbax or ventjax anywhere in the port,
+    and none of PIL or matplotlib at module level (the drawing functions
+    import them)."""
     names = _imported_modules(REPO / path)
-    bad = [n for n in names if n == "ventjax" or n.startswith("ventjax.")
-           or n == "jax" or n.startswith("jax.")]
+    bad = [n for n in names if n.split(".")[0] in ("ventjax", "jax", "jaxlib",
+                                                   "flax", "optax", "orbax")]
     assert not bad, bad
     drawing = [n for n in _module_level_imports(REPO / path)
                if n.split(".")[0] in ("PIL", "matplotlib")]
@@ -362,7 +363,11 @@ def test_import_guard_covers_the_facade_modules():
     for path in ("compat/vent_analysis.py", "compat/ci_module.py",
                  "report/screenshot.py", "report/histogram.py",
                  "ops/morphology.py", "ops/fft_recon.py", "io/twix.py",
-                 "oracle/ci_oracle.py"):
+                 "oracle/ci_oracle.py", "models/segmentation.py",
+                 "io/phantom_oof.py"):
         assert f"ventjax_torch/{path}" in _PORT_FILES, path
-    # the checker sees the reference's module-level PIL import
+    # the checker sees the reference's module-level PIL import, and its
+    # segmentation module's flax and optax
     assert "PIL" in _module_level_imports(REPO / "ventjax/report/screenshot.py")
+    seg = _module_level_imports(REPO / "ventjax/models/segmentation.py")
+    assert "flax.linen" in seg and "optax" in seg

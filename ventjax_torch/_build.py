@@ -68,10 +68,11 @@ def build(name: str, csrc: Path = CSRC) -> Path:
     if out.exists():
         BUILD_SECONDS.setdefault(name, 0.0)
         return out
+    nvcc = _nvcc()   # raises where there is none, before any file exists
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(csrc), "-o", tmp,
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o", tmp,
            str(csrc / f"{name}.cu")]
     t0 = time.perf_counter()
     try:

@@ -7,9 +7,13 @@ without a card it stops with an error (exit 2), never falling back to the
 CPU.
 
 Usage:
-  python -m ventjax_torch analyze --xenon X.dcm --mask MASKDIR
-      [--proton P.dcm] --out OUT [--irb mepo --id 0039 --visit 1
-      --treatment preAlb] [--user RPT] [--no-ci] [--device cuda|cpu]
+  python -m ventjax_torch analyze --xenon X.dcm (--mask MASKDIR |
+      --proton P.dcm --auto-mask [--seg-ckpt C.npz] [--seg-base 16])
+      --out OUT [--irb mepo --id 0039 --visit 1 --treatment preAlb]
+      [--user RPT] [--no-ci] [--device cuda|cpu]
+  python -m ventjax_torch train-seg --out DIR [--steps 200] [--batch 8]
+      [--shape 128 128 16] [--base 16] [--seed 0] [--lr 1e-3]
+      [--device cuda|cpu]
   python -m ventjax_torch export (--pickle S.pkl | --npz-in S.npz) --out OUT
       [--recalculate]
   python -m ventjax_torch twix --dat FILE.dat --out OUT
@@ -23,12 +27,19 @@ Usage:
 it is absent they stop before any analysis (exit 2) with a message that
 names it.
 
+``analyze --auto-mask`` predicts the lung mask from ``--proton`` with the
+segmentation U-Net (the shipped ``ventjax_torch/models/seg_ckpt.npz``
+unless ``--seg-ckpt`` names another), checks it with ``mask_qc`` after any
+``--mask-edit`` and reports the verdict as ``automask_suspect`` and
+``automask_qc`` (a warning, never a failure).  ``train-seg`` trains the
+U-Net on one device and writes the port's ``.npz`` checkpoint,
+``DIR/seg_ckpt.npz`` for ``--out DIR``.
+
 Flags of the reference CLI that name features the port lacks are left out:
-``--auto-mask``, ``--seg-ckpt`` and ``--seg-base`` of ``analyze`` (the
-segmentation model is not ported), ``--shard-slices`` (slice-sharded CI
-needs ``dist/``), ``--no-mesh``, ``--shard-export``, ``--dense-export``
-(the port has one device and the dense pack) and ``--no-compile-cache`` (no
-XLA cache).  The ``train-seg`` and ``gui`` commands wait for their modules.
+``--shard-slices`` (slice-sharded CI needs ``dist/``), ``--no-mesh``,
+``--shard-export``, ``--dense-export`` (the port has one device and the
+dense pack) and ``--no-compile-cache`` (no XLA cache).  The ``gui`` command
+waits for its module.
 """
 from __future__ import annotations
 
@@ -73,11 +84,49 @@ _SUMMARY_KEYS = ("SNR", "VDP", "VDP_lb", "VDP_km", "LungVolume",
                  "DefectVolume", "CI")
 
 
+def _auto_mask(args, device):
+    """The lung mask the U-Net predicts from --proton, as a float32 numpy
+    array, or None after an error message."""
+    import numpy as np
+
+    from ventjax_torch.io.dicom import open_single_dicom
+    from ventjax_torch.models.segmentation import (
+        default_checkpoint_path, load_checkpoint, predict_mask,
+    )
+
+    ckpt = args.seg_ckpt or default_checkpoint_path()
+    if not os.path.exists(ckpt):
+        print("error: --auto-mask needs --seg-ckpt (train one with "
+              "`python -m ventjax_torch train-seg`); shipped artifact not "
+              f"found at {ckpt}", file=sys.stderr)
+        return None
+    try:
+        state = load_checkpoint(os.path.abspath(ckpt), device=device)
+    except ValueError as e:
+        print(f"error: --seg-ckpt {e}", file=sys.stderr)
+        return None
+    if state.model.base != args.seg_base:
+        print(f"error: --seg-base {args.seg_base} does not match the "
+              f"checkpoint {ckpt}, a U-Net of base {state.model.base}",
+              file=sys.stderr)
+        return None
+    _, proton = open_single_dicom(args.proton)
+    return predict_mask(state.model,
+                        proton.astype(np.float32)).cpu().numpy()
+
+
 def _cmd_analyze(args) -> int:
     from ventjax_torch.compat import Vent_Analysis
     from ventjax_torch.config import DEFAULT_CONFIG, preset
     from ventjax_torch.report.export import study_filename
 
+    if args.mask is None and not args.auto_mask:
+        print("error: provide --mask FOLDER or --auto-mask (with --seg-ckpt)",
+              file=sys.stderr)
+        return 2
+    if args.auto_mask and args.proton is None:
+        print("error: --auto-mask needs --proton", file=sys.stderr)
+        return 2
     device = _device_or_error(args)
     if device is None or not _pillow_or_error("analyze"):
         return 2
@@ -94,10 +143,15 @@ def _cmd_analyze(args) -> int:
         study = preset(args.irb)
         study.validate(treatment=args.treatment, visit=args.visit)
         cfg = study.config
+    mask_array = None
+    if args.auto_mask:
+        mask_array = _auto_mask(args, device)
+        if mask_array is None:
+            return 2
 
     v = Vent_Analysis(
         xenon_path=args.xenon, mask_path=args.mask, proton_path=args.proton,
-        config=cfg, device=device,
+        mask_array=mask_array, config=cfg, device=device,
     )
     # Patient-info overrides: the GUI's edit buttons as flags.
     for flag, key in (
@@ -113,12 +167,36 @@ def _cmd_analyze(args) -> int:
             v.metadata[key] = flag
     if args.mask_edit:
         # The reference's "edit mask" roadmap item as a scriptable recipe,
-        # applied before any analysis.
+        # applied to hand-drawn and --auto-mask masks alike before any
+        # analysis.
         try:
             v.editMask(args.mask_edit)
         except ValueError as e:
             print(f"error: --mask-edit {e}", file=sys.stderr)
             return 2
+    if mask_array is not None:
+        # Plausibility of the predicted mask: warn, never fail, and carry
+        # the verdict in the exported metadata.  After --mask-edit, so it
+        # describes the mask the metrics are computed from.
+        import numpy as np
+
+        from ventjax_torch.models.segmentation import mask_qc
+
+        if not np.any(v.mask):
+            # Nothing to analyse, and the report's crop needs a mask (the
+            # reference package fails there with an IndexError).
+            print("error: --auto-mask predicted an empty lung mask; nothing "
+                  f"to analyze (checkpoint {args.seg_ckpt or 'shipped'})",
+                  file=sys.stderr)
+            return 2
+        qc = mask_qc(np.asarray(v.mask), v.vox)
+        v.metadata["automask_suspect"] = qc["suspect"]
+        v.metadata["automask_qc"] = "; ".join(qc["reasons"])
+        if qc["suspect"]:
+            print("warning: auto-mask failed plausibility checks — "
+                  + "; ".join(qc["reasons"])
+                  + " — metrics below may be unreliable "
+                  "(metadata.automask_suspect=true)", file=sys.stderr)
     if args.denoise is not None:
         # The reference's roadmap "Denoise Option", prototyped with Haar
         # wavelets in its playground script.
@@ -168,8 +246,57 @@ def _cmd_analyze(args) -> int:
         os.makedirs(args.archive, exist_ok=True)
         v.pickleMe(os.path.join(args.archive, f"{file_name}.pkl"))
 
-    print(json.dumps({k: _jsonable(v.metadata[k]) for k in _SUMMARY_KEYS},
-                     indent=2))
+    out = {k: _jsonable(v.metadata[k]) for k in _SUMMARY_KEYS}
+    if "automask_suspect" in v.metadata:
+        out["automask_suspect"] = bool(v.metadata["automask_suspect"])
+        out["automask_qc"] = str(v.metadata["automask_qc"])
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _cmd_train_seg(args) -> int:
+    """Train the proton->mask U-Net on synthetic phantoms (host data,
+    device steps) and save an .npz checkpoint usable by analyze
+    --auto-mask."""
+    import torch
+
+    from ventjax_torch.io.phantom import make_cohort, make_random_cohort
+    from ventjax_torch.models.segmentation import (
+        create_train_state, save_checkpoint, train_step,
+    )
+
+    device = _device_or_error(args)
+    if device is None:
+        return 2
+    shape = tuple(args.shape)
+    try:
+        state = create_train_state(
+            torch.Generator().manual_seed(args.seed), shape=shape[:2],
+            base=args.base, learning_rate=args.lr, device=device)
+    except ValueError as e:
+        print(f"error: --shape {e}", file=sys.stderr)
+        return 2
+    loss = float("nan")
+    for i in range(args.steps):
+        # Domain-randomized phantoms (geometry/contrast/noise/bias/partial-
+        # volume edges vary per sample) so the checkpoint generalizes past
+        # one generator configuration; --plain-phantoms restores the
+        # fixed-generator behavior.
+        if args.plain_phantoms:
+            _, mask, proton = make_cohort(
+                args.batch, shape=shape, seed=args.seed + 1 + i)
+        else:
+            _, mask, proton = make_random_cohort(
+                args.batch, shape=shape, seed=args.seed + 1 + i * args.batch)
+        loss_t = train_step(state, proton, mask)
+        if (i + 1) % 25 == 0 or i == 0:
+            loss = float(loss_t)
+            print(f"step {i + 1}/{args.steps}: loss {loss:.4f}", flush=True)
+    out = os.path.abspath(args.out)
+    os.makedirs(out, exist_ok=True)
+    path = save_checkpoint(out, state, params_only=args.params_only)
+    print(json.dumps({"checkpoint": path, "steps": args.steps,
+                      "final_loss": loss}))
     return 0
 
 
@@ -542,7 +669,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     a = sub.add_parser("analyze", help="analyze one study and export reports")
     a.add_argument("--xenon", required=True)
-    a.add_argument("--mask", required=True)
+    a.add_argument("--mask", default=None)
     a.add_argument("--proton", default=None)
     a.add_argument("--out", required=True)
     a.add_argument("--thresh", type=float, default=0.6)
@@ -565,6 +692,14 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--set-dob", default=None, help="override PatientBirthDate")
     a.add_argument("--set-study-date", default=None, help="override StudyDate")
     a.add_argument("--set-study-time", default=None, help="override StudyTime")
+    a.add_argument("--auto-mask", action="store_true",
+                   help="predict the lung mask from --proton with the U-Net "
+                   "(no --mask folder needed)")
+    a.add_argument("--seg-ckpt", default=None,
+                   help=".npz checkpoint (or a directory holding "
+                   "seg_ckpt.npz) for --auto-mask (see train-seg)")
+    a.add_argument("--seg-base", type=int, default=16,
+                   help="U-Net base width the checkpoint was trained with")
     a.add_argument("--deterministic", action="store_true",
                    help="TF32 off and deterministic cuDNN")
     a.add_argument("--filename", default=None)
@@ -623,6 +758,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also (re)write the versioned NPZ artifact")
     _add_device(e)
     e.set_defaults(fn=_cmd_export)
+
+    ts = sub.add_parser(
+        "train-seg",
+        help="train the proton->mask U-Net on synthetic phantoms and save "
+        "an .npz checkpoint for analyze --auto-mask",
+    )
+    ts.add_argument("--out", required=True,
+                    help="checkpoint directory (gets seg_ckpt.npz)")
+    ts.add_argument("--steps", type=int, default=200)
+    ts.add_argument("--batch", type=int, default=8)
+    ts.add_argument("--shape", type=int, nargs=3, default=(128, 128, 16))
+    ts.add_argument("--base", type=int, default=16)
+    ts.add_argument("--seed", type=int, default=0)
+    ts.add_argument("--lr", type=float, default=1e-3)
+    ts.add_argument("--params-only", action="store_true",
+                    help="save an inference-only checkpoint (no optimizer "
+                    "state; the shipped-artifact form)")
+    ts.add_argument("--plain-phantoms", action="store_true",
+                    help="train on the fixed-generator phantoms instead of "
+                    "the domain-randomized ones")
+    _add_device(ts)
+    ts.set_defaults(fn=_cmd_train_seg)
 
     t = sub.add_parser("twix", help="reconstruct a Siemens twix .dat")
     t.add_argument("--dat", required=True)

@@ -13,8 +13,9 @@ never carries on on the CPU.
 Required: versions, backend, device_probe, kernel_build (on a CUDA device:
 nvcc builds and loads the port's four CUDA libraries), codec_roundtrip,
 pipeline_selftest.  Optional (reported, never fatal): native_scanner (the
-Python codec is a complete fallback), seg_checkpoint (the segmentation
-model is not ported; reported absent).  The reference package's
+Python codec is a complete fallback), seg_checkpoint (the shipped
+``--auto-mask`` artifact: its path and presence; where present it loads and
+predicts one 32x32x4 volume on the device).  The reference package's
 compile_cache check has no counterpart: kernel_build takes its place.
 """
 from __future__ import annotations
@@ -106,9 +107,27 @@ def _native_scanner() -> Dict:
     return {"available": native.available()}
 
 
-def _seg_checkpoint() -> Dict:
-    return {"present": False,
-            "reason": "the segmentation model is not ported"}
+def _seg_checkpoint(device) -> Dict:
+    """The shipped segmentation checkpoint's path and presence (absent is
+    no failure, as in the reference); where present it must load and
+    predict a binary mask of a small volume on the device."""
+    import numpy as np
+
+    from ventjax_torch.models.segmentation import (
+        default_checkpoint_path, load_checkpoint, predict_mask,
+    )
+
+    path = default_checkpoint_path()
+    if not os.path.exists(path):
+        return {"path": path, "present": False}
+    state = load_checkpoint(path, device=_dev(device))
+    proton = np.random.default_rng(0).normal(
+        500.0, 50.0, (32, 32, 4)).astype(np.float32)
+    mask = predict_mask(state.model, proton)
+    binary = bool(((mask == 0) | (mask == 1)).all())
+    return {"__ok__": tuple(mask.shape) == proton.shape and binary,
+            "path": path, "present": True, "step": state.step,
+            "base": state.model.base, "device": str(mask.device)}
 
 
 def _codec_roundtrip(tmp_dir: str) -> Dict:
@@ -189,7 +208,7 @@ def run_doctor(full: bool = False, tmp_dir: Optional[str] = None,
             _check("device_probe", True, lambda: _device_probe(device)),
             _check("kernel_build", on_card, _kernel_build),
             _check("native_scanner", False, _native_scanner),
-            _check("seg_checkpoint", False, _seg_checkpoint),
+            _check("seg_checkpoint", False, lambda: _seg_checkpoint(device)),
             _check("codec_roundtrip", True,
                    lambda: _codec_roundtrip(tmp_dir)),
             _check("pipeline_selftest", True,
