@@ -97,6 +97,29 @@ Phases, in order; any failure raises and the script exits non-zero:
       gradients within 1e-4 of max |g|, and from the init the parameters
       within 1e-5 absolute (from the converged checkpoint Adam's first step
       magnifies gradient differences near its eps: logged);
+   i. dist/ on the card, with the device list of dist.mesh replaced by four
+      shards of the one card; its references (the unsharded maps, the
+      cohort without the mesh, the plain analyze command) run first,
+      outside the counts, and each of its entries below runs in its own
+      window, the counts set to 0 just before it and read just after, with
+      K3 required in every entry, once a shard where the entry runs the CI
+      once, and K1, K2, K4, K5 in every entry that runs N4:
+      calculate_ci_sharded on benchmarks/run.py
+      config 7's oversize volume (256x256x64, make_severe_defects, rmax 50,
+      K 4096 a shard) over 4 shards, K3 launched once on each, bit-equal
+      to the unsharded calculate_ci_pairwise with no overflow; path g's
+      severe study through Vent_Analysis with ci_shard_slices 2 and
+      calculate_ci_sharded at 2 shards, both equal to the exact unsharded
+      map; the slice through shard_cohort_fn on 4 shards, every output
+      field bit-identical to path a's batch of 16 (the differing fields
+      and their largest deviation are logged); run_cohort with use_mesh on
+      path e's 32 studies, every export byte-equal to a run without the
+      mesh; analyze --shard-slices 2 printing the unsharded command's
+      metrics; then, outside the counted run, two ranks of this script
+      (--rank) under gloo on the one card and one rank per card under
+      NCCL, each rank's slab of the oversize map bit-equal; K3 on each
+      shard's own (centers, local + halo witnesses), Kw = 2K on an
+      interior shard, bit-equal to its plain version;
    then the doctor: run_doctor(full=True) on the card, every required
    check passed and kernel_build naming the four libraries;
 5. timing (information only): the slice's volumes/s, the N4 and CI stages
@@ -113,7 +136,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    and one warm arrival's seconds from scan start to its .done; path g's
    calculate_VDP and calculate_CI per study by the host clock; path h's
    predict_mask per 128x128x16 study, train step and analyze --auto-mask
-   by the host clock;
+   by the host clock; path i's sharded and unsharded oversize CI and the
+   slice on the mesh and as one batch by the host clock, and K3's device
+   time on an interior shard (K 4096, Kw 8192) beside the unsharded K3 on
+   the whole oversize volume;
 6. with --parent DIR: DIR/n4_fit.cu, DIR/n4_sharpen.cu, DIR/ci_head.cu and
    DIR/ci_densify.cu (an older version of those sources, with the same C
    interfaces) built under their own names and timed against this tree in
@@ -128,12 +154,17 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. one slice batch under torch.profiler: its device kernels, device time
    and busy share, the rows of K1, K2, K3, K4 and K5 (the table goes to
    chiprun_out/profile_slice.txt);
-8. one JSON line of kernel records (``launches_path_g`` and
-   ``launches_path_h``: each kernel's launches in path g and in path h's
-   analyze --auto-mask), then the result line
-   {"ok": true, "device": {...}} last.
+8. one JSON line of kernel records (``launches_path_g``,
+   ``launches_path_h`` and ``launches_path_i``: each kernel's launches in
+   path g, in path h's analyze --auto-mask and in path i's entries summed,
+   ``launches_path_i_by_entry`` by entry; K3's ``path_i_shard`` record;
+   ``timed_by_events``: the keys whose times CUDA events took, host launch
+   gaps included, where torch.profiler lost the activities), then the
+   result line {"ok": true, "device": {...}} last.
 
-It imports nothing of JAX and nothing of the ventjax package.
+It imports nothing of JAX and nothing of the ventjax package.  With
+--rank PORT RANK WORLD BACKEND DIR it runs one rank of path i and nothing
+else.
 """
 from __future__ import annotations
 
@@ -1655,6 +1686,381 @@ def phase_segmentation(dev, card):
     return launches, times
 
 
+# ---------------------------------------------------------------------------
+# Path i: dist/ (the slice-sharded halo CI, the batch mesh, the ranks)
+# ---------------------------------------------------------------------------
+
+OVERSIZE = (256, 256, 64)   # benchmarks/run.py config 7's oversize volume
+OVERSIZE_K = 4096           # its per-shard center pad
+OVERSIZE_SHARDS = 4
+MESH_SHARDS = 4             # shards of the one card (a repeated device)
+
+
+def make_severe_defects(batch, shape, vox, seed=11):
+    """benchmarks/run.py's clustered severe-disease defect volumes, on the
+    port's phantom: dense ellipsoids planted inside the phantom lungs until
+    ~3.4-3.8k defect voxels per volume."""
+    from ventjax_torch.io.phantom import make_phantom
+
+    rng = np.random.default_rng(seed)
+    defects = np.zeros((batch, *shape), np.float32)
+    H, W, D = shape
+    for b in range(batch):
+        ph = make_phantom(shape=shape, vox=vox, seed=100 + b)
+        m = np.asarray(ph.mask) > 0
+        d = np.zeros(shape, np.float32)
+        for _ in range(300):
+            cc = np.array([rng.integers(H // 4, 3 * H // 4),
+                           rng.integers(W // 4, 3 * W // 4),
+                           rng.integers(3, max(4, D - 3))])
+            rr = np.array([rng.integers(5, 12), rng.integers(5, 12),
+                           rng.integers(2, 4)])
+            ii, jj, kk = np.ogrid[:H, :W, :D]
+            ell = (((ii - cc[0]) / rr[0]) ** 2 + ((jj - cc[1]) / rr[1]) ** 2
+                   + ((kk - cc[2]) / rr[2]) ** 2) <= 1
+            cand = d.copy()
+            cand[ell & m] = 1
+            if cand.sum() > 3800:
+                continue
+            d = cand
+            if d.sum() > 3400:
+                break
+        defects[b] = d
+    return defects
+
+
+def capture_k3(fn):
+    """(fn(), the arguments of every K3 call the CI engine made in it)."""
+    from ventjax_torch.ops import ci_pairwise as tcp
+
+    calls, real = [], tcp.head_counts
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    tcp.head_counts = spy
+    try:
+        return fn(), calls
+    finally:
+        tcp.head_counts = real
+
+
+def rank_main(port, rank, world, backend, data):
+    """One rank of a torch.distributed group on the card: the halo CI of
+    data/defect.npy, one shard per rank, its slab required bit-equal to the
+    unsharded map data/ci.npy and the all-reduced saturated count to
+    data/nsat.npy's.  Prints one RANK_OK line."""
+    import torch.distributed as tdist
+
+    from ventjax_torch.dist import (
+        initialize_multihost, make_rank_mesh, make_sliced_ci_fn,
+    )
+    from ventjax_torch.ops import ci_cuda
+    from ventjax_torch.ops.ci_pairwise import build_ci_pairwise_geometry
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke --rank: no CUDA card")
+    rank, world = int(rank), int(world)
+    t0 = time.perf_counter()
+    initialize_multihost(f"localhost:{port}", world, rank, backend=backend)
+    mesh = make_rank_mesh("cuda")
+    defect = torch.from_numpy(np.load(f"{data}/defect.npy")).to(mesh.device)
+    want = torch.from_numpy(np.load(f"{data}/ci.npy"))
+    H, W, D = defect.shape
+    dl = D // world
+    geom = build_ci_pairwise_geometry(VOX, (H, W, D), 50, "wrap")
+    fn = make_sliced_ci_fn(geom, mesh, max_defect_per_shard=OVERSIZE_K,
+                           halo_pad=OVERSIZE_K // 2)
+    ci, nsat, ovf = fn(defect[:, :, rank * dl:(rank + 1) * dl])
+    out = {"rank": rank, "world": world, "backend": tdist.get_backend(),
+           "device": str(ci.device),
+           "bit_equal": bool(torch.equal(
+               ci.cpu(), want[:, :, rank * dl:(rank + 1) * dl])),
+           "nsat_equal": int(nsat) == int(np.load(f"{data}/nsat.npy")),
+           "overflow": bool(ovf), "k3_launches": ci_cuda.LAUNCHES[
+               "head_counts"], "s": round(time.perf_counter() - t0, 2)}
+    tdist.destroy_process_group()
+    print("RANK_OK " + json.dumps(out), flush=True)
+    ok = out["bit_equal"] and out["nsat_equal"] and not out["overflow"] \
+        and out["backend"] == backend and out["k3_launches"] > 0
+    if not ok:
+        raise AssertionError(f"rank {rank}: {out}")
+
+
+def start_ranks(world, backend, data):
+    """world processes of this script in --rank mode on a free port."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    return [subprocess.Popen(
+        [sys.executable, __file__, "--rank", str(port), str(r), str(world),
+         backend, data], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+
+
+def finish_ranks(procs, timeout=240):
+    """Each rank's RANK_OK record; raises, after killing what still runs,
+    when a rank fails or outlasts the timeout."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for p, out in zip(procs, outs):
+        line = [x for x in out.splitlines() if x.startswith("RANK_OK ")]
+        if p.returncode != 0 or not line:
+            raise AssertionError(f"a rank failed (exit {p.returncode}):\n"
+                                 f"{out[-3000:]}")
+        recs.append(json.loads(line[0][len("RANK_OK "):]))
+    return recs
+
+
+def first_difference(got, want):
+    """{field: max |difference|} of the VentResult fields (metrics too)
+    whose bits differ (NaN equal to NaN)."""
+    import dataclasses
+
+    from ventjax_torch.pipeline.result import StudyMetrics
+
+    pairs = {f: (getattr(got, f), getattr(want, f)) for f in (
+        "n4", "defect", "defect_lb", "defect_km", "defect_border", "ci_map")}
+    pairs.update({f"metrics.{f}": (getattr(got.metrics, f),
+                                   getattr(want.metrics, f))
+                  for f in (x.name for x in dataclasses.fields(
+                      StudyMetrics))})
+    diff = {}
+    for name, (a, b) in pairs.items():
+        a, b = a.double(), b.double()
+        same = (a == b) | (a.isnan() & b.isnan())
+        if not bool(same.all()):
+            diff[name] = float((a - b)[~same].abs().nan_to_num(
+                float("inf")).max())
+    return diff
+
+
+def phase_dist(dev, cfg, geom, hp_d, mask_d, res):
+    """Path i: dist/ on the card (see the module docstring).  Returns its
+    launch counts (summed over its entries, and by entry), host-clock
+    timings and K3's per-shard record."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from ventjax_torch.compat import Vent_Analysis, ci_module
+    from ventjax_torch.config import DEFAULT_CONFIG
+    from ventjax_torch.dist import halo
+    from ventjax_torch.dist import mesh as dmesh
+    from ventjax_torch.ops import ci_cuda
+    from ventjax_torch.ops import ci_pairwise as tcp
+    from ventjax_torch.pipeline import analyze_cohort, build_geometry
+    from ventjax_torch.pipeline import cohort as tc
+
+    t_path = time.perf_counter()
+    checks, times = {}, {}
+    defect = torch.from_numpy(make_severe_defects(1, OVERSIZE, VOX)[0]).to(
+        dev)
+    ogeom = tcp.build_ci_pairwise_geometry(VOX, OVERSIZE, 50, "wrap")
+    log(f"dist: oversize {OVERSIZE}, {int(defect.sum())} defect voxels, "
+        f"halo {halo.halo_width(ogeom)} slices, made in "
+        f"{time.perf_counter() - t_path:.1f} s")
+
+    def sharded(n=OVERSIZE_SHARDS):
+        return halo.calculate_ci_sharded(defect, ogeom, n_shards=n,
+                                         max_defect_voxels=OVERSIZE_K)
+
+    def unsharded():
+        return tcp.calculate_ci_pairwise(defect[None], ogeom, OVERSIZE_K)
+
+    has_pil = importlib.util.find_spec("PIL") is not None
+    real_devices = dmesh.local_devices
+    dmesh.local_devices = lambda device="cuda": [dev] * MESH_SHARDS
+    by_entry = {}
+
+    def counted(name, fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after, under name; the references run outside these windows."""
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        by_entry[name] = launch_counts()
+        return out
+
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            studies = facade_studies(root)                # path g's
+            manifest = write_cohort(os.path.join(root, "cohort"))  # path e's
+            severe = studies["severe"]
+            argv = ["analyze", "--xenon", severe["xenon_path"], "--mask",
+                    severe["mask_path"], "--proton", severe["proton_path"]]
+            out_m, out_p = (os.path.join(root, x) for x in ("mesh", "plain"))
+
+            # the references, uncounted: the unsharded oversize map, path
+            # g's severe study's VDP and its exact map, the cohort without
+            # the mesh, and the plain analyze command
+            ci_u, nsat_u, ovf_u = unsharded()
+            v = Vent_Analysis(**severe, config=DEFAULT_CONFIG.replace(
+                ci_shard_slices=2))
+            v.calculate_VDP()
+            pad = ci_module.defect_pad(v.defectArray)
+            d = torch.from_numpy(v.defectArray.astype(np.float32)).to(dev)
+            sgeom = build_geometry(tuple(v.vox), tuple(d.shape), v.config)
+            exact = tcp.calculate_ci_pairwise(d[None], sgeom, pad,
+                                              tail_k=pad)[0][0]
+            tc.run_cohort(manifest, out_p, batch_size=COHORT_BATCH,
+                          device=dev)
+            rc1, so1, _ = run_cli(argv + ["--out", os.path.join(root, "a1")])
+            log(f"dist: severe study, {int(v.defectArray.sum())} defect "
+                f"voxels at pad {pad}")
+
+            # each dist entry in its own counted window
+            # the oversize volume over four shards of the card
+            ci_s, nsat_s, ovf_s = counted("oversize_4_shards", sharded)
+            checks["oversize_bit_equal"] = torch.equal(ci_s, ci_u[0])
+            checks["oversize_nsat_equal"] = int(nsat_s) == int(nsat_u[0])
+            checks["oversize_no_overflow"] = not (bool(ovf_s)
+                                                  or bool(ovf_u[0]))
+
+            # path g's severe study: two shards of its defect map, and the
+            # facade's calculate_CI with ci_shard_slices 2
+            two = counted("severe_2_shards", lambda: halo.calculate_ci_sharded(
+                d, sgeom, n_shards=2, max_defect_voxels=pad, tail_k=pad,
+                halo_pad=pad))
+            checks["severe_two_shards_bit_equal"] = torch.equal(
+                two[0], exact) and not bool(two[2])
+            counted("facade_shard_slices_2", v.calculate_CI)
+            checks["facade_shard_slices_2_equal"] = np.array_equal(
+                v.CIarray, exact.cpu().numpy().astype(np.float64))
+
+            # the slice through a batch mesh of four shards, against path a
+            mesh4 = dmesh.make_batch_mesh()
+            by_mesh = dmesh.shard_cohort_fn(
+                lambda h, m: analyze_cohort(h, m, geom, cfg), mesh4)
+            diff = first_difference(
+                counted("slice_mesh", lambda: by_mesh(hp_d, mask_d)), res)
+            checks["mesh_bit_identical_to_path_a"] = not diff
+            log(f"dist: the slice over {mesh4.size} shards against one batch "
+                f"of {BATCH}: differing fields {json.dumps(diff)}")
+
+            # the cohort driver with use_mesh over four shards, against one
+            runners = {}
+            counted("cohort_use_mesh", lambda: tc.run_cohort(
+                manifest, out_m, batch_size=COHORT_BATCH, runners=runners,
+                device=dev, use_mesh=True))
+            (runner,) = runners.values()
+            checks["cohort_on_the_mesh"] = runner.mesh is not None \
+                and runner.mesh.size == MESH_SHARDS
+            same = True
+            for e in manifest:
+                sid = e["id"]
+                for f in ("metrics.json", f"{sid}_dataArray.nii", ".done"):
+                    a, b = (os.path.join(o, sid, f) for o in (out_m, out_p))
+                    if os.path.exists(a) or os.path.exists(b):
+                        same &= os.path.exists(a) and os.path.exists(b) \
+                            and open(a, "rb").read() == open(b, "rb").read()
+            checks["cohort_mesh_exports_equal"] = same
+
+            # analyze --shard-slices 2 against analyze on the severe study
+            rc2, so2, se2 = counted("cli_shard_slices_2", lambda: run_cli(
+                argv + ["--out", os.path.join(root, "a2"), "--shard-slices",
+                        "2"]))
+            checks["cli_shard_slices_2"] = (
+                rc1 == rc2 == 0 and json.loads(so1) == json.loads(so2)
+            ) if has_pil else rc1 == rc2 == 2
+            log(f"dist launches by entry: {json.dumps(by_entry)}")
+
+            # K3 once per shard where the entry runs CI once; N4's kernels
+            # wherever the entry runs N4; no entry may pass without them
+            n4_keys = ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
+                       "sharpen_resid")
+            k3_by = {k: c["head_counts"] for k, c in by_entry.items()}
+            checks["k3_once_a_shard"] = (
+                k3_by["oversize_4_shards"] == OVERSIZE_SHARDS
+                and k3_by["severe_2_shards"] == 2
+                and k3_by["slice_mesh"] == MESH_SHARDS)
+            checks["k3_in_every_entry"] = all(
+                n >= 2 for k, n in k3_by.items()
+                if k != "cli_shard_slices_2" or has_pil)
+            checks["n4_kernels_in_the_mesh_entries"] = all(
+                by_entry[e][k] > 0 for e in ("slice_mesh", "cohort_use_mesh")
+                + (("cli_shard_slices_2",) if has_pil else ())
+                for k in n4_keys)
+            launches = {k: sum(c[k] for c in by_entry.values())
+                        for k in launch_counts()}
+            log(f"dist launches: {json.dumps(launches)}")
+
+            # ranks: two under gloo on the one card, and NCCL at one rank
+            # per card, all at once
+            data = os.path.join(root, "ranks")
+            os.makedirs(data)
+            np.save(os.path.join(data, "defect.npy"), defect.cpu().numpy())
+            np.save(os.path.join(data, "ci.npy"), ci_u[0].cpu().numpy())
+            np.save(os.path.join(data, "nsat.npy"), int(nsat_u[0]))
+            t = time.perf_counter()
+            gloo = start_ranks(2, "gloo", data)
+            nccl = start_ranks(torch.cuda.device_count(), "nccl", data)
+            recs = finish_ranks(gloo) + finish_ranks(nccl)
+            times["ranks_s"] = round(time.perf_counter() - t, 1)
+            log(f"dist ranks: {json.dumps(recs)}; a two-rank NCCL run needs "
+                f"two cards (NCCL refuses two ranks on one card)")
+            checks["gloo_two_ranks_one_card"] = [
+                (r["backend"], r["world"]) for r in recs[:2]] == [
+                ("gloo", 2)] * 2
+            checks["nccl_one_rank_per_card"] = all(
+                r["backend"] == "nccl" for r in recs[2:]) \
+                and len(recs) == 2 + torch.cuda.device_count()
+
+            # outside the counted windows: K3 on each shard's own arguments
+            # (centers, local + halo witnesses) against its plain version
+            _, calls_s = capture_k3(sharded)
+            _, calls_u = capture_k3(unsharded)
+            equal = [bool(torch.equal(ci_cuda.head_counts(*a),
+                                      ci_cuda.head_counts_plain(*a)))
+                     for a in calls_s + calls_u]
+            widths = [a[1][0].shape[1] for a in calls_s]
+            checks["k3_shards_bit_equal_to_plain"] = all(equal)
+            checks["k3_interior_kw_2k"] = widths[1] == 2 * OVERSIZE_K
+            log(f"dist: K3 per shard bit-equal to its plain version: {equal}"
+                f" (witness lanes {widths})")
+            interior, whole = calls_s[1], calls_u[0]
+            ns = interior[2].shape[0]
+            # centers and witnesses in (3 int32 each), counts out
+            b3 = bound(OVERSIZE_K * (3 * 4 + ns * 4) + widths[1] * 3 * 4,
+                       8 * k3_box_distances(*interior))
+            k3 = {"K": OVERSIZE_K, "Kw": widths[1],
+                  "ms": device_ms(lambda: ci_cuda.head_counts(*interior)),
+                  "plain_ms": device_ms(lambda: ci_cuda.head_counts_plain(
+                      *interior), reps=3),
+                  "unsharded_ms": device_ms(
+                      lambda: ci_cuda.head_counts(*whole)),
+                  "bound_ms": b3[0], "bound_by": b3[1]}
+            times["ci_sharded_ms"] = round(host_ms(sharded)[0], 3)
+            times["ci_unsharded_ms"] = round(host_ms(unsharded)[0], 3)
+            times["slice_mesh_ms"] = round(host_ms(
+                lambda: by_mesh(hp_d, mask_d), reps=3)[0], 3)
+            times["slice_batch_ms"] = round(host_ms(
+                lambda: analyze_cohort(hp_d, mask_d, geom, cfg),
+                reps=3)[0], 3)
+    finally:
+        dmesh.local_devices = real_devices
+    checks = {k: bool(x) for k, x in checks.items()}
+    log(f"dist checks: {json.dumps(checks)}")
+    if not all(checks.values()):
+        raise AssertionError(f"the dist path failed: {checks}")
+    times["path_s"] = round(time.perf_counter() - t_path, 1)
+    log(f"time dist (host clock): {json.dumps(times)}; K3 per shard "
+        f"{json.dumps(k3)}")
+    return launches, by_entry, times, k3
+
+
 def phase_doctor():
     """The deployment self-check on the card: every required check passed
     and kernel_build naming the four libraries."""
@@ -1713,21 +2119,24 @@ def device_ms(fn, reps=20, tries=5, flush=None, count=False):
     activities (kernels, copies, fills) that reps calls enqueue, taken by
     torch.profiler, so host launch overhead between them does not count.
     The profiler can lose the first activities of a session (a one-call
-    session once recorded none, a K1 turn a tenth of the others), so each
-    session starts with calls that are not counted, and spin kernels mark
-    one call and then the reps timed calls; a session counts only if the
-    timed calls hold reps times the one call's activities.  With flush (a
-    call that evicts the L2 cache), every counted call follows a flush, and
-    the activities named as a lone flush's are not counted.  With count,
-    returns (ms, device activities of one call)."""
+    session once recorded none, a K1 turn a tenth of the others; some
+    sessions lost their first seven), so each session starts with calls
+    that are not counted, and spin kernels mark one call and then the reps
+    timed calls (the last three marks; without flush the first may be
+    lost); a session counts only if the timed calls hold reps times the one
+    call's activities.  With flush (a call that evicts the L2 cache), every
+    counted call follows a flush, and the activities named as a lone
+    flush's are not counted.  With count, returns (ms, device activities
+    of one call)."""
     from torch.profiler import ProfilerActivity, profile
 
     step = fn if flush is None else (lambda: (flush(), fn()))
     fn()
+    seen = []
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
+            for _ in range(8):
                 fn()
             torch.cuda._sleep(1000)
             if flush is not None:
@@ -1741,17 +2150,45 @@ def device_ms(fn, reps=20, tries=5, flush=None, count=False):
             torch.cuda.synchronize()
         events = device_events(prof)
         marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-        if len(marks) != 4:
+        seen.append((len(events), len(marks)))
+        if len(marks) != 4 and (flush is not None or len(marks) != 3):
             continue
-        skip = {e.name for e in events[marks[0] + 1:marks[1]]}
-        one = events[marks[1] + 1:marks[2]]
-        timed = events[marks[2] + 1:marks[3]]
+        skip = {e.name for e in events[marks[-4] + 1:marks[-3]]} \
+            if flush is not None else set()
+        one = events[marks[-3] + 1:marks[-2]]
+        timed = events[marks[-2] + 1:marks[-1]]
+        seen[-1] += (len(one), len(timed))
         if (flush is None or skip) and one and len(timed) == len(one) * reps:
             ms = sum(e.time_range.elapsed_us() for e in timed
                      if e.name not in skip) / reps / 1e3
             return (ms, len(one)) if count else ms
-    raise RuntimeError(f"torch.profiler lost device activities in {tries} "
-                       f"sessions")
+    if count or flush is not None:
+        raise RuntimeError(f"torch.profiler lost device activities in {tries} "
+                           f"sessions (activities, marks, one, timed): {seen}")
+    # a call the profiler keeps losing is timed by CUDA events, which count
+    # the host's launch gaps too: the value says so (EventsMs), and each
+    # kernel record lists such keys in timed_by_events
+    ms = EventsMs(cuda_ms(fn, reps))
+    log(f"device_ms: torch.profiler lost device activities in {tries} "
+        f"sessions (activities, marks, one, timed): {seen}; timed by CUDA "
+        f"events instead: {ms:.4f} ms")
+    return ms
+
+
+class EventsMs(float):
+    """A device_ms time taken by CUDA events (host launch gaps included)
+    after torch.profiler lost the call's activities."""
+
+
+def events_timed(rec, path=""):
+    """The dotted keys of the nested record rec whose times are EventsMs."""
+    out = []
+    for k, v in rec.items():
+        if isinstance(v, EventsMs):
+            out.append(path + k)
+        elif isinstance(v, dict):
+            out += events_timed(v, f"{path}{k}.")
+    return out
 
 
 def l2_flusher(dev):
@@ -2323,7 +2760,13 @@ def main():
         "also build DIR/n4_fit.cu, DIR/n4_sharpen.cu, DIR/ci_head.cu and "
         "DIR/ci_densify.cu (an older version of the sources, with the same "
         "C interfaces) and time every kernel against them"))
+    ap.add_argument("--rank", nargs=5, metavar=(
+        "PORT", "RANK", "WORLD", "BACKEND", "DIR"), help=(
+        "run one rank of path i's torch.distributed halo CI on DIR's volume "
+        "(the libraries must be built) and nothing else"))
     args = ap.parse_args()
+    if args.rank:
+        return rank_main(*args.rank)
     dev, card = phase_device()
     phase_build()
     hp, mask, n4_pad = headline_cohort()
@@ -2340,9 +2783,12 @@ def main():
     for k, e in facade_err.items():
         max_err[k] = max(max_err[k], e)
     seg_launches, _ = phase_segmentation(dev, card)
+    dist_launches, dist_by_entry, _, k3_shard = phase_dist(
+        dev, cfg, geom, hp_d, mask_d, res)
     phase_doctor()
     med, rec = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
                             dev)
+    rec["head_counts"]["path_i_shard"] = k3_shard
     if args.parent:
         phase_parent(args.parent, hp, mask, n4_pad, dev, res, geom, cfg,
                      hp_d, mask_d)
@@ -2359,7 +2805,11 @@ def main():
                 "launches_per_batch": per_batch[k],
                 "launches_path_g": facade_launches[k],
                 "launches_path_h": seg_launches[k],
-                "max_abs_err": max_err[k], **rec[k]}
+                "launches_path_i": dist_launches[k],
+                "launches_path_i_by_entry": {
+                    e: c[k] for e, c in dist_by_entry.items()},
+                "max_abs_err": max_err[k], **rec[k],
+                "timed_by_events": events_timed(rec[k])}
                for k, (s, r) in KERNELS.items()]
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "jaxlib", "ventjax")

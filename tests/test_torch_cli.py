@@ -124,13 +124,10 @@ def test_cli_commands_and_left_out_flags():
     assert (ts.steps, ts.batch, tuple(ts.shape), ts.base, ts.seed, ts.lr,
             ts.params_only, ts.plain_phantoms, ts.device) == (
         200, 8, (128, 128, 16), 16, 0, 1e-3, False, False, "cuda")
-    for argv in (analyze + ["--shard-slices", "2"],
-                 ["cohort", "--manifest", "m", "--out", "o", "--no-mesh"],
-                 ["cohort", "--manifest", "m", "--out", "o",
+    for argv in (["cohort", "--manifest", "m", "--out", "o",
                   "--dense-export"],
                  ["cohort", "--manifest", "m", "--out", "o",
                   "--shard-export"],
-                 ["serve", "--inbox", "i", "--out", "o", "--no-mesh"],
                  ["--no-compile-cache", "info"]):
         with pytest.raises(SystemExit):
             build_parser().parse_args(argv)
@@ -138,6 +135,70 @@ def test_cli_commands_and_left_out_flags():
                  ["export", "--pickle", "p", "--out", "o"],
                  ["twix", "--dat", "d", "--out", "o"]):
         assert build_parser().parse_args(argv).device == "cuda"
+
+
+def test_cli_parses_shard_slices_and_no_mesh():
+    """analyze --shard-slices N|auto, cohort and serve --no-mesh, as
+    ventjax's parser takes them."""
+    from ventjax.cli import build_parser as jax_parser
+
+    analyze = ["analyze", "--xenon", "x", "--mask", "m", "--out", "o"]
+    for argv, key in ((analyze + ["--shard-slices", "2"], "shard_slices"),
+                      (analyze + ["--shard-slices", "auto"], "shard_slices"),
+                      (analyze, "shard_slices"),
+                      (["cohort", "--manifest", "m", "--out", "o",
+                        "--no-mesh"], "no_mesh"),
+                      (["cohort", "--manifest", "m", "--out", "o"],
+                       "no_mesh"),
+                      (["serve", "--inbox", "i", "--out", "o", "--no-mesh"],
+                       "no_mesh"),
+                      (["serve", "--inbox", "i", "--out", "o"], "no_mesh")):
+        got = getattr(build_parser().parse_args(argv), key)
+        assert got == getattr(jax_parser().parse_args(argv), key), argv
+
+
+def test_cli_mesh_is_opt_in():
+    """cohort and serve take the batch mesh only with --mesh, which
+    --no-mesh excludes."""
+    for cmd in (["cohort", "--manifest", "m", "--out", "o"],
+                ["serve", "--inbox", "i", "--out", "o"]):
+        assert not build_parser().parse_args(cmd).mesh
+        assert build_parser().parse_args(cmd + ["--mesh"]).mesh
+        with pytest.raises(SystemExit):
+            build_parser().parse_args(cmd + ["--mesh", "--no-mesh"])
+
+
+def test_cli_analyze_shard_slices(study_root, tmp_path, capsys,
+                                  monkeypatch):
+    """analyze --shard-slices auto over two CPU shards (the port's device
+    list replaced) prints the one-device run's metrics on a 16-slice study;
+    more shards than devices, a halo wider than a shard (the 8-slice study
+    at the default rmax 50, whose halo is 8 slices) and a non-integer count
+    exit 2 with the reason."""
+    from ventjax_torch.dist import mesh
+
+    pytest.importorskip("PIL")
+    monkeypatch.setattr(mesh, "local_devices",
+                        lambda device: [torch.device("cpu")] * 2)
+    deep = str(tmp_path / "deep")
+    write_study(deep, shape=(32, 32, 16), vox=(1.5, 1.5, 10.0), seed=6)
+
+    def argv(root, out, *extra):
+        return ["analyze", "--xenon", f"{root}/xenon.dcm", "--mask",
+                f"{root}/mask", "--device", "cpu", "--out",
+                str(tmp_path / out), *extra]
+
+    got = {}
+    for tag, extra in (("one", ()), ("auto", ("--shard-slices", "auto"))):
+        assert main(argv(deep, tag, *extra)) == 0
+        got[tag] = json.loads(capsys.readouterr().out)
+    assert got["auto"] == got["one"] and got["one"]["DefectVolume"] > 0
+    for root, extra, why in (
+            (deep, ("--shard-slices", "3"), "exceeds the 2 visible"),
+            (study_root, ("--shard-slices", "2"), "too thin to shard"),
+            (deep, ("--shard-slices", "two"), "integer or 'auto'")):
+        assert main(argv(root, "x", *extra)) == 2
+        assert why in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("spec", ["128x128x16@2.0,2.0,11.5", "64x64x8",

@@ -27,6 +27,7 @@ from ventjax.cli import main as jax_main
 from ventjax.compat import Vent_Analysis as JaxVent
 from ventjax.compat import ci_module as jci
 from ventjax.compat import extract_attributes as jax_extract
+from ventjax.config import DEFAULT_CONFIG as JAX_DEFAULT_CONFIG
 from ventjax.report import export as jexport
 from ventjax_torch.cli import main
 from ventjax_torch.compat import Vent_Analysis, ci_module, extract_attributes
@@ -415,10 +416,39 @@ def test_defect_pad(n_def, pad):
 
 
 def test_ci_shard_slices_is_refused():
+    """More shards than the device's local devices (the CPU is one): the
+    refusal of ventjax's calculate_ci_sharded, before any work."""
     cfg = DEFAULT_CONFIG.replace(ci_shard_slices=2)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match=r"--shard-slices 2 exceeds the 1 "
+                       r"visible device\(s\); use at most 1 shards"):
         ci_module.calculate_CI(np.ones((8, 8, 2)), vox=VOX, config=cfg,
                                device="cpu")
+
+
+def test_ci_shard_slices_branch_equals_one_device(study, pair, monkeypatch):
+    """The facade's calculate_CI with ci_shard_slices 2 over two CPU shards
+    (the port's device list replaced): the one-device CI map and subject CI
+    at the same rmax (16: a 3-slice halo fits the 4-slice shards), and
+    ventjax's sharded map."""
+    from ventjax_torch.dist import mesh
+
+    paths, _ = study
+    _, tv = pair
+    monkeypatch.setattr(mesh, "local_devices",
+                        lambda device: [torch.device("cpu")] * 2)
+    maps = {}
+    for n in (0, 2):
+        v = Vent_Analysis(**paths, device="cpu", config=DEFAULT_CONFIG.replace(
+            ci_rmax=16, ci_shard_slices=n))
+        v.defectArray = tv.defectArray
+        maps[n] = (v.calculate_CI(), v.metadata["CI"])
+    assert tv.defectArray.sum() > 0
+    np.testing.assert_array_equal(maps[2][0], maps[0][0])
+    assert maps[2][1] == maps[0][1]
+    want = jci.calculate_CI(
+        tv.defectArray, vox=VOX, Rmax=16,
+        config=JAX_DEFAULT_CONFIG.replace(ci_shard_slices=2))
+    np.testing.assert_array_equal(maps[2][0], want)
 
 
 # --------------------------------------------------------------------- CLI

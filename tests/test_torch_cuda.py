@@ -22,7 +22,8 @@ mask editing equal; the k-space recon within 1e-5 of max |image| (cuFFT
 against PyTorch's CPU FFT, both float32).  The segmentation U-Net (cuDNN
 convolutions, TF32 off) against the CPU: masks equal except where the CPU
 |logit| < 1e-3, a repeat bit-identical; one train step's loss within 1e-5
-relative and its parameters within 1e-5 absolute.
+relative and its parameters within 1e-5 absolute.  dist/ on shards of the
+one card: the halo CI and the batch mesh bit-equal to their unsharded runs.
 """
 import numpy as np
 import pytest
@@ -579,12 +580,13 @@ def test_run_cohort_on_card(cuda, tmp_path):
 
 
 def test_grouped_on_card_within_pipeline_tolerances(cuda):
-    """Groups of 2 against one batch of 4 on the card.  Everything inside
-    N4's loop keeps its bits (lanes are independent there), but the dense
-    field's last einsum is a cuBLAS float32 GEMM whose shape grows with the
-    batch, and cuBLAS may pick another kernel for it: the N4 image may then
-    differ by about one float32 rounding.  The pipeline's tolerances hold:
-    defect maps equal, |dVDP| < 0.1 pp."""
+    """Groups of 2 and of 1 against one batch of 4 on the card.  No float
+    sum of the pipeline that differed by batch size on the card does so
+    any more (row_sums' fixed order for SNR and the VDP mean; N4's dense
+    field by batched GEMMs of fixed shape), so groups of 2 keep every
+    output's bits.  A group of one lane is a batch-1 GEMM, which cuBLAS
+    may round another way: the pipeline's tolerances hold (defect maps
+    equal, |dVDP| < 0.1 pp, N4 image within RTOL)."""
     shape, vox = (64, 64, 8), (1.5, 1.5, 10.0)
     cfg = DEFAULT_CONFIG.replace(ci_max_defect_voxels=1024, n4_mask_pad=8192)
     hp, mask, _ = make_cohort(4, shape, vox, seed=6)
@@ -592,12 +594,18 @@ def test_grouped_on_card_within_pipeline_tolerances(cuda):
     geom = build_geometry(vox, shape, cfg)
     whole = analyze_cohort(h, m, geom, cfg)
     grouped = analyze_cohort_grouped(h, m, geom, cfg, group_size=2)
-    for f in ("defect", "defect_lb", "defect_km"):
+    for f in ("n4", "defect", "defect_lb", "defect_km", "ci_map"):
         assert torch.equal(getattr(grouped, f), getattr(whole, f)), f
+    for name in ("snr", "vdp", "vdp_lb", "vdp_km", "ci"):
+        a, b = getattr(grouped.metrics, name), getattr(whole.metrics, name)
+        assert bool(((a == b) | (a.isnan() & b.isnan())).all()), name
+    ones = analyze_cohort_grouped(h, m, geom, cfg, group_size=1)
+    for f in ("defect", "defect_lb", "defect_km"):
+        assert torch.equal(getattr(ones, f), getattr(whole, f)), f
     for name in ("vdp", "vdp_lb", "vdp_km"):
-        d = getattr(grouped.metrics, name) - getattr(whole.metrics, name)
+        d = getattr(ones.metrics, name) - getattr(whole.metrics, name)
         assert float(d.abs().max()) < 0.1, name
-    assert _err(grouped.n4, whole.n4) < RTOL
+    assert _err(ones.n4, whole.n4) < RTOL
 
 
 def test_facade_on_card_matches_cpu(cuda, tmp_path):
@@ -710,3 +718,48 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
     for k, p in states[0].params.items():
         assert float((p.cpu() - states[1].params[k]).abs().max()) <= 1e-5, k
+
+
+def test_sharded_ci_on_card_bit_equal(cuda):
+    """The halo CI over four shards of the card (a repeated device): K3
+    once per shard, the map, saturated count and flag the unsharded
+    engine's on the card and the CPU's."""
+    from ventjax_torch.dist import calculate_ci_sharded, make_batch_mesh
+
+    rng = np.random.default_rng(7)
+    d = (rng.random((40, 36, 28)) > 0.985).astype(np.float32)
+    d[10:16, 8:14, 10:16] = 1   # across a shard cut
+    d[0, 0, 0] = 1
+    geom = tcp.build_ci_pairwise_geometry((1.5, 1.5, 10.0), d.shape, 16,
+                                          "wrap")
+    dev = torch.from_numpy(d).to(cuda)
+    before = ci_cuda.LAUNCHES["head_counts"]
+    ci, nsat, ovf = calculate_ci_sharded(
+        dev, geom, mesh=make_batch_mesh(devices=[cuda] * 4),
+        max_defect_voxels=512, halo_pad=256)
+    assert ci_cuda.LAUNCHES["head_counts"] - before == 4
+    want = tcp.calculate_ci_pairwise(dev[None], geom, 2048)
+    assert not bool(ovf) and ci.device == dev.device
+    assert torch.equal(ci, want[0][0]) and int(nsat) == int(want[1][0])
+    cpu = tcp.calculate_ci_pairwise(torch.from_numpy(d)[None], geom, 2048)
+    assert torch.equal(ci.cpu(), cpu[0][0])
+
+
+def test_batch_mesh_on_card_bit_identical(cuda):
+    """shard_cohort_fn over four shards of the card gives the batch's
+    bits for every output."""
+    from ventjax_torch.dist import make_batch_mesh, shard_cohort_fn
+
+    shape, vox = (64, 64, 8), (1.5, 1.5, 10.0)
+    cfg = DEFAULT_CONFIG.replace(ci_max_defect_voxels=1024, n4_mask_pad=8192)
+    hp, mask, _ = make_cohort(8, shape, vox, seed=6)
+    h, m = torch.from_numpy(hp).to(cuda), torch.from_numpy(mask).to(cuda)
+    geom = build_geometry(vox, shape, cfg)
+    fn = lambda a, b: analyze_cohort(a, b, geom, cfg)
+    whole = fn(h, m)
+    meshed = shard_cohort_fn(fn, make_batch_mesh(devices=[cuda] * 4))(h, m)
+    for f in ("n4", "defect", "defect_lb", "defect_km", "ci_map"):
+        assert torch.equal(getattr(meshed, f), getattr(whole, f)), f
+    for name in ("snr", "vdp", "vdp_lb", "vdp_km", "ci"):
+        a, b = getattr(meshed.metrics, name), getattr(whole.metrics, name)
+        assert bool(((a == b) | (a.isnan() & b.isnan())).all()), name

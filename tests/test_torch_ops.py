@@ -173,3 +173,21 @@ def test_masked_quantiles_exact(cohort):
         jnp.asarray(vals), jnp.asarray(m))
     got = tk._masked_quantiles(_t(vals), _t(m), 4)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("L", [1, 2, 5, 64, 1000, 49152])
+def test_row_sums_fixed_order(L):
+    """ops.basic.row_sums: the float64 sum to float32 rounding, and a row's
+    bits the same alone and inside a batch (the property the batch mesh
+    needs)."""
+    from ventjax_torch.ops.basic import row_sums
+
+    x = torch.from_numpy(np.random.default_rng(L).normal(
+        size=(5, 3, L)).astype(np.float32))
+    got = row_sums(x)
+    want = x.double().sum(-1)
+    assert got.shape == (5, 3) and got.dtype == torch.float32
+    assert float((got.double() - want).abs().max()) <= 1e-5 * max(
+        1.0, float(x.double().abs().sum(-1).max()))
+    for i in range(5):
+        assert torch.equal(row_sums(x[i:i + 1]), got[i:i + 1])

@@ -126,7 +126,8 @@ def test_package_imports_no_jax():
         "for n in ('compat.vent_analysis', 'compat.ci_module', "
         "'report.screenshot', 'report.histogram', 'report.montage', "
         "'report.parula', 'ops.morphology', 'ops.wavelet', "
-        "'ops.fft_recon', 'io.twix', 'oracle.ci_oracle'):\n"
+        "'ops.fft_recon', 'io.twix', 'oracle.ci_oracle', 'dist.halo', "
+        "'dist.mesh'):\n"
         "    assert 'ventjax_torch.' + n in names, n\n"
         "assert ventjax_torch.Vent_Analysis.__module__ == "
         "'ventjax_torch.compat.vent_analysis'\n"

@@ -364,7 +364,7 @@ def test_import_guard_covers_the_facade_modules():
                  "report/screenshot.py", "report/histogram.py",
                  "ops/morphology.py", "ops/fft_recon.py", "io/twix.py",
                  "oracle/ci_oracle.py", "models/segmentation.py",
-                 "io/phantom_oof.py"):
+                 "io/phantom_oof.py", "dist/halo.py", "dist/mesh.py"):
         assert f"ventjax_torch/{path}" in _PORT_FILES, path
     # the checker sees the reference's module-level PIL import, and its
     # segmentation module's flax and optax

@@ -10,7 +10,7 @@ Usage:
   python -m ventjax_torch analyze --xenon X.dcm (--mask MASKDIR |
       --proton P.dcm --auto-mask [--seg-ckpt C.npz] [--seg-base 16])
       --out OUT [--irb mepo --id 0039 --visit 1 --treatment preAlb]
-      [--user RPT] [--no-ci] [--device cuda|cpu]
+      [--user RPT] [--no-ci] [--shard-slices N|auto] [--device cuda|cpu]
   python -m ventjax_torch train-seg --out DIR [--steps 200] [--batch 8]
       [--shape 128 128 16] [--base 16] [--seed 0] [--lr 1e-3]
       [--device cuda|cpu]
@@ -18,8 +18,9 @@ Usage:
       [--recalculate]
   python -m ventjax_torch twix --dat FILE.dat --out OUT
   python -m ventjax_torch cohort --manifest subjects.json --out OUT
-      [--batch 16] [--device cuda|cpu]
+      [--batch 16] [--mesh | --no-mesh] [--device cuda|cpu]
   python -m ventjax_torch serve --inbox IN --out OUT [--interval 5] [--once]
+      [--mesh | --no-mesh]
   python -m ventjax_torch doctor [--full]
   python -m ventjax_torch info
 
@@ -35,11 +36,19 @@ unless ``--seg-ckpt`` names another), checks it with ``mask_qc`` after any
 U-Net on one device and writes the port's ``.npz`` checkpoint,
 ``DIR/seg_ckpt.npz`` for ``--out DIR``.
 
+``analyze --shard-slices N`` slice-shards the CI map over N local devices
+of ``--device`` (``auto``: all of them; ``dist/halo.py``), bit-identical to
+the one-device map; a geometry that cannot shard exits 2 saying why.
+``cohort --mesh`` and ``serve --mesh`` split each batch over a batch mesh
+of the cards ``--device`` names (``cuda``: every local card).  Unlike the
+reference, one device is the default, and ``--no-mesh`` (the reference's
+flag) says so: the mesh's shards run one after another, each costing about
+a whole batch.
+
 Flags of the reference CLI that name features the port lacks are left out:
-``--shard-slices`` (slice-sharded CI needs ``dist/``), ``--no-mesh``,
-``--shard-export``, ``--dense-export`` (the port has one device and the
-dense pack) and ``--no-compile-cache`` (no XLA cache).  The ``gui`` command
-waits for its module.
+``--shard-export`` and ``--dense-export`` wait for the multi-process cohort
+driver (the port ships the dense pack), ``--no-compile-cache`` has no XLA
+cache to name.  The ``gui`` command waits for its module.
 """
 from __future__ import annotations
 
@@ -143,6 +152,19 @@ def _cmd_analyze(args) -> int:
         study = preset(args.irb)
         study.validate(treatment=args.treatment, visit=args.visit)
         cfg = study.config
+    if args.shard_slices:
+        if args.shard_slices == "auto":
+            from ventjax_torch.dist import mesh
+
+            n_shards = len(mesh.local_devices(args.device))
+        else:
+            try:
+                n_shards = int(args.shard_slices)
+            except ValueError:
+                print(f"error: --shard-slices must be an integer or 'auto', "
+                      f"got {args.shard_slices!r}", file=sys.stderr)
+                return 2
+        cfg = cfg.replace(ci_shard_slices=n_shards)
     mask_array = None
     if args.auto_mask:
         mask_array = _auto_mask(args, device)
@@ -210,7 +232,13 @@ def _cmd_analyze(args) -> int:
             args.denoise).cpu().numpy()
     v.calculate_VDP(thresh=args.thresh)
     if not args.no_ci:
-        v.calculate_CI()
+        try:
+            v.calculate_CI()
+        except ValueError as e:
+            # e.g. --shard-slices on a geometry the pairwise engine rejects,
+            # or more shards than the halo or the devices allow
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     v.metadata["analysisUser"] = args.user
     v.metadata["DE"] = args.de or ""
     v.metadata["FEV1"] = args.fev1 or ""
@@ -463,7 +491,7 @@ def _cmd_cohort(args) -> int:
         results = run_cohort(
             manifest, args.out, config=cfg, batch_size=args.batch,
             resume=not args.fresh, export_npz=args.npz, progress=progress,
-            device=device,
+            device=args.device, use_mesh=args.mesh,
         )
     ok = sum(1 for r in results if r.get("valid"))
     print(json.dumps({"subjects": len(results), "valid": ok,
@@ -538,7 +566,8 @@ def _cmd_serve(args) -> int:
         args.inbox, args.out, config=cfg, batch_size=args.batch,
         ready_marker=args.ready_marker, min_age=args.min_age,
         max_retries=args.max_retries, retry_backoff=args.retry_backoff,
-        settle_scans=args.settle_scans, export_npz=args.npz, device=device,
+        settle_scans=args.settle_scans, export_npz=args.npz,
+        device=args.device, use_mesh=args.mesh,
     )
 
     # Validate --prewarm specs FIRST: pure string parsing must fail fast,
@@ -661,6 +690,16 @@ def _add_device(p):
                    "CPU)")
 
 
+def _add_mesh(p):
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--mesh", action="store_true",
+                   help="split each batch over a batch mesh of the cards "
+                   "--device names ('cuda': every local card)")
+    g.add_argument("--no-mesh", action="store_true",
+                   help="one device (the default here; the reference's "
+                   "flag)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The argument parser (split from main so tests and docs can
     introspect the subcommand surface without invoking anything)."""
@@ -724,6 +763,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "(pickle-free; loads anywhere NumPy exists)")
     a.add_argument("--denoise", type=float, default=None, metavar="THRESH",
                    help="Haar-wavelet denoise the xenon volume first")
+    a.add_argument("--shard-slices", default=None, metavar="N|auto",
+                   help="oversize volumes: shard the CI slice axis over N "
+                   "local devices of --device ('auto' = all of them) by "
+                   "halo exchange, bit-identical to unsharded (requires the "
+                   "pairwise CI engine)")
     _add_device(a)
     a.set_defaults(fn=_cmd_analyze)
 
@@ -791,6 +835,7 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("--manifest", required=True)
     c.add_argument("--out", required=True)
     c.add_argument("--batch", type=int, default=None)
+    _add_mesh(c)
     c.add_argument("--fresh", action="store_true", help="ignore done-markers")
     c.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace (Chrome / Perfetto "
@@ -870,6 +915,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--npz", action="store_true",
                    help="also write each subject's versioned NPZ artifact")
     s.add_argument("--batch", type=int, default=None)
+    _add_mesh(s)
     s.add_argument("--max-defect", type=int, default=None,
                    help="static bound on defect voxels for CI (default 8192)")
     s.add_argument("--deterministic", action="store_true",

@@ -4,7 +4,8 @@ Counterpart of ``ventjax/compat/ci_module.py``.  ``calculate_CI(defectArray,
 vox, Rmax, type)`` returns the CI map the reference's thread-pool sphere
 growing produces (CI.py:107-145), computed on the device by the pairwise
 engine (kernel K3 on a card) or, where ``build_geometry`` gives the gather
-ladder's geometry, by the ladder.  The helper functions (multi_which,
+ladder's geometry, by the ladder; with ``config.ci_shard_slices > 1``, by
+the slice-sharded engine of ``dist/halo.py``.  The helper functions (multi_which,
 px2vec, vec2px, getSpherePix, getRadiiIndices, calculate_CV) are NumPy, for
 users who called them directly.
 """
@@ -120,13 +121,12 @@ def calculate_CI(
     same math).  The defect pad is ``defect_pad(defectArray)``; a tail
     overflow of the pairwise engine is retried once with a full-width tail
     (``tail_k = pad``), so the map is exact, never saturated by the pad.
+    With ``config.ci_shard_slices > 1`` the map is slice-sharded over that
+    many of ``device``'s local devices (``dist.calculate_ci_sharded``,
+    bit-identical), with the same retry; a geometry that cannot shard
+    raises a ValueError saying why.
     """
     cfg = config or DEFAULT_CONFIG
-    if cfg.ci_shard_slices and cfg.ci_shard_slices > 1:
-        raise ValueError(
-            f"ci_shard_slices={cfg.ci_shard_slices}: slice-sharded CI needs "
-            "the port of ventjax/dist, which is not done yet (ROADMAP.md §1 "
-            "item 6); set ci_shard_slices to 0 for the one-device map")
     dev = resolve_device(device)
     defect = np.asarray(defectArray)
     geom = build_geometry(
@@ -136,6 +136,24 @@ def calculate_CI(
     )
     k = defect_pad(defect)
     d = torch.from_numpy(defect.astype(np.float32))[None].to(dev)
+    if cfg.ci_shard_slices and cfg.ci_shard_slices > 1:
+        from ventjax_torch.dist.halo import calculate_ci_sharded
+
+        ci_map, _, ovf = calculate_ci_sharded(
+            d[0], geom, n_shards=cfg.ci_shard_slices, max_defect_voxels=k)
+        if bool(ovf):
+            # k >= n_def rules out a center overflow, so the flag means the
+            # per-shard tail budget (k // 8) or a halo message (k // 2 a
+            # side) overflowed; at full width (tail_k = halo_pad = k) no
+            # cause remains.
+            ci_map, _, ovf = calculate_ci_sharded(
+                d[0], geom, n_shards=cfg.ci_shard_slices,
+                max_defect_voxels=k, tail_k=k, halo_pad=k)
+            if bool(ovf):   # unreachable by construction; never silent
+                raise RuntimeError(
+                    "sharded CI still overflowed at full-width budgets — "
+                    "please report this geometry")
+        return ci_map.cpu().numpy().astype(np.float64)
     if isinstance(geom, CIPairwiseGeometry):
         ci_map, _, ovf = calculate_ci_pairwise(d, geom, max_defect_voxels=k)
         if bool(ovf[0]):

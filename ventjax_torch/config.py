@@ -6,8 +6,7 @@ with the default configuration runs the same algorithm.  Every field is
 immutable, so a config is hashable and can key a cache (``make_analyze_fn``).
 Fields that steer only the reference package (``n4_use_pallas``,
 ``compute_dtype``) are kept so that the two configs stay field for field
-alike; the port does not read them, and refuses ``ci_shard_slices > 1``
-(sharding waits for a port of ``dist/``).
+alike; the port does not read them.
 
 ``StudyPreset`` and ``STUDY_PRESETS`` are the per-study schemas of the
 reference GUI (GenXe, Mepo, Clinical), read by ``analyze --irb``.
@@ -74,8 +73,8 @@ class VentConfig:
     ci_saturate_rmax: bool = True
     # CI engine: "pairwise", "ladder" or "full" (all exact).
     ci_engine: str = "pairwise"
-    # Slice-axis sharding of the CI map over several devices (reference
-    # package only; the port's ci_module refuses more than 1).
+    # Slice-axis sharding of the compat CI map over this many devices
+    # (dist/halo.py); 0 or 1 = one device.
     ci_shard_slices: int = 0
 
     # ---- N4 bias-field correction (ITK defaults) ----------------------------

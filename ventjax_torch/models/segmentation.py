@@ -269,12 +269,13 @@ def train_step(state: TrainState, proton, mask) -> torch.Tensor:
 
 
 def make_sharded_train_step(*args, **kwargs):
-    """The reference's data- and space-parallel train step over a device
-    mesh.  Not ported: it waits for the port of ``dist/``."""
+    """The reference's data- and space-parallel train step over a
+    ("batch", "space") mesh.  Not ported: it waits for the "space" axis of
+    ``dist/`` (halo exchange of the U-Net's activations)."""
     raise NotImplementedError(
         "make_sharded_train_step is not ported: the sharded train step waits "
-        "for the port of dist/ (ROADMAP.md §1 item 6); train_step runs on "
-        "one card")
+        "for the space axis of dist/ (ROADMAP.md §1 item 6, part b); "
+        "train_step runs on one card")
 
 
 # ---------------------------------------------------------------------------

@@ -51,19 +51,37 @@ def gradient_border(a: torch.Tensor) -> torch.Tensor:
     return ((gr != 0) | (gc != 0)).to(torch.float32)
 
 
+def row_sums(x: torch.Tensor) -> torch.Tensor:
+    """Sums over the last axis in a fixed pairwise order: the row, padded
+    with zeros to a power of two, is halved by elementwise adds until one
+    column is left.  A lane's sum then has the same bits whatever the
+    batch size (torch's reduction kernels split a row by the number of
+    rows on a card), so shards of a batch sum as the batch does."""
+    L = x.shape[-1]
+    P = 1 << (L - 1).bit_length() if L > 1 else 1
+    if P != L:
+        x = torch.nn.functional.pad(x, (0, P - L))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
 def masked_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """[N] mean of x over the entries where the weight m is set."""
     w = _flat(m).to(x.dtype)
-    return (_flat(x) * w).sum(1) / w.sum(1)
+    s = row_sums(torch.stack([_flat(x) * w, w], dim=1))
+    return s[:, 0] / s[:, 1]
 
 
 def masked_std(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """[N] population std (ddof=0) of x over the masked entries."""
     w = _flat(m).to(x.dtype)
     xf = _flat(x)
-    n = w.sum(1)
-    mu = (xf * w).sum(1) / n
-    return torch.sqrt((w * (xf - mu[:, None]) ** 2).sum(1) / n)
+    s = row_sums(torch.stack([xf * w, w], dim=1))
+    n = s[:, 1]
+    mu = s[:, 0] / n
+    return torch.sqrt(row_sums(w * (xf - mu[:, None]) ** 2) / n)
 
 
 def masked_kth_smallest_multi(x: torch.Tensor, m: torch.Tensor,

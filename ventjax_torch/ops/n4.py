@@ -207,17 +207,26 @@ def n4_bias_correction(
         level_iters.append(itc)
         phi_totals.append(phi_total)
 
-    # Dense field: one separable evaluation per level.
+    # Dense field: one separable evaluation per level, as three batched
+    # GEMMs (bmm) whose batch entries have the same shape whatever N: a
+    # GEMM that folds the batch into a matrix dimension grows with N, and
+    # cuBLAS may then round it another way.  On the card a lane's field
+    # kept its bits in batches of 2-16 at the slice's shape, and a batch of
+    # one rounded another way (scripts/batch_size_bits.py).
     total_field = torch.zeros((N, H, W, D), dtype=torch.float32, device=dev)
     for level, phi_total in enumerate(phi_totals):
         n_elements = (control_points - 3) * 2 ** level
         ncp = n_elements + 3
-        tab = lambda n: torch.as_tensor(bspline_basis_1d(n, n_elements),
-                                        dtype=torch.float32, device=dev)
-        t = torch.einsum("hc,ncde->nhde", tab(H),
-                         phi_total.reshape(N, ncp, ncp, ncp))
-        t = torch.einsum("wd,nhde->nhwe", tab(W), t)
-        total_field = total_field + torch.einsum("se,nhwe->nhws", tab(D), t)
+        th, tw, ts = (torch.as_tensor(bspline_basis_1d(n, n_elements),
+                                      dtype=torch.float32,
+                                      device=dev).expand(N, n, ncp)
+                      for n in (H, W, D))
+        t = torch.bmm(th, phi_total)
+        t = t.reshape(N, H, ncp, ncp).transpose(1, 2).reshape(
+            N, ncp, H * ncp)                          # [N, d, (h, e)]
+        t = torch.bmm(tw, t)                          # [N, W, (h, e)]
+        t = torch.bmm(t.reshape(N, W * H, ncp), ts.transpose(1, 2))
+        total_field = total_field + t.reshape(N, W, H, D).transpose(1, 2)
 
     corrected = img * torch.exp(-total_field)
     out = (corrected,)

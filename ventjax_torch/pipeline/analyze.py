@@ -38,7 +38,9 @@ from ventjax_torch.ops.kmeans import vdp_kmeans
 from ventjax_torch.ops.n4 import n4_bias_correction
 from ventjax_torch.ops.snr import calculate_snr
 from ventjax_torch.ops.vdp import vdp_linear_binning, vdp_mean_anchored
-from ventjax_torch.pipeline.result import StudyMetrics, VentResult
+from ventjax_torch.pipeline.result import (
+    StudyMetrics, VentResult, map_leaves,
+)
 from ventjax_torch.utils.profiling import stage
 
 
@@ -194,11 +196,13 @@ def analyze_cohort_grouped(
     (converged lanes are frozen but still computed), and the CI engines
     size their work by the batch; groups keep each group's own convergence
     exit and CI occupancy.  Lanes are independent, so on the CPU the
-    results equal the ungrouped run's bit for bit.  On a card, the dense
-    N4 field's einsum is a cuBLAS GEMM whose shape grows with the batch,
-    and cuBLAS may pick another kernel for it: the N4 image may differ by
-    about one float32 rounding (the defect maps and VDPs did not).
-    N <= group_size, or N not a multiple of it, is the plain
+    results equal the ungrouped run's bit for bit.  On a card, the sums
+    that rounded by batch size no longer do (SNR's and the VDP mean's in
+    ``ops.basic.row_sums``' fixed order, N4's dense field by batched GEMMs
+    of a fixed shape): groups of 2 or more lanes gave the ungrouped bits at
+    the shapes measured (128x128x16 and 64x64x8).  A group of one lane may
+    round N4's field another way (cuBLAS at batch 1), within the pipeline's
+    tolerances.  N <= group_size, or N not a multiple of it, is the plain
     analyze_cohort.
     """
     B = hp.shape[0]
@@ -207,19 +211,7 @@ def analyze_cohort_grouped(
     parts = [analyze_cohort(hp[g:g + group_size], mask[g:g + group_size],
                             geom, config, export_compact)
              for g in range(0, B, group_size)]
-
-    def cat(xs):
-        if xs[0] is None:
-            return None
-        if isinstance(xs[0], dict):
-            return {k: cat([x[k] for x in xs]) for k in xs[0]}
-        if dataclasses.is_dataclass(xs[0]):
-            return type(xs[0])(**{f.name: cat([getattr(x, f.name)
-                                               for x in xs])
-                                  for f in dataclasses.fields(xs[0])})
-        return torch.cat(xs, dim=0)
-
-    return cat(parts)
+    return map_leaves(lambda xs: torch.cat(xs, dim=0), parts)
 
 
 def build_geometry(

@@ -1,8 +1,9 @@
-"""Cohort driver: streaming, batched, resumable multi-subject runs on one
-device.
+"""Cohort driver: streaming, batched, resumable multi-subject runs.
 
-Counterpart of ``ventjax/pipeline/cohort.py``, in one process on one
-device: the card unless the caller asks for the CPU (``device="cpu"``):
+Counterpart of ``ventjax/pipeline/cohort.py``, in one process: on the card
+unless the caller asks for the CPU (``device="cpu"``), and, when asked
+(``use_mesh``), on a batch mesh over every local card where there are
+several (``dist/mesh.py``):
 
 - a manifest (JSON list of {"id", "xenon", "mask", "proton"?}) names the
   cohort;
@@ -23,8 +24,9 @@ device: the card unless the caller asks for the CPU (``device="cpu"``):
 
 The device-to-host pack is dense: the N4 image in float32, the defect map
 in uint8, and the CI values at the defect compaction with their count
-(``_densify_ci`` rebuilds the map).  ventjax's compact pack and its
-multi-host export (``use_mesh``, ``shard_export``) are not ported.
+(``_densify_ci`` rebuilds the map).  ventjax's compact pack is not
+ported; its multi-process driver (process-0 export, ``shard_export``, the
+broadcast of the done flags) waits for a later slice.
 
 Decoding and exports go through the port's own ``ventjax_torch.io.dicom``,
 ``ventjax_torch.io.native`` and ``ventjax_torch.report.export``.
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from ventjax_torch.config import DEFAULT_CONFIG, VentConfig
+from ventjax_torch.dist import mesh as dmesh
 from ventjax_torch.io import dicom as dcm
 from ventjax_torch.ops.basic import compact_mask_indices
 from ventjax_torch.ops.ci_pairwise import CIPairwiseGeometry
@@ -195,16 +198,20 @@ class _GeometryRunner:
     """
 
     def __init__(self, shape, vox, config: VentConfig, batch_size: int,
-                 adaptive_pad: bool = False, device="cuda"):
+                 adaptive_pad: bool = False, device="cuda",
+                 mesh: Optional[dmesh.Mesh] = None):
         self.shape = tuple(shape)
         self.vox = tuple(vox)
         self.config = config
         self.bs = batch_size
         self.device = resolve_device(device)
+        # A batch mesh (use_mesh): each batch is split over its shards
+        # (dist.shard_cohort_fn), so bs is a multiple of the mesh size.
+        self.mesh = mesh
         # adaptive_pad (the serving path): pad a partial batch to the next
-        # power of two >= its size (at most bs) instead of to bs, so a
-        # single subject moves 1 lane, not bs zero lanes.  Offline cohort
-        # runs keep the fixed pad.
+        # power of two >= its size (at most bs, a multiple of the mesh
+        # size) instead of to bs, so a single subject moves 1 lane, not bs
+        # zero lanes.  Offline cohort runs keep the fixed pad.
         self.adaptive = adaptive_pad
         self.items: List[Tuple[Dict, Tuple]] = []
         # Sticky buckets: start small, grow on overflow, never shrink
@@ -248,7 +255,9 @@ class _GeometryRunner:
         """Padded size for an n-subject batch (see adaptive_pad above)."""
         if not self.adaptive:
             return self.bs
-        return min(_pow2_at_least(n, floor=1), self.bs)
+        n_dev = self.mesh.size if self.mesh is not None else 1
+        eff = min(max(_pow2_at_least(n, floor=1), n_dev), self.bs)
+        return -(-eff // n_dev) * n_dev
 
     def dispatch(self, batch):
         """Analyse one padded batch at the current sticky buckets.
@@ -274,9 +283,14 @@ class _GeometryRunner:
                 self._n4_cap)
             pads = (self.ci_bucket, self.n4_bucket, self.ci_tail_full)
         cfg, geom = self._fn(*pads)
-        hp = torch.from_numpy(hp_np).to(self.device)
-        mask = torch.from_numpy(mask_np).to(self.device)
-        res = analyze_cohort(hp, mask, geom, cfg)
+        hp, mask = torch.from_numpy(hp_np), torch.from_numpy(mask_np)
+        if self.mesh is None:
+            res = analyze_cohort(hp.to(self.device), mask.to(self.device),
+                                 geom, cfg)
+        else:   # each shard moves its own lanes to its device
+            res = dmesh.shard_cohort_fn(
+                lambda h, m: analyze_cohort(h, m, geom, cfg), self.mesh)(
+                    hp, mask)
         B = res.defect.shape[0]
         V = int(np.prod(self.shape))
         # The CI values at the engines' own ascending-flat defect
@@ -346,6 +360,7 @@ def run_cohort(
     export_npz: bool = False,
     adaptive_pad: bool = False,
     device="cuda",
+    use_mesh: bool = False,
 ) -> List[Dict]:
     """Analyse every subject of the manifest; returns per-subject metrics.
 
@@ -362,11 +377,22 @@ def run_cohort(
     export threads as well as the dispatch thread.
 
     ``runners`` lets a long-lived caller keep the per-geometry runners (and
-    their sticky pads) across calls; config, batch_size and adaptive_pad
-    must then stay fixed (the runners keep the device they were made on).
-    ``adaptive_pad`` pads a partial batch to the
+    their sticky pads) across calls; config, batch_size, adaptive_pad and
+    use_mesh must then stay fixed (the runners keep the device and mesh
+    they were made on).  ``adaptive_pad`` pads a partial batch to the
     next power of two instead of to batch_size.
+
+    ``use_mesh`` with more than one local device that ``device`` names
+    (``dist.local_devices``: every visible card for ``"cuda"``, the one
+    card of ``"cuda:1"``) splits each batch over a batch mesh of them
+    (``dist.shard_cohort_fn``; batch_size, default max(devices, 8), rounded
+    up to a multiple of the device count); with one device it changes
+    nothing.  It is off by default, unlike ventjax's: the mesh runs its
+    shards one after another on the host thread, and each shard of this
+    launch- and sync-bound pipeline costs about a whole batch, so n cards
+    would take about n times one card's time.
     """
+    devices = dmesh.local_devices(device) if use_mesh else None
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     todo: List[Dict] = []
@@ -384,7 +410,11 @@ def run_cohort(
     if not todo:
         return results
 
-    bs = batch_size or 8
+    devices = devices or [device]
+    n_dev = len(devices)
+    bs = batch_size or max(n_dev, 8)
+    bs = -(-bs // n_dev) * n_dev   # divisible by the mesh size
+    mesh = dmesh.make_batch_mesh(devices=devices) if n_dev > 1 else None
     if runners is None:
         runners = {}
     results_lock = threading.Lock()
@@ -479,7 +509,7 @@ def run_cohort(
         if geo not in runners:
             runners[geo] = _GeometryRunner(geo[0], geo[1], config, bs,
                                            adaptive_pad=adaptive_pad,
-                                           device=device)
+                                           device=device, mesh=mesh)
         runner = runners[geo]
         if runner.add(entry, decoded):
             batch = runner.take_batch()

@@ -58,3 +58,20 @@ class VentResult:
     ci_map: torch.Tensor
     metrics: StudyMetrics
     export: Optional[dict] = None
+
+
+def map_leaves(fn, parts):
+    """``fn`` applied to each list of corresponding tensor leaves of
+    ``parts``, results of one structure (VentResults, StudyMetrics, dicts
+    or tensors), rebuilt in that structure; a None leaf stays None.
+    ``map_leaves(lambda xs: torch.cat(xs), parts)`` concatenates lanes."""
+    first = parts[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: map_leaves(fn, [p[k] for p in parts]) for k in first}
+    if dataclasses.is_dataclass(first):
+        return type(first)(**{
+            f.name: map_leaves(fn, [getattr(p, f.name) for p in parts])
+            for f in dataclasses.fields(first)})
+    return fn(parts)

@@ -40,8 +40,9 @@ provides that on top of the cohort driver (pipeline/cohort.py):
   *in place* (any file in its directory getting a newer mtime) re-arms it
   immediately with a fresh retry budget — no service restart needed.
 
-The watcher is a single-process frontend to one card; the reference
-package's mesh option (``use_mesh``) is not ported.
+The watcher is a single-process frontend; with ``use_mesh`` (off by
+default, as in the cohort driver) a machine with several cards splits each
+batch over a batch mesh of them.
 """
 from __future__ import annotations
 
@@ -177,7 +178,9 @@ class WatchService:
     sticky pads survive across scans (the whole point of a daemon vs
     repeated ``cohort`` invocations).  Runs on ``device``: the current
     CUDA card by default, the CPU only when asked; without a card the
-    default raises here, before any scan.
+    default raises here, before any scan.  ``use_mesh`` is passed to every
+    ``run_cohort`` call, with ``device`` as given (``"cuda"``: a batch mesh
+    of every card where there are several).
     """
 
     def __init__(
@@ -193,8 +196,11 @@ class WatchService:
         settle_scans: int = 0,
         export_npz: bool = False,
         device="cuda",
+        use_mesh: bool = False,
     ):
         self.device = resolve_device(device)
+        self.use_mesh = use_mesh
+        self._cohort_device = device   # the mesh's devices, as named
         self.inbox = inbox
         self.out_dir = out_dir
         self.config = config
@@ -297,7 +303,8 @@ class WatchService:
                            config=self.config, batch_size=self.batch_size,
                            resume=False, runners=self.runners,
                            progress=progress, adaptive_pad=True,
-                           device=self.device)
+                           device=self._cohort_device,
+                           use_mesh=self.use_mesh)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         dt = time.time() - t0
@@ -370,7 +377,8 @@ class WatchService:
                 todo, self.out_dir, config=self.config,
                 batch_size=self.batch_size, resume=True,
                 runners=self.runners, export_npz=self.export_npz,
-                adaptive_pad=True, device=self.device,
+                adaptive_pad=True, device=self._cohort_device,
+                use_mesh=self.use_mesh,
             )
         # A .done marker resolves the subject terminally for this inbox
         # state — including analysis-invalid subjects (e.g. empty mask),
