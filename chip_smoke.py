@@ -6,7 +6,7 @@ Run from the repository root:  python3 chip_smoke.py [--parent DIR]
 Phases, in order; any failure raises and the script exits non-zero:
 1. device: CUDA must be available; print the card's name and power limit;
 2. build: compile the CUDA kernels in ventjax_torch/csrc with nvcc, one
-   nvcc per source, all at once;
+   nvcc per source (five libraries), all at once;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes.  Tolerances: K1/K2/K6/K7 relative 1e-5 (the same
    float32 algorithm, only the summation order differs), K1 at every ncp N4
@@ -20,12 +20,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    K3 (on severe-load maps at K 1024, 2048, 4096), K9, K8 bit-equal
    (integers, and copied values), K9 also at ragged V (4,112, 100,003), on
    rows whose flags lie only in their last tile, and on a relaunch right
-   after a call of another shape (its workspace is left zero);
+   after a call of another shape (its workspace is left zero); N4's
+   dense-field kernel (n4_field, port-only: ventjax has an einsum there) on
+   N4's lattices of the headline batch (N 16, 128x128x16, ncp 4, 5, 7,
+   11) bit-equal to its plain version and on relaunch, and each lane's
+   field bit-identical in batches of 1, 2, 4, 8 and 16;
 4. paths, each with the launch counts set to 0 just before and read just
    after it:
    a. the slice: 16 phantoms of 128x128x16 through ventjax_torch.pipeline.
       analyze_cohort (N4 pad and CI pad sized as bench.py sizes them),
-      launching K1, K2, K4, K5 and K3, with clean flags and finite metrics;
+      launching K1, K2, K4, K5, K3 and the dense-field kernel, with clean
+      flags and finite metrics;
       a second run gives the same bits (N4, defect maps, CI map), and so
       do two N4 runs with their iteration counts; lanes 0 and 1 are held
       against the port's own CPU path;
@@ -120,8 +125,27 @@ Phases, in order; any failure raises and the script exits non-zero:
       NCCL, each rank's slab of the oversize map bit-equal; K3 on each
       shard's own (centers, local + halo witnesses), Kw = 2K on an
       interior shard, bit-equal to its plain version;
+   j. the multi-process cohort driver: two ranks of this script (--rank
+      with a job) under gloo sharing the card, each running run_cohort
+      with use_mesh over a RankMesh on path e's 32 studies, with process-0
+      export and with shard_export, each mode in its own counted window
+      in every rank (K1, K2, K4, K5, K3 and the dense-field kernel
+      required on both ranks), then a second call that resumes everything
+      without a launch; then one NCCL rank per card with process-0 export;
+      every export byte-equal to path e's one-process run of the same
+      studies (metrics.json but for the export_process stamp of
+      shard_export, whose files must come from both ranks); one-lane
+      shards arise there (the partial batch, the severe study's retry);
+   k. the GUI controller headless on the card: VentController (no device
+      argument) over path g's typical study, load, calculate VDP,
+      calculate CI and export in one counted window (K1, K2, K4, K5, K3 and
+      the dense-field kernel required), the statuses, colours and button
+      states of tests/test_gui.py (the export orange: exported, no archive
+      path), the in-progress blue statuses, VDPs within 0.1 pp of
+      Vent_Analysis on the same study and its CI map equal, and the
+      export's files;
    then the doctor: run_doctor(full=True) on the card, every required
-   check passed and kernel_build naming the four libraries;
+   check passed and kernel_build naming the five libraries;
 5. timing (information only): the slice's volumes/s, the N4 and CI stages
    (pairwise, densify, ladder) by the host clock; per kernel, its device
    time per call (torch.profiler), its plain version's, the one PyTorch
@@ -139,12 +163,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    by the host clock; path i's sharded and unsharded oversize CI and the
    slice on the mesh and as one batch by the host clock, and K3's device
    time on an interior shard (K 4096, Kw 8192) beside the unsharded K3 on
-   the whole oversize volume;
+   the whole oversize volume; the dense-field kernel's device time beside
+   its plain version's and the 12 bmm it replaced (three a level), and its
+   bound; path j's subjects/s for each export mode and for the one-process
+   run;
 6. with --parent DIR: DIR/n4_fit.cu, DIR/n4_sharpen.cu, DIR/ci_head.cu and
    DIR/ci_densify.cu (an older version of those sources, with the same C
-   interfaces) built under their own names and timed against this tree in
-   turns (older, this, this, older): K1 and K2 at every ncp, K6 and K7 at
-   ncp 11, K4 and K5 on both residuals, K3 at K 512, 2048 and 4096, K9 and
+   interfaces; the dense-field kernel is this tree's in both arms) built
+   under their own names and timed against this tree in turns (older,
+   this, this, older): K1 and K2 at every ncp, K6 and K7 at ncp 11, K4 and K5 on both residuals, K3 at K 512, 2048 and 4096, K9 and
    K8 at K 512 and 4096.  Required bit-equal to them: K4, K5, K3, K9, K8,
    K2's field', logu', min and max, K6's delta and K7's d, and K2's and
    K7's sums (or, where a design moved their order, within KERNEL_RTOL of
@@ -152,19 +179,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    tree's in turns (its outputs required bit-identical), and one profiled
    batch on the older kernels (chiprun_out/profile_slice_parent.txt);
 7. one slice batch under torch.profiler: its device kernels, device time
-   and busy share, the rows of K1, K2, K3, K4 and K5 (the table goes to
-   chiprun_out/profile_slice.txt);
+   and busy share, the rows of K1, K2, K3, K4, K5 and the dense field
+   (the table goes to chiprun_out/profile_slice.txt);
 8. one JSON line of kernel records (``launches_path_g``,
-   ``launches_path_h`` and ``launches_path_i``: each kernel's launches in
-   path g, in path h's analyze --auto-mask and in path i's entries summed,
+   ``launches_path_h``, ``launches_path_i``, ``launches_path_j`` and
+   ``launches_path_k``: each kernel's launches in path g, in path h's
+   analyze --auto-mask, in path i's entries summed, in path j's ranks and
+   modes summed and in path k,
    ``launches_path_i_by_entry`` by entry; K3's ``path_i_shard`` record;
    ``timed_by_events``: the keys whose times CUDA events took, host launch
    gaps included, where torch.profiler lost the activities), then the
    result line {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the ventjax package.  With
---rank PORT RANK WORLD BACKEND DIR it runs one rank of path i and nothing
-else.
+--rank PORT RANK WORLD BACKEND DIR it runs one rank of path i (or of path j
+where DIR holds a job.json) and nothing else.
 """
 from __future__ import annotations
 
@@ -184,7 +213,11 @@ BATCH = 16
 SEED = 0
 BINS = 200           # N4 histogram bins (VentConfig default)
 KERNEL_RTOL = 1e-5   # same f32 algorithm; only the summation order differs
-LIBS = ("n4_fit", "n4_sharpen", "ci_head", "ci_densify")
+LIBS = ("n4_fit", "n4_sharpen", "ci_head", "ci_densify", "n4_field")
+# the libraries an older tree (--parent) is built for: the dense-field kernel
+# comes from this tree in both arms of a turn
+PARENT_LIBS = LIBS[:4]
+FIELD_NCPS = (4, 5, 7, 11)   # N4's levels at the defaults
 
 
 def log(*args):
@@ -303,7 +336,40 @@ def phase_kernels(hp, mask, n4_pad, dev):
     errs["head_counts"] = [0.0]
     errs.update(check_sharpen(hp, mask, n4_pad, dev))
     errs.update(check_densify(gen, dev))
+    check_field(slice_lattices(hp, mask, n4_pad, dev))
+    errs["n4_field"] = [0.0]
     return {k: max(v) for k, v in errs.items()}
+
+
+def slice_lattices(hp, mask, n4_pad, dev):
+    """N4's per-level lattices [N, sum ncp^3] of the headline batch."""
+    from ventjax_torch.ops import n4 as tn4
+
+    return tn4.n4_bias_correction(
+        torch.from_numpy(hp).to(dev), torch.from_numpy(mask).to(dev),
+        mask_pad=n4_pad, return_phi=True)[1]
+
+
+def check_field(phi):
+    """The dense-field kernel bit-equal to its plain version on N4's
+    lattices of the headline batch (N 16, SHAPE, ncp 4/5/7/11), and each
+    lane's field bit-identical in batches of 1, 2, 4, 8 and 16."""
+    from ventjax_torch.ops import n4_field_cuda as nf
+
+    got = nf.n4_field(phi, SHAPE, FIELD_NCPS)
+    equal = bool(torch.equal(got, nf.n4_field_plain(phi, SHAPE, FIELD_NCPS)))
+    relaunch = bool(torch.equal(got, nf.n4_field(phi, SHAPE, FIELD_NCPS)))
+    by_n = {}
+    for n in (1, 2, 4, 8, 16):
+        by_n[n] = all(bool(torch.equal(nf.n4_field(
+            phi[i:i + n].contiguous(), SHAPE, FIELD_NCPS), got[i:i + n]))
+            for i in range(0, BATCH, n))
+    log(f"n4_field N={BATCH} {SHAPE} ncp {FIELD_NCPS}: bit_equal={equal} "
+        f"relaunch={relaunch} same bits in batches of "
+        f"{json.dumps(by_n)}; max |field| {float(got.abs().max()):.4f}")
+    if not (equal and relaunch and all(by_n.values())):
+        raise AssertionError("the dense-field kernel differs from its plain "
+                             "version or across batch sizes")
 
 
 def check_fit(hp, mask, n4_pad, dev, gen, freeze, k6_k7):
@@ -627,10 +693,10 @@ def k3_args(coords, geom):
 
 def counters():
     from ventjax_torch.ops import (ci_cuda, ci_densify_cuda, n4, n4_cuda,
-                                   n4_sharpen_cuda)
+                                   n4_field_cuda, n4_sharpen_cuda)
 
     return (n4_cuda.LAUNCHES, n4_sharpen_cuda.LAUNCHES, ci_cuda.LAUNCHES,
-            ci_densify_cuda.LAUNCHES, n4.HOST_SYNCS)
+            ci_densify_cuda.LAUNCHES, n4_field_cuda.LAUNCHES, n4.HOST_SYNCS)
 
 
 def reset_counts():
@@ -673,7 +739,7 @@ def phase_slice(hp, mask, n4_pad, dev):
     syncs = n4.HOST_SYNCS["n4"]
     log(f"slice launches: {json.dumps(launches)}; N4 host syncs: {syncs}")
     path = ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
-            "sharpen_resid", "head_counts")
+            "sharpen_resid", "head_counts", "n4_field")
     if not all(launches[k] > 0 for k in path):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
@@ -974,7 +1040,7 @@ def phase_cohort(dev):
             "device": runner.device.type == "cuda",
             "kernels_launched": all(launches[k] > 0 for k in (
                 "fit_moment", "fit_delta_conv_field", "sharpen_hist",
-                "sharpen_resid", "head_counts")),
+                "sharpen_resid", "head_counts", "n4_field")),
         }
         log(f"cohort launches: {json.dumps(launches)}; final pads ci "
             f"{runner.ci_bucket} n4 {runner.n4_bucket}; batches run "
@@ -1747,11 +1813,17 @@ def capture_k3(fn):
 
 
 def rank_main(port, rank, world, backend, data):
-    """One rank of a torch.distributed group on the card: the halo CI of
-    data/defect.npy, one shard per rank, its slab required bit-equal to the
-    unsharded map data/ci.npy and the all-reduced saturated count to
-    data/nsat.npy's.  Prints one RANK_OK line."""
+    """One rank of a torch.distributed group on the card.  Where
+    data/job.json exists, path j's cohort driver (rank_cohort); else path
+    i's halo CI of data/defect.npy, one shard per rank, its slab required
+    bit-equal to the unsharded map data/ci.npy and the all-reduced
+    saturated count to data/nsat.npy's.  Prints one RANK_OK line."""
+    import os
+
     import torch.distributed as tdist
+
+    if os.path.exists(os.path.join(data, "job.json")):
+        return rank_cohort(port, int(rank), int(world), backend, data)
 
     from ventjax_torch.dist import (
         initialize_multihost, make_rank_mesh, make_sliced_ci_fn,
@@ -1786,6 +1858,54 @@ def rank_main(port, rank, world, backend, data):
         and out["backend"] == backend and out["k3_launches"] > 0
     if not ok:
         raise AssertionError(f"rank {rank}: {out}")
+
+
+def rank_cohort(port, rank, world, backend, data):
+    """One rank of path j: run_cohort with use_mesh over a RankMesh of the
+    group, once for each mode of data/job.json ("p0": process-0 export;
+    "shard": shard_export; "lane": process-0 export at the job's batch
+    size for that mode), each in its own counted window and followed by a
+    call that must resume everything; prints one RANK_OK line with each
+    mode's seconds, launch counts and resume counts.  A warm-up call on
+    two studies, into its own directory, runs first."""
+    import torch.distributed as tdist
+
+    from ventjax_torch.dist import initialize_multihost
+    from ventjax_torch.pipeline import cohort as tc
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke --rank: no CUDA card")
+    with open(f"{data}/job.json") as f:
+        job = json.load(f)
+    initialize_multihost(f"localhost:{port}", world, rank, backend=backend)
+    manifest = tc.load_manifest(job["manifest"])
+    out = {"rank": rank, "world": world, "backend": tdist.get_backend(),
+           "modes": {}}
+    # a fresh process pays its first batch's one-time costs (libraries,
+    # context, FFT plans) outside the timed modes, as path e's process has
+    tc.run_cohort(manifest[:2], f"{data}/warm",
+                  batch_size=job["batch"]["p0"], device="cuda",
+                  use_mesh=True)
+    for mode in job["modes"]:
+        kw = dict(batch_size=job["batch"][mode], device="cuda",
+                  use_mesh=True, shard_export=mode == "shard")
+        tdist.barrier()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = tc.run_cohort(manifest, job["out"][mode], **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        reset_counts()
+        again = tc.run_cohort(manifest, job["out"][mode], **kw)
+        out["modes"][mode] = {
+            "s": round(wall, 3), "launches": launches,
+            "resume_launches": launch_counts(), "results": len(results),
+            "valid": sum(1 for r in results if r.get("valid")),
+            "resumed": len(again)}
+    tdist.destroy_process_group()
+    print("RANK_OK " + json.dumps(out), flush=True)
 
 
 def start_ranks(world, backend, data):
@@ -2061,9 +2181,219 @@ def phase_dist(dev, cfg, geom, hp_d, mask_d, res):
     return launches, by_entry, times, k3
 
 
+# ---------------------------------------------------------------------------
+# Path j: the multi-process cohort driver; path k: the GUI controller
+# ---------------------------------------------------------------------------
+
+PATH_KERNELS = ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
+                "sharpen_resid", "head_counts", "n4_field")
+
+
+def exports_equal(out, ref, manifest, stamped):
+    """Every file of each subject in out byte-equal to ref's (metrics.json
+    equal but for the export_process stamp where stamped), and the ranks
+    that stamped them."""
+    import os
+
+    same, ranks = True, set()
+    for e in manifest:
+        sid = e["id"]
+        for f in (".done", "metrics.json", f"{sid}_dataArray.nii",
+                  f"{sid}.json"):
+            a, b = (os.path.join(o, sid, f) for o in (out, ref))
+            if not (os.path.exists(a) or os.path.exists(b)):
+                continue
+            if not (os.path.exists(a) and os.path.exists(b)):
+                return False, ranks
+            da, db = open(a, "rb").read(), open(b, "rb").read()
+            if f == "metrics.json" and stamped:
+                ma, mb = json.loads(da), json.loads(db)
+                if "export_process" in ma:
+                    ranks.add(ma.pop("export_process"))
+                same &= json.dumps(ma, sort_keys=True) == json.dumps(
+                    mb, sort_keys=True)
+            else:
+                same &= da == db
+    return same, ranks
+
+
+def phase_multiproc(dev):
+    """Path j: run_cohort with use_mesh over a RankMesh of two gloo ranks
+    of this script sharing the card (--rank with a job), on path e's 32
+    studies, with process-0 export and with shard_export at path e's batch
+    of 16 (8 lanes a rank), and with process-0 export at a batch of 2 (one
+    lane a rank: the dense field of a one-lane shard); then one NCCL rank
+    per card with process-0 export.  Every export byte-equal to the
+    one-process run at the same batch size (path e's run at 16;
+    metrics.json but for the rank stamp of shard_export), every rank
+    launching K1, K2, K4, K5, K3 and the dense-field kernel in each mode's
+    own window, the shard run's files written by both ranks, each second
+    call resuming everything without a launch.  Returns subjects/s per
+    mode and the launch counts summed over ranks and modes."""
+    import os
+    import tempfile
+
+    from ventjax_torch.pipeline import cohort as tc
+
+    t_path = time.perf_counter()
+    checks, rates = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        manifest = write_cohort(os.path.join(root, "cohort"))
+        mpath = os.path.join(root, "manifest.json")
+        with open(mpath, "w") as f:
+            json.dump(manifest, f)
+        batch = {"p0": COHORT_BATCH, "shard": COHORT_BATCH, "lane": 2}
+        refs = {}
+        for bs in sorted(set(batch.values()), reverse=True):
+            refs[bs] = os.path.join(root, f"one_bs{bs}")
+            t0 = time.perf_counter()
+            tc.run_cohort(manifest, refs[bs], batch_size=bs, device=dev)
+            rates[f"one_process_bs{bs}"] = COHORT_STUDIES / (
+                time.perf_counter() - t0)
+
+        def job(name, modes):
+            data = os.path.join(root, name)
+            os.makedirs(data)
+            with open(os.path.join(data, "job.json"), "w") as f:
+                json.dump({"manifest": mpath, "modes": modes, "batch": batch,
+                           "out": {m: os.path.join(root, f"{name}_{m}")
+                                   for m in modes}}, f)
+            return data
+
+        gloo = finish_ranks(start_ranks(2, "gloo", job("gloo", [
+            "p0", "shard", "lane"])), timeout=480)
+        nccl = finish_ranks(start_ranks(torch.cuda.device_count(), "nccl",
+                                        job("nccl", ["p0"])), timeout=480)
+        log("multiproc ranks: " + json.dumps(gloo + nccl))
+        checks["gloo_two_ranks"] = [(r["backend"], r["world"])
+                                    for r in gloo] == [("gloo", 2)] * 2
+        checks["nccl_one_rank_per_card"] = all(
+            r["backend"] == "nccl" for r in nccl) \
+            and len(nccl) == torch.cuda.device_count()
+        launches = {}
+        for tag, recs in (("gloo", gloo), ("nccl", nccl)):
+            for r in recs:
+                for mode, m in r["modes"].items():
+                    key = f"{tag}_{mode}_rank{r['rank']}"
+                    checks[f"{key}_kernels"] = all(
+                        m["launches"][k] > 0 for k in PATH_KERNELS)
+                    checks[f"{key}_resume_no_launch"] = not any(
+                        m["resume_launches"].values())
+                    checks[f"{key}_subjects"] = (
+                        m["results"] == m["resumed"] == len(manifest)
+                        and m["valid"] == COHORT_STUDIES)
+                    for k, v in m["launches"].items():
+                        launches[k] = launches.get(k, 0) + v
+            for mode in recs[0]["modes"]:
+                same, ranks = exports_equal(
+                    os.path.join(root, f"{tag}_{mode}"), refs[batch[mode]],
+                    manifest, stamped=mode == "shard")
+                checks[f"{tag}_{mode}_exports_equal_one_process"] = same
+                if mode == "shard":
+                    checks["shard_files_from_both_ranks"] = ranks == {0, 1}
+                else:
+                    checks[f"{tag}_{mode}_unstamped"] = not ranks
+                rates[f"{tag}_{mode}"] = COHORT_STUDIES / recs[0]["modes"][
+                    mode]["s"]
+    checks = {k: bool(v) for k, v in checks.items()}
+    log(f"multiproc checks: {json.dumps(checks)}")
+    if not all(checks.values()):
+        raise AssertionError(f"the multi-process path failed: {checks}")
+    log(f"time multiproc (host clock): subjects/s "
+        f"{json.dumps({k: round(v, 3) for k, v in rates.items()})}; path "
+        f"{time.perf_counter() - t_path:.1f} s; launches (both ranks, both "
+        f"modes) {json.dumps(launches)}")
+    return rates, launches
+
+
+def phase_gui(dev):
+    """Path k: the GUI controller headless on the card (its default
+    device): load, calculate VDP, calculate CI and export on path g's
+    typical study, in one counted window; the statuses, colours and button
+    states tests/test_gui.py expects; the kernels of the path launched;
+    VDPs within 0.1 pp of Vent_Analysis on the same study and its CI map
+    equal; the export's files (the PNG needs Pillow: without it the export
+    must fail red, as the reference's controller does)."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from ventjax_torch.compat import Vent_Analysis
+    from ventjax_torch.gui.controller import DONE, GuiState, VentController
+
+    has_pil = importlib.util.find_spec("PIL") is not None
+    checks = {}
+    with tempfile.TemporaryDirectory() as root:
+        typ = facade_studies(root)["typical"]
+        ref = Vent_Analysis(**typ)
+        ref.calculate_VDP()
+        ref.calculate_CI()
+        out = os.path.join(root, "gui_out")
+        c = VentController(GuiState(
+            dicom_path=typ["xenon_path"], mask_path=typ["mask_path"],
+            proton_path=typ["proton_path"], export_path=out, user="RPT"))
+        seen = []
+        c.on_status = lambda st: seen.append((st.text, st.color))
+        steps = []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        for name, fn in (("load", c.load_from_paths),
+                         ("vdp", c.calculate_vdp), ("ci", c.calculate_ci)):
+            steps.append((name, fn(), c.status.text, c.status.color))
+        c.select_irb("mepo")
+        c.state.mepo_id, c.state.mepo_visit = "0039", "2"
+        c.state.mepo_treatment = "preAlb"
+        steps.append(("export", c.export(today="250101"), c.status.text,
+                      c.status.color))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        want = [("load", True, "Vent_Analysis loaded", "green"),
+                ("vdp", True, "VDP Calculated", "green"),
+                ("ci", True, "CI Calculated successfully", "green")]
+        checks["statuses"] = steps[:3] == want
+        if has_pil:
+            checks["export_status"] = steps[3] == (
+                "export", True, "Data Successfully Exported but not "
+                "Archived...", "orange")
+        else:
+            checks["export_status"] = not steps[3][1] and steps[3][2] \
+                .startswith("ERROR: export failed") and steps[3][3] == "red"
+        checks["in_progress_blue"] = all(x in seen for x in (
+            ("Calculating VDP...", "blue"), ("Calculating CI...", "blue"),
+            ("Exporting Data...", "blue")))
+        checks["buttons"] = all(c.buttons[b] == DONE for b in (
+            "initialize", "calcvdp", "calcci")) and (
+            c.buttons["export"] == DONE) == has_pil
+        checks["on_the_card"] = c.study.device.type == "cuda"
+        checks["kernels"] = all(launches[k] > 0 for k in PATH_KERNELS)
+        dvdp = max(abs(float(c.study.metadata[k]) - float(ref.metadata[k]))
+                   for k in ("VDP", "VDP_lb", "VDP_km"))
+        checks["vdp_within_0.1pp"] = dvdp < 0.1
+        checks["ci_map_equal"] = np.array_equal(c.study.CIarray,
+                                                ref.CIarray)
+        if has_pil:
+            base = c.study.metadata["fileName"]
+            exp = os.path.join(out, "VentAnalysis_RPT_250101")
+            files = set(os.listdir(exp))
+            checks["export_files"] = base.startswith("Mepo0039_") \
+                and base.endswith("_visit2_preAlb") and {
+                    f"{base}.json", f"{base}.pkl", f"{base}.png",
+                    f"{base}_dataArray.nii", "defectDICOMS"} <= files
+        log(f"gui steps: {json.dumps(steps)}; launches {json.dumps(launches)}"
+            f"; max |dVDP| {dvdp:.3e} pp against Vent_Analysis; "
+            f"{wall:.2f} s for the four events (host clock)")
+    checks = {k: bool(v) for k, v in checks.items()}
+    log(f"gui checks: {json.dumps(checks)}")
+    if not all(checks.values()):
+        raise AssertionError(f"the GUI path failed: {checks}")
+    return launches, wall
+
+
 def phase_doctor():
     """The deployment self-check on the card: every required check passed
-    and kernel_build naming the four libraries."""
+    and kernel_build naming the five libraries."""
     from ventjax_torch.utils.doctor import run_doctor
 
     t0 = time.perf_counter()
@@ -2120,9 +2450,10 @@ def device_ms(fn, reps=20, tries=5, flush=None, count=False):
     torch.profiler, so host launch overhead between them does not count.
     The profiler can lose the first activities of a session (a one-call
     session once recorded none, a K1 turn a tenth of the others; some
-    sessions lost their first seven), so each session starts with calls
-    that are not counted, and spin kernels mark one call and then the reps
-    timed calls (the last three marks; without flush the first may be
+    sessions lost their first seven, a flushed K5 session its first ten),
+    so each session starts with short spin kernels and calls that are not
+    counted, and spin kernels mark one call and then the reps timed calls
+    (the last three marks; without flush the fourth from last may be
     lost); a session counts only if the timed calls hold reps times the one
     call's activities.  With flush (a call that evicts the L2 cache), every
     counted call follows a flush, and the activities named as a lone
@@ -2136,6 +2467,8 @@ def device_ms(fn, reps=20, tries=5, flush=None, count=False):
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(24):   # fillers for the activities it loses
+                torch.cuda._sleep(100)
             for _ in range(8):
                 fn()
             torch.cuda._sleep(1000)
@@ -2151,7 +2484,7 @@ def device_ms(fn, reps=20, tries=5, flush=None, count=False):
         events = device_events(prof)
         marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
         seen.append((len(events), len(marks)))
-        if len(marks) != 4 and (flush is not None or len(marks) != 3):
+        if len(marks) < 4 and (flush is not None or len(marks) != 3):
             continue
         skip = {e.name for e in events[marks[-4] + 1:marks[-3]]} \
             if flush is not None else set()
@@ -2305,6 +2638,35 @@ def k2_record(phi, r1, wv, logv, done):
             "library_ms": None, "bound_ms": b, "bound_by": by}
 
 
+def field_record(phi):
+    """The dense-field kernel on N4's lattices of the headline batch:
+    device ms of the kernel, its plain version and the 12 bmm it replaced
+    (no one PyTorch call computes the sum over levels: library_ms null),
+    and its bound: the lattices and tables in and the field out at the
+    memory rate, against the float32 operations of the separable
+    evaluation (7 a term of each 4-term contraction over (c, d, s), (c, w,
+    s) and the voxels, and the level sums) at the float32 peak."""
+    from ventjax_torch.ops import n4_field_cuda as nf
+
+    N = phi.shape[0]
+    H, W, D = SHAPE
+    V = H * W * D
+    ops = N * (sum(7 * (c * c * D + c * W * D + V) for c in FIELD_NCPS)
+               + (len(FIELD_NCPS) - 1) * V)
+    nbytes = (phi.numel() * 4 + len(FIELD_NCPS) * (H + W + D) * 20
+              + N * V * 4)
+    b, by = bound(nbytes, ops)
+    bmm_err = scaled_err(nf.n4_field_bmm(phi, SHAPE, FIELD_NCPS),
+                         nf.n4_field_plain(phi, SHAPE, FIELD_NCPS))
+    return {"ms": device_ms(lambda: nf.n4_field(phi, SHAPE, FIELD_NCPS)),
+            "plain_ms": device_ms(lambda: nf.n4_field_plain(
+                phi, SHAPE, FIELD_NCPS), reps=5),
+            "library_ms": None,
+            "bmm_ms": device_ms(lambda: nf.n4_field_bmm(
+                phi, SHAPE, FIELD_NCPS), reps=5),
+            "bmm_rel_err": bmm_err, "bound_ms": b, "bound_by": by}
+
+
 def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
     """Slice vol/s (median of 5 synchronised runs), the N4 and CI stages,
     and each kernel's device time beside its plain version's, its one-call
@@ -2425,12 +2787,13 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
     by_k = {f"K{k}": k8_record(m, k, dev)
             for k, m in ((K, res.defect), (4096, severe_map(4096, dev)))}
     rec["densify_rank"] = {**by_k[f"K{K}"], "by_shape": by_k}
+    rec["n4_field"] = field_record(slice_lattices(hp, mask, n4_pad, dev))
     for k, r in rec.items():
         for shape, x in ([(None, r)] + sorted(r.get("by_shape", {}).items())):
             log(f"time {k}{'' if shape is None else ' ' + shape}: "
                 + " ".join(f"{f} {x[f]:.4f}" for f in (
-                    "ms", "cold_ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_9B_ms", "scatter_ms", "pair_ms")
+                    "ms", "cold_ms", "plain_ms", "library_ms", "bmm_ms",
+                    "bound_ms", "bound_9B_ms", "scatter_ms", "pair_ms")
                     if x.get(f) is not None) + f" ({x['bound_by']})")
     return med, rec
 
@@ -2508,7 +2871,7 @@ def phase_parent(parent, hp, mask, n4_pad, dev, res, geom, cfg, hp_d,
     from ventjax_torch.ops import n4_sharpen_cuda as sc
 
     parent = Path(parent).resolve()
-    libs = {n: _build.load(n, parent) for n in LIBS}
+    libs = {n: _build.load(n, parent) for n in PARENT_LIBS}
     old_k2, old_k6, old_k7 = (under(n4_cuda, libs["n4_fit"], f) for f in (
         n4_cuda.fit_delta_conv_field, n4_cuda.fit_delta,
         n4_cuda.fit_delta_conv))
@@ -2655,6 +3018,7 @@ PROFILE_KERNELS = (
     (("head_counts_kernel",), ("head_counts",)),
     (("rank_scan", "rank_count"), ("rank",)),
     (("densify_vec16", "densify_scalar"), ("densify_rank",)),
+    (("field_kernel",), ("n4_field",)),
 )
 
 
@@ -2716,7 +3080,8 @@ def phase_profile(cfg, geom, hp_d, mask_d, tag=""):
                          ("K2", ("delta_kernel",)),
                          ("K3", ("head_counts_kernel",)),
                          ("K4", ("hist_partial", "hist_finish")),
-                         ("K5", ("resid_kernel",))):
+                         ("K5", ("resid_kernel",)),
+                         ("n4_field", ("field_kernel",))):
         log(f"profile{tag} {label}: " + "; ".join(
             f"{k} x{n} {us / 1e3:.4f} ms" for k, (n, us) in by_name.items()
             if any(m in k for m in names)))
@@ -2749,6 +3114,9 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
              "ventjax/ops/ci_pallas.py:305"),
     "densify_rank": ("ventjax_torch/csrc/ci_densify.cu",
                      "ventjax/ops/ci_pallas.py:233"),
+    # port-only: ventjax evaluates the dense field with an einsum outside
+    # any kernel (no Pallas counterpart); "replaces" names that einsum
+    "n4_field": ("ventjax_torch/csrc/n4_field.cu", "ventjax/ops/n4.py:500"),
 }
 
 
@@ -2785,6 +3153,8 @@ def main():
     seg_launches, _ = phase_segmentation(dev, card)
     dist_launches, dist_by_entry, _, k3_shard = phase_dist(
         dev, cfg, geom, hp_d, mask_d, res)
+    mp_rates, mp_launches = phase_multiproc(dev)
+    gui_launches, _ = phase_gui(dev)
     phase_doctor()
     med, rec = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
                             dev)
@@ -2797,6 +3167,8 @@ def main():
         f"cohort_subjects_per_s={rate:.3f} "
         f"serve_subjects_per_s={serve_rate:.3f} "
         f"serve_warm_arrival_s={arrival_s:.3f} n4_host_syncs={syncs} "
+        f"multiproc_subjects_per_s="
+        f"{json.dumps({k: round(v, 3) for k, v in mp_rates.items()})} "
         f"ci_max_defect_voxels={cfg.ci_max_defect_voxels} "
         f"n4_mask_pad={n4_pad}")
     log("launches per headline batch: " + json.dumps(per_batch))
@@ -2808,6 +3180,8 @@ def main():
                 "launches_path_i": dist_launches[k],
                 "launches_path_i_by_entry": {
                     e: c[k] for e, c in dist_by_entry.items()},
+                "launches_path_j": mp_launches[k],
+                "launches_path_k": gui_launches[k],
                 "max_abs_err": max_err[k], **rec[k],
                 "timed_by_events": events_timed(rec[k])}
                for k, (s, r) in KERNELS.items()]

@@ -13,8 +13,8 @@ one batch and as consecutive shards of 8, 4, 2 and 1 lanes, and prints,
 per shard size, each output field with whether its bits equal the batch's
 and the largest absolute difference; then the same for SNR and for N4's
 stages (corrected image, dense field, iterations, lattices, compacted
-values).  A batch mesh (dist.shard_cohort_fn) gives the batch's bits only
-where every field is equal.
+values) at shards of 4 and 1.  A batch mesh (dist.shard_cohort_fn) gives
+the batch's bits only where every field is equal.
 """
 import json
 import sys
@@ -33,9 +33,9 @@ from ventjax_torch.ops import n4 as tn4  # noqa: E402
 from ventjax_torch.ops.snr import calculate_snr  # noqa: E402
 from ventjax_torch.pipeline import analyze_cohort, build_geometry  # noqa
 
-with ThreadPoolExecutor(4) as pool:
-    list(pool.map(_build.build, ("n4_fit", "n4_sharpen", "ci_head",
-                                 "ci_densify")))
+with ThreadPoolExecutor(8) as pool:   # every library of the tree
+    list(pool.map(_build.build, sorted(
+        p.stem for p in (tree / "ventjax_torch" / "csrc").glob("*.cu"))))
 dev = torch.device("cuda", 0)
 SHAPE, VOX = (128, 128, 16), (1.5, 1.5, 10.0)
 hp, mask, _ = make_cohort(16, SHAPE, VOX, seed=0)
@@ -84,10 +84,12 @@ def n4(h, m):
         return_compacted=True)
 
 
-a, parts = n4(hp_d, mask_d), sharded(n4, 4)
-for j, name in enumerate(("corrected", "field", "iterations", "phi")):
-    print(f"n4 {name}, shards of 4:", json.dumps(diff(a[j], torch.cat(
-        [p[j] for p in parts]))), flush=True)
-print("n4 compacted values, shards of 4:", json.dumps(diff(a[4][1], torch.cat(
-    [p[4][1] for p in parts]))), flush=True)
+a = n4(hp_d, mask_d)
+for s in (4, 1):
+    parts = sharded(n4, s)
+    for j, name in enumerate(("corrected", "field", "iterations", "phi")):
+        print(f"n4 {name}, shards of {s}:", json.dumps(diff(a[j], torch.cat(
+            [p[j] for p in parts]))), flush=True)
+    print(f"n4 compacted values, shards of {s}:", json.dumps(diff(
+        a[4][1], torch.cat([p[4][1] for p in parts]))), flush=True)
 print(json.dumps({"tree": str(tree), "card": torch.cuda.get_device_name(0)}))

@@ -4,7 +4,7 @@ in turns, on one NVIDIA GPU.
 
 Usage, from the repository root:
 
-    python3 scripts/slice_turns.py OTHER_TREE [--pairs 2]
+    python3 scripts/slice_turns.py OTHER_TREE [--pairs 2] [--kernel NAME]
 
 The slice is chip_smoke.py's headline batch: 16 phantoms of 128x128x16
 (make_cohort, seed 0) through analyze_cohort at N4 pad 49,152 and CI pad
@@ -12,8 +12,10 @@ The slice is chip_smoke.py's headline batch: 16 phantoms of 128x128x16
 (repeated ``--pairs`` times): it warms up on two batches, times ten
 synchronised batches by the host clock (median ms) and counts the device
 activities of one batch with torch.profiler (after a warm-up batch in the
-same session), with their summed time.  The kernels are built once per
-tree; a library whose sources are the same in both trees is built once.
+same session), with their summed time, and with ``--kernel NAME`` the
+summed time of the activities whose kernel name holds NAME.  The kernels
+are built once per tree; a library whose sources are the same in both
+trees is built once.
 Prints one JSON line per run, then a summary line with each tree's medians.
 """
 import argparse
@@ -26,7 +28,12 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-LIBS = ("n4_fit", "n4_sharpen", "ci_head", "ci_densify")
+
+
+def libs(tree: Path) -> tuple:
+    """The CUDA libraries of a tree: one per source in its csrc/."""
+    return tuple(sorted(p.stem for p in
+                        (tree / "ventjax_torch" / "csrc").glob("*.cu")))
 
 RUN = r"""
 import json, statistics, sys, time
@@ -72,7 +79,9 @@ print("RUN " + json.dumps({
     "median_ms": statistics.median(times),
     "runs_ms": [round(t, 2) for t in times],
     "device_activities": len(kernels),
-    "device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3}))
+    "device_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+    "kernel_ms": {k: sum(e.time_range.elapsed_us() for e in kernels
+                         if k in e.name) / 1e3 for k in %(kernels)r}}))
 """
 
 
@@ -80,7 +89,8 @@ def build(tree: Path) -> None:
     """Build the tree's libraries, taking this tree's where the sources
     (and so the file names) are the same."""
     code = ("from ventjax_torch import _build\n"
-            f"print(' '.join(str(_build.library_path(n)) for n in {LIBS!r}))")
+            f"print(' '.join(str(_build.library_path(n)) "
+            f"for n in {libs(tree)!r}))")
     want = subprocess.run([sys.executable, "-c", code], cwd=tree, text=True,
                           capture_output=True, check=True).stdout.split()
     mine = HERE / "build" / "ventjax_torch"
@@ -91,13 +101,14 @@ def build(tree: Path) -> None:
     subprocess.run([sys.executable, "-c",
                     "from concurrent.futures import ThreadPoolExecutor\n"
                     "from ventjax_torch import _build\n"
-                    "with ThreadPoolExecutor(4) as pool:\n"
-                    f"    list(pool.map(_build.build, {LIBS!r}))"],
+                    "with ThreadPoolExecutor(8) as pool:\n"
+                    f"    list(pool.map(_build.build, {libs(tree)!r}))"],
                    cwd=tree, check=True)
 
 
-def run(tree: Path) -> dict:
-    out = subprocess.run([sys.executable, "-c", RUN % {"libs": LIBS}],
+def run(tree: Path, kernels=()) -> dict:
+    out = subprocess.run([sys.executable, "-c", RUN % {
+                              "libs": libs(tree), "kernels": tuple(kernels)}],
                          cwd=tree, text=True, capture_output=True,
                          timeout=600, env=dict(os.environ, PYTHONPATH=str(
                              tree)))
@@ -111,6 +122,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", type=Path, help="another checkout's root")
     ap.add_argument("--pairs", type=int, default=2)
+    ap.add_argument("--kernel", action="append", default=[],
+                    help="also sum the batch's device ms of the kernels "
+                         "whose name holds this text (repeatable)")
     args = ap.parse_args()
     trees = {"other": args.other.resolve(), "this": HERE}
     build(HERE)
@@ -121,7 +135,7 @@ def main():
     medians = {"other": [], "this": []}
     for _ in range(args.pairs):
         for tag in ("other", "this", "this", "other"):
-            rec = {"tree": tag, **run(trees[tag])}
+            rec = {"tree": tag, **run(trees[tag], args.kernel)}
             medians[tag].append(rec["median_ms"])
             print(json.dumps(rec), flush=True)
     print(json.dumps({"card": smi, "median_ms": {

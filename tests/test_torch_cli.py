@@ -113,7 +113,8 @@ def test_cli_commands_and_left_out_flags():
     sub = next(a for a in build_parser()._actions
                if a.dest == "cmd")
     assert sorted(sub.choices) == ["analyze", "cohort", "doctor", "export",
-                                   "info", "serve", "train-seg", "twix"]
+                                   "gui", "info", "serve", "train-seg",
+                                   "twix"]
     analyze = ["analyze", "--xenon", "x", "--mask", "m", "--out", "o"]
     auto = build_parser().parse_args(
         ["analyze", "--xenon", "x", "--proton", "p", "--out", "o",
@@ -126,14 +127,15 @@ def test_cli_commands_and_left_out_flags():
         200, 8, (128, 128, 16), 16, 0, 1e-3, False, False, "cuda")
     for argv in (["cohort", "--manifest", "m", "--out", "o",
                   "--dense-export"],
-                 ["cohort", "--manifest", "m", "--out", "o",
-                  "--shard-export"],
                  ["--no-compile-cache", "info"]):
         with pytest.raises(SystemExit):
             build_parser().parse_args(argv)
+    cohort = ["cohort", "--manifest", "m", "--out", "o"]
+    assert build_parser().parse_args(cohort + ["--shard-export"]).shard_export
+    assert not build_parser().parse_args(cohort).shard_export
     for argv in (["serve", "--inbox", "i", "--out", "o"], analyze,
                  ["export", "--pickle", "p", "--out", "o"],
-                 ["twix", "--dat", "d", "--out", "o"]):
+                 ["twix", "--dat", "d", "--out", "o"], ["gui"]):
         assert build_parser().parse_args(argv).device == "cuda"
 
 

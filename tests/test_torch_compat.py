@@ -299,29 +299,34 @@ def test_artifacts_cross_load_between_packages(pair, tmp_path):
 
 
 def test_foreign_pickle_raises_in_port(tmp_path):
-    """A class of ventjax that the port has no copy of is reported, not
+    """A name of ventjax that the port has no copy of is reported, not
     imported; strip_foreign keeps the rest."""
     p = tmp_path / "odd.pkl"
-    # protocol 0 text: GLOBAL 'ventjax.gui.controller VentController' (the
-    # GUI is not ported), then a dict holding that class and an array
+    # protocol 0 text: GLOBAL 'ventjax.ops.n4 n4_field_from_phi_np' (the
+    # compact pack's host field, not ported by decision; every ventjax
+    # class now has a copy), then a dict holding that name and an array
     state = {"mask": np.ones(3), "model": "PLACEHOLDER"}
     raw = pickle.dumps(state, protocol=0)
     raw = raw.replace(b"VPLACEHOLDER",
-                      b"cventjax.gui.controller\nVentController")
+                      b"cventjax.ops.n4\nn4_field_from_phi_np")
     p.write_bytes(raw)
-    with pytest.raises(texport.ReferencePickleError, match="VentController"):
+    with pytest.raises(texport.ReferencePickleError,
+                       match="n4_field_from_phi_np"):
         texport.load_pickle(str(p))
     got = texport.load_pickle(str(p), strip_foreign=True)
     assert np.array_equal(got["mask"], np.ones(3))
     assert got["model"]._foreign_class == \
-        "ventjax.gui.controller.VentController"
-    # a class the port now has a copy of loads as that copy
-    raw = pickle.dumps(state, protocol=0).replace(
-        b"VPLACEHOLDER", b"cventjax.models.segmentation\nSegUNet")
-    p.write_bytes(raw)
+        "ventjax.ops.n4.n4_field_from_phi_np"
+    # classes the port now has copies of load as those copies
+    from ventjax_torch.gui.controller import VentController
     from ventjax_torch.models.segmentation import SegUNet
 
-    assert texport.load_pickle(str(p))["model"] is SegUNet
+    for ref, cls in ((b"cventjax.models.segmentation\nSegUNet", SegUNet),
+                     (b"cventjax.gui.controller\nVentController",
+                      VentController)):
+        p.write_bytes(pickle.dumps(state, protocol=0).replace(
+            b"VPLACEHOLDER", ref))
+        assert texport.load_pickle(str(p))["model"] is cls
 
 
 # --------------------------------------------------------------- ci_module

@@ -24,6 +24,8 @@ convolutions, TF32 off) against the CPU: masks equal except where the CPU
 |logit| < 1e-3, a repeat bit-identical; one train step's loss within 1e-5
 relative and its parameters within 1e-5 absolute.  dist/ on shards of the
 one card: the halo CI and the batch mesh bit-equal to their unsharded runs.
+N4's dense field (the n4_field kernel) bit-equal to its plain version, and
+every output of the pipeline the same in groups of 1, 2 and 4 lanes.
 """
 import numpy as np
 import pytest
@@ -581,31 +583,56 @@ def test_run_cohort_on_card(cuda, tmp_path):
 
 def test_grouped_on_card_within_pipeline_tolerances(cuda):
     """Groups of 2 and of 1 against one batch of 4 on the card.  No float
-    sum of the pipeline that differed by batch size on the card does so
-    any more (row_sums' fixed order for SNR and the VDP mean; N4's dense
-    field by batched GEMMs of fixed shape), so groups of 2 keep every
-    output's bits.  A group of one lane is a batch-1 GEMM, which cuBLAS
-    may round another way: the pipeline's tolerances hold (defect maps
-    equal, |dVDP| < 0.1 pp, N4 image within RTOL)."""
+    sum of the pipeline differs by batch size on the card any more
+    (row_sums' fixed order for SNR and the VDP mean; N4's dense field in
+    the fixed-order n4_field kernel, each lane's voxels summed alone), so
+    groups of 2 and of 1 keep every output's bits."""
     shape, vox = (64, 64, 8), (1.5, 1.5, 10.0)
     cfg = DEFAULT_CONFIG.replace(ci_max_defect_voxels=1024, n4_mask_pad=8192)
     hp, mask, _ = make_cohort(4, shape, vox, seed=6)
     h, m = torch.from_numpy(hp).to(cuda), torch.from_numpy(mask).to(cuda)
     geom = build_geometry(vox, shape, cfg)
     whole = analyze_cohort(h, m, geom, cfg)
-    grouped = analyze_cohort_grouped(h, m, geom, cfg, group_size=2)
-    for f in ("n4", "defect", "defect_lb", "defect_km", "ci_map"):
-        assert torch.equal(getattr(grouped, f), getattr(whole, f)), f
-    for name in ("snr", "vdp", "vdp_lb", "vdp_km", "ci"):
-        a, b = getattr(grouped.metrics, name), getattr(whole.metrics, name)
-        assert bool(((a == b) | (a.isnan() & b.isnan())).all()), name
-    ones = analyze_cohort_grouped(h, m, geom, cfg, group_size=1)
-    for f in ("defect", "defect_lb", "defect_km"):
-        assert torch.equal(getattr(ones, f), getattr(whole, f)), f
-    for name in ("vdp", "vdp_lb", "vdp_km"):
-        d = getattr(ones.metrics, name) - getattr(whole.metrics, name)
-        assert float(d.abs().max()) < 0.1, name
-    assert _err(ones.n4, whole.n4) < RTOL
+    for size in (2, 1):
+        grouped = analyze_cohort_grouped(h, m, geom, cfg, group_size=size)
+        for f in ("n4", "defect", "defect_lb", "defect_km", "ci_map"):
+            assert torch.equal(getattr(grouped, f), getattr(whole, f)), \
+                (size, f)
+        for name in ("snr", "vdp", "vdp_lb", "vdp_km", "ci"):
+            a, b = getattr(grouped.metrics, name), getattr(whole.metrics,
+                                                           name)
+            assert bool(((a == b) | (a.isnan() & b.isnan())).all()), \
+                (size, name)
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 16), (33, 20, 5)])
+def test_n4_field_bit_equal_on_card(cuda, shape):
+    """The dense-field kernel against its plain version on the card, bit
+    for bit, at the slice's levels (ncp 4, 5, 7, 11) and at a ragged
+    grid; a lane's field the same alone, in a batch of 3 and in one of 16;
+    a relaunch bit-identical; a launch counted."""
+    from ventjax_torch.ops import n4_field_cuda as nf
+
+    ncps = (4, 5, 7, 11)
+    gen = np.random.default_rng(3)
+    phi = torch.from_numpy(gen.normal(0, 0.2, (16, sum(
+        c ** 3 for c in ncps))).astype(np.float32)).to(cuda)
+    before = nf.LAUNCHES["n4_field"]
+    got = nf.n4_field(phi, shape, ncps)
+    assert nf.LAUNCHES["n4_field"] == before + 1
+    assert torch.equal(got, nf.n4_field_plain(phi, shape, ncps))
+    assert torch.equal(got, nf.n4_field(phi, shape, ncps))
+    for lanes in (slice(5, 6), slice(2, 5)):
+        assert torch.equal(nf.n4_field(phi[lanes].contiguous(), shape,
+                                       ncps), got[lanes])
+    # the kernel's limit of eight levels: lattices too large to stage, and
+    # f columns past the default 48 KB of shared memory (ncp 131)
+    big = (4, 5, 7, 11, 19, 35, 67, 131)
+    assert len(big) == nf.MAX_LEVELS
+    phi = torch.from_numpy(gen.normal(0, 0.2, (2, sum(
+        c ** 3 for c in big))).astype(np.float32)).to(cuda)
+    assert torch.equal(nf.n4_field(phi, (40, 36, 9), big),
+                       nf.n4_field_plain(phi, (40, 36, 9), big))
 
 
 def test_facade_on_card_matches_cpu(cuda, tmp_path):

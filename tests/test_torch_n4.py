@@ -277,3 +277,87 @@ def test_n4_optional_outputs():
     host = jn4.n4_field_from_phi_np(phi[0].numpy(), (32, 32, 8))
     np.testing.assert_allclose(field[0].numpy(), host, atol=1e-5)
     assert idx.shape == cvals.shape == wv.shape == (1, 512)
+
+
+# ---------------------------------------------------------------------------
+# The dense field (ops/n4_field_cuda.py): the plain version of the
+# fixed-order kernel.
+
+
+def _random_lattices(N, ncps, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(
+        0.0, 0.2, (N, sum(c ** 3 for c in ncps))).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [SHAPE, (33, 20, 5)])
+def test_dense_field_plain_matches_bmm_and_float64(shape):
+    """Within 1e-6 of each lane's largest |field| of the three-bmm field,
+    and of ventjax's float64 host evaluation (n4_field_from_phi_np)."""
+    from ventjax_torch.ops import n4_field_cuda as nf
+
+    ncps = (4, 5, 7, 11)
+    phi = _random_lattices(3, ncps, seed=1)
+    got = nf.n4_field(phi, shape, ncps)
+    assert got.shape == (3,) + shape and got.dtype == torch.float32
+    want = nf.n4_field_bmm(phi, shape, ncps)
+    scale = want.abs().reshape(3, -1).max(1).values
+    err = (got - want).abs().reshape(3, -1).max(1).values / scale
+    assert float(err.max()) < 1e-6, err
+    for i in range(3):
+        host = jn4.n4_field_from_phi_np(phi[i].numpy(), shape)
+        assert _scaled_err(got[i].numpy(), host) < 1e-6
+
+
+def test_dense_field_lane_bits_do_not_depend_on_the_batch():
+    """A lane's field alone (N = 1) equals its field inside N = 4, bit for
+    bit, and so does N4's corrected image."""
+    from ventjax_torch.ops import n4_field_cuda as nf
+
+    ncps = (4, 5, 7)
+    phi = _random_lattices(4, ncps, seed=2)
+    batch = nf.n4_field(phi, SHAPE, ncps)
+    for i in range(4):
+        assert torch.equal(nf.n4_field(phi[i:i + 1].contiguous(), SHAPE,
+                                       ncps)[0], batch[i])
+
+
+def test_dense_field_tables_are_the_basis_rows():
+    """The spans and weights rebuild bspline_basis_1d's dense table."""
+    from ventjax_torch.ops import n4_field_cuda as nf
+    from ventjax_torch.ops.geometry import bspline_basis_1d
+
+    shape, ncps = (17, 9, 6), (4, 11)
+    spans, weights = nf.field_tables(shape, ncps, "cpu")
+    for L, ncp in enumerate(ncps):
+        at = 0
+        for n in shape:
+            dense = np.zeros((n, ncp), np.float32)
+            for r in range(n):
+                s = int(spans[L, at + r])
+                dense[r, s:s + 4] = weights[L, at + r].numpy()
+            np.testing.assert_array_equal(
+                dense, bspline_basis_1d(n, ncp - 3).astype(np.float32))
+            at += n
+
+
+def test_dense_field_wrapper_checks():
+    from ventjax_torch.ops import n4_field_cuda as nf
+
+    with pytest.raises(RuntimeError, match="no kernel"):
+        nf.n4_field(torch.empty((1, 64), device="meta"), (8, 8, 4), (4,))
+    with pytest.raises(ValueError, match="phi"):
+        nf.n4_field(torch.zeros((1, 63)), (8, 8, 4), (4,))
+    with pytest.raises(ValueError, match="ncp"):
+        nf.n4_field(torch.zeros((1, 27)), (8, 8, 4), (3,))
+    with pytest.raises(ValueError, match="levels"):
+        nf.n4_field(torch.zeros((1, 9 * 64)), (8, 8, 4), (4,) * 9)
+    big = nf.MAX_NCP + 1
+    with pytest.raises(ValueError, match="ncp"):
+        nf.n4_field(torch.empty((1, big ** 3), device="meta"), (8, 8, 4),
+                    (big,))
+    with pytest.raises(TypeError):
+        nf.n4_field(torch.zeros((1, 64), dtype=torch.float64), (8, 8, 4),
+                    (4,))
+    with pytest.raises(ValueError, match="contiguous"):
+        nf.n4_field(torch.zeros((64, 2)).t(), (8, 8, 4), (4,))

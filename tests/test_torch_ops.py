@@ -191,3 +191,28 @@ def test_row_sums_fixed_order(L):
         1.0, float(x.double().abs().sum(-1).max()))
     for i in range(5):
         assert torch.equal(row_sums(x[i:i + 1]), got[i:i + 1])
+
+
+@pytest.mark.parametrize("case", ["volumes", "constant", "negative"])
+def test_minmax_normalize_matches_ventjax(case):
+    """Per lane, as ventjax's vmapped over the batch, with the zero-range
+    guard (a constant lane comes back unchanged)."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(3.0, 2.0, (3, 9, 7, 4)).astype(np.float32)
+    if case == "constant":
+        x[1] = 2.5
+        x[2] = 0.0
+    elif case == "negative":
+        x = -np.abs(x) * 1e-3
+    want = np.asarray(jax.vmap(jb.minmax_normalize)(jnp.asarray(x)))
+    got = tb.minmax_normalize(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_ops_exports_cover_ventjax():
+    import ventjax.ops
+    import ventjax_torch.ops
+
+    assert set(ventjax.ops.__all__) <= set(ventjax_torch.ops.__all__)
+    for name in ventjax_torch.ops.__all__:
+        assert callable(getattr(ventjax_torch.ops, name)), name

@@ -364,10 +364,28 @@ def test_import_guard_covers_the_facade_modules():
                  "report/screenshot.py", "report/histogram.py",
                  "ops/morphology.py", "ops/fft_recon.py", "io/twix.py",
                  "oracle/ci_oracle.py", "models/segmentation.py",
-                 "io/phantom_oof.py", "dist/halo.py", "dist/mesh.py"):
+                 "io/phantom_oof.py", "dist/halo.py", "dist/mesh.py",
+                 "gui/__init__.py", "gui/controller.py", "gui/app.py",
+                 "ops/n4_field_cuda.py"):
         assert f"ventjax_torch/{path}" in _PORT_FILES, path
     # the checker sees the reference's module-level PIL import, and its
     # segmentation module's flax and optax
     assert "PIL" in _module_level_imports(REPO / "ventjax/report/screenshot.py")
     seg = _module_level_imports(REPO / "ventjax/models/segmentation.py")
     assert "flax.linen" in seg and "optax" in seg
+
+
+@pytest.mark.parametrize("path", ["ventjax_torch/gui/app.py",
+                                  "ventjax_torch/gui/controller.py",
+                                  "ventjax_torch/gui/__init__.py"])
+def test_gui_imports_no_toolkit_at_module_level(path):
+    """The port's GUI imports nothing of ventjax (the AST walk above) and
+    imports tkinter and Pillow only inside the functions that draw, so it
+    imports on a machine without a display or either library; ventjax's
+    view does the same."""
+    mod = _module_level_imports(REPO / path)
+    assert not [n for n in mod if n.split(".")[0] in ("tkinter", "PIL")], mod
+    ref = _module_level_imports(REPO / path.replace("ventjax_torch/",
+                                                    "ventjax/"))
+    assert not [n for n in ref if n.split(".")[0] in ("tkinter", "PIL")]
+    assert "tkinter" in _imported_modules(REPO / "ventjax_torch/gui/app.py")

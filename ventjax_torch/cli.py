@@ -18,10 +18,14 @@ Usage:
       [--recalculate]
   python -m ventjax_torch twix --dat FILE.dat --out OUT
   python -m ventjax_torch cohort --manifest subjects.json --out OUT
-      [--batch 16] [--mesh | --no-mesh] [--device cuda|cpu]
+      [--batch 16] [--mesh | --no-mesh] [--shard-export] [--device cuda|cpu]
+  torchrun --nproc_per_node 2 -m ventjax_torch cohort --manifest M --out OUT
+      --mesh [--shard-export]
   python -m ventjax_torch serve --inbox IN --out OUT [--interval 5] [--once]
       [--mesh | --no-mesh]
   python -m ventjax_torch doctor [--full]
+  python -m ventjax_torch gui [--xenon X.dcm] [--mask MASKDIR] [--out OUT]
+      [--device cuda|cpu]
   python -m ventjax_torch info
 
 ``analyze`` and ``export`` write the report PNG, which needs Pillow: where
@@ -45,10 +49,24 @@ reference, one device is the default, and ``--no-mesh`` (the reference's
 flag) says so: the mesh's shards run one after another, each costing about
 a whole batch.
 
+``cohort`` under torchrun (or any launcher that sets ``WORLD_SIZE`` above 1
+with ``RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``) joins a
+torch.distributed group first: NCCL with one rank per card, gloo where the
+device is the CPU or more ranks than cards share a machine.  Every rank runs
+the same cohort; with ``--mesh`` each batch is split over the ranks, and
+rank 0 writes every subject's files, or with ``--shard-export`` each rank
+writes its own lanes (the ranks then need one shared filesystem).  Only rank
+0 writes ``cohort_summary.json`` and the aggregate CSV.  Without those
+variables it stays one process.
+
+``gui`` opens the tkinter window of ``ventjax_torch.gui`` (the reference's
+desktop app) with its analysis on ``--device``; without a display it exits
+2 and says so.
+
 Flags of the reference CLI that name features the port lacks are left out:
-``--shard-export`` and ``--dense-export`` wait for the multi-process cohort
-driver (the port ships the dense pack), ``--no-compile-cache`` has no XLA
-cache to name.  The ``gui`` command waits for its module.
+``--dense-export`` names the compact pack, which the port does not ship (it
+ships the dense pack, so there is nothing to switch), and
+``--no-compile-cache`` has no XLA cache to name.
 """
 from __future__ import annotations
 
@@ -461,13 +479,52 @@ def _config(args):
     return cfg
 
 
-def _cmd_cohort(args) -> int:
-    from ventjax_torch.pipeline.cohort import load_manifest, run_cohort
-    from ventjax_torch.utils.profiling import trace
+def _join_ranks(device) -> bool:
+    """Join the torch.distributed group that torchrun's environment names
+    (``WORLD_SIZE`` above 1, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``);
+    False, doing nothing, where it names one process.  NCCL with one rank
+    per card; gloo on the CPU or where more ranks than cards share this
+    machine (``LOCAL_WORLD_SIZE``), since NCCL refuses two ranks on one
+    card."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return False
+    import torch
 
+    from ventjax_torch.dist import initialize_multihost
+
+    env = os.environ
+    addr = (f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+            if "MASTER_ADDR" in env and "MASTER_PORT" in env else None)
+    local = int(env.get("LOCAL_WORLD_SIZE", world))
+    gloo = device.type != "cuda" or local > torch.cuda.device_count()
+    initialize_multihost(addr, world, int(env["RANK"]) if "RANK" in env
+                         else None, backend="gloo" if gloo else None)
+    return True
+
+
+def _cmd_cohort(args) -> int:
     device = _device_or_error(args)
     if device is None:
         return 2
+    try:
+        joined = _join_ranks(device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    try:
+        return _run_cohort_command(args)
+    finally:
+        if joined:
+            import torch.distributed as tdist
+
+            tdist.destroy_process_group()
+
+
+def _run_cohort_command(args) -> int:
+    from ventjax_torch.pipeline.cohort import load_manifest, run_cohort
+    from ventjax_torch.utils.profiling import trace
+
     cfg = _config(args)
     manifest = load_manifest(args.manifest)
     watchdog = contextlib.nullcontext()
@@ -492,10 +549,18 @@ def _cmd_cohort(args) -> int:
             manifest, args.out, config=cfg, batch_size=args.batch,
             resume=not args.fresh, export_npz=args.npz, progress=progress,
             device=args.device, use_mesh=args.mesh,
+            shard_export=args.shard_export,
         )
     ok = sum(1 for r in results if r.get("valid"))
     print(json.dumps({"subjects": len(results), "valid": ok,
                       "out": args.out}))
+    # The aggregate files go to one shared path: with several ranks only
+    # rank 0 writes them (every rank holds the same results).
+    import torch.distributed as tdist
+
+    if tdist.is_available() and tdist.is_initialized() \
+            and tdist.get_rank() != 0:
+        return 0
     # cohort-level aggregate summary: distribution stats per metric plus an
     # explicit accounting of failed / flagged lanes (pipeline.summary)
     from ventjax_torch.pipeline.summary import cohort_summary
@@ -528,6 +593,24 @@ def _cmd_cohort(args) -> int:
                 cols[k] = [None if v is None else str(v) for v in vals]
         pq.write_table(pa.table(cols),
                        os.path.join(args.out, "cohort_metrics.parquet"))
+    return 0
+
+
+def _cmd_gui(args) -> int:
+    from ventjax_torch.gui.app import GuiUnavailableError, launch
+    from ventjax_torch.gui.controller import GuiState, VentController
+
+    state = GuiState(
+        dicom_path=args.xenon or "", mask_path=args.mask or "",
+        proton_path=args.proton or "", twix_path=args.twix or "",
+        export_path=args.out or "", archive_path=args.archive or "",
+        user=args.user or "",
+    )
+    try:
+        launch(VentController(state, device=args.device))
+    except GuiUnavailableError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     return 0
 
 
@@ -842,6 +925,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "JSON) of the run into this directory")
     c.add_argument("--npz", action="store_true",
                    help="also write each subject's versioned NPZ artifact")
+    c.add_argument("--shard-export", action="store_true",
+                   help="several ranks (torchrun): each rank exports its "
+                   "own batch lanes (shared filesystem required) instead "
+                   "of rank 0 exporting everything; needs --mesh")
     c.add_argument("--progress", action="store_true",
                    help="emit JSON progress events (decode/analyze/"
                    "export) on stderr as the cohort streams")
@@ -924,6 +1011,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print a JSON line for quiet scans too")
     _add_device(s)
     s.set_defaults(fn=_cmd_serve)
+
+    g = sub.add_parser(
+        "gui", help="desktop GUI (tkinter port of the reference app)")
+    g.add_argument("--xenon", default=None, help="prefill the DICOM path")
+    g.add_argument("--mask", default=None, help="prefill the mask folder")
+    g.add_argument("--proton", default=None)
+    g.add_argument("--twix", default=None)
+    g.add_argument("--out", default=None, help="prefill the export path")
+    g.add_argument("--archive", default=None, help="archive pickle dir")
+    g.add_argument("--user", default=None)
+    _add_device(g)
+    g.set_defaults(fn=_cmd_gui)
 
     d = sub.add_parser(
         "doctor",

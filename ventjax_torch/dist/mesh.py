@@ -14,7 +14,9 @@ mesh carry the same shard body:
   card (the slice is launch- and sync-bound).  The cohort driver and the
   service therefore take the mesh only when asked (``use_mesh``).
 - ``RankMesh``: one shard per rank of a ``torch.distributed`` group
-  (``initialize_multihost``), each on its rank's device.
+  (``initialize_multihost``), each on its rank's device.  The multi-process
+  cohort driver takes one when the default group holds several ranks;
+  ``process_allgather`` and ``broadcast_one_to_all`` are its collectives.
 
 ``local_devices`` is the one function that lists the devices of this
 process; the meshes default to it.
@@ -24,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ventjax_torch.pipeline.result import map_leaves
@@ -53,6 +56,15 @@ class Mesh:
         return len(self.devices)
 
 
+def _per_shard(n: int, shards: int) -> int:
+    """Lanes a shard of an n-lane batch split over ``shards``."""
+    if n % shards != 0:
+        raise ValueError(f"a batch of {n} does not split over the "
+                         f"{shards}-shard mesh; pad it to a multiple of "
+                         f"{shards}")
+    return n // shards
+
+
 @dataclasses.dataclass(frozen=True)
 class RankMesh:
     """A 1-D mesh over the ranks of a torch.distributed group (None: the
@@ -72,6 +84,12 @@ class RankMesh:
         import torch.distributed as dist
 
         return dist.get_rank(self.group)
+
+    def lanes(self, n: int) -> slice:
+        """This rank's lanes of an n-lane batch: the index-th of the
+        group's equal, contiguous runs."""
+        per = _per_shard(n, self.size)
+        return slice(self.index * per, (self.index + 1) * per)
 
     def global_rank(self, index: int) -> int:
         """The default group's rank of this group's rank ``index``."""
@@ -106,16 +124,36 @@ def make_batch_mesh(
     return Mesh(tuple(torch.device(d) for d in devices))
 
 
-def _all_gather(t: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along dim 0, in rank order, on
-    ``t``'s device (booleans travel as uint8)."""
+def process_allgather(t: torch.Tensor, mesh: RankMesh,
+                      device="cpu") -> torch.Tensor:
+    """Every rank's ``t`` concatenated along dim 0, in rank order, in
+    ``t``'s dtype on ``device`` (default the host: the counterpart of
+    ``jax.experimental.multihost_utils.process_allgather(t, tiled=True)``).
+    It travels on the group's communication device, booleans as uint8.
+    Every rank must call it with the same shape, in the same order as its
+    other collectives."""
     import torch.distributed as dist
 
     x = t.to(mesh.comm_device,
              torch.uint8 if t.dtype == torch.bool else t.dtype).contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     dist.all_gather(parts, x, group=mesh.group)
-    return torch.cat(parts).to(device=t.device, dtype=t.dtype)
+    return torch.cat(parts).to(device=device, dtype=t.dtype)
+
+
+def broadcast_one_to_all(x, mesh: RankMesh) -> np.ndarray:
+    """Rank 0's host array ``x`` (of the group ``mesh`` names) on every
+    rank, as numpy: the counterpart of ``jax.experimental.multihost_utils.
+    broadcast_one_to_all``.  Every rank passes an array of the same shape
+    and dtype; booleans travel as uint8."""
+    import torch.distributed as dist
+
+    a = np.asarray(x)
+    t = torch.from_numpy(np.ascontiguousarray(
+        a.astype(np.uint8) if a.dtype == np.bool_ else a)).to(
+            mesh.comm_device)
+    dist.broadcast(t, src=mesh.global_rank(0), group=mesh.group)
+    return t.cpu().numpy().astype(a.dtype, copy=False)
 
 
 def shard_cohort_fn(cohort_fn: Callable, mesh) -> Callable:
@@ -132,21 +170,16 @@ def shard_cohort_fn(cohort_fn: Callable, mesh) -> Callable:
     the device's arithmetic does not depend on the batch size.
     """
     def sharded(hp, mask):
-        n = mesh.size
-        B = hp.shape[0]
-        if B % n != 0:
-            raise ValueError(f"a batch of {B} does not split over the "
-                             f"{n}-shard mesh; pad it to a multiple of {n}")
-        per = B // n
-
-        def lanes(i, device):
-            return cohort_fn(hp[i * per:(i + 1) * per].to(device),
-                             mask[i * per:(i + 1) * per].to(device))
-
         if isinstance(mesh, RankMesh):
-            mine = lanes(mesh.index, mesh.device)
-            return map_leaves(lambda xs: _all_gather(xs[0], mesh), [mine])
-        parts = [lanes(i, d) for i, d in enumerate(mesh.devices)]
+            own = mesh.lanes(hp.shape[0])
+            mine = cohort_fn(hp[own].to(mesh.device),
+                             mask[own].to(mesh.device))
+            return map_leaves(lambda xs: process_allgather(
+                xs[0], mesh, xs[0].device), [mine])
+        per = _per_shard(hp.shape[0], mesh.size)
+        parts = [cohort_fn(hp[i * per:(i + 1) * per].to(d),
+                           mask[i * per:(i + 1) * per].to(d))
+                 for i, d in enumerate(mesh.devices)]
         first = mesh.devices[0]
         return map_leaves(
             lambda xs: torch.cat([x.to(first) for x in xs], dim=0), parts)

@@ -42,6 +42,18 @@ def sort_compact_masked(values: torch.Tensor, m: torch.Tensor, pad: int):
     return idx, values.gather(1, order), n
 
 
+def minmax_normalize(x: torch.Tensor) -> torch.Tensor:
+    """(x - min) / (max - min) per lane, with the reference's zero-range
+    guard (Vent_Analysis.py:233-237): a constant lane comes back as is."""
+    shape = (-1,) + (1,) * (x.dim() - 1)
+    lo = _flat(x).min(1).values.reshape(shape)
+    hi = _flat(x).max(1).values.reshape(shape)
+    rng = hi - lo
+    zero = rng == 0
+    return torch.where(zero, x, (x - lo) / torch.where(
+        zero, torch.ones_like(rng), rng))
+
+
 def gradient_border(a: torch.Tensor) -> torch.Tensor:
     """Per-slice gradient border of a binary [N,H,W,D] volume:
     (d/drow != 0) | (d/dcol != 0), with np.gradient's one-sided edges."""

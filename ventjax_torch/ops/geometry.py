@@ -24,14 +24,14 @@ def _next_pow2_padded(n: int) -> int:
     return int(2 ** (np.ceil(np.log2(n)) + 1))
 
 
-def bspline_basis_1d(n: int, n_elements: int) -> np.ndarray:
-    """Dense [n, n_elements + 3] cubic B-spline basis over a regular grid.
+def bspline_span_weights(n: int, n_elements: int):
+    """(span int [n], weights float64 [n, 4]) of the cubic B-spline basis
+    over a regular grid: position i's four nonzero blending weights sit on
+    control points span[i]..span[i]+3.
 
-    Grid positions map linearly onto [0, n_elements] parametric space; each
-    position gets 4 nonzero cubic blending weights on control points
-    span..span+3 (uniform cubic B-spline, as in ITK's scattered-data fitter).
+    Grid positions map linearly onto [0, n_elements] parametric space
+    (uniform cubic B-spline, as in ITK's scattered-data fitter).
     """
-    ncp = n_elements + 3
     t = np.arange(n, dtype=np.float64) / max(n - 1, 1) * n_elements
     span = np.minimum(np.floor(t).astype(int), n_elements - 1)
     u = t - span
@@ -40,7 +40,14 @@ def bspline_basis_1d(n: int, n_elements: int) -> np.ndarray:
     b[:, 1] = (3 * u ** 3 - 6 * u ** 2 + 4) / 6.0
     b[:, 2] = (-3 * u ** 3 + 3 * u ** 2 + 3 * u + 1) / 6.0
     b[:, 3] = u ** 3 / 6.0
-    basis = np.zeros((n, ncp))
+    return span, b
+
+
+def bspline_basis_1d(n: int, n_elements: int) -> np.ndarray:
+    """Dense [n, n_elements + 3] cubic B-spline basis over a regular grid:
+    ``bspline_span_weights``' four weights a row at columns span..span+3."""
+    span, b = bspline_span_weights(n, n_elements)
+    basis = np.zeros((n, n_elements + 3))
     for j in range(4):
         basis[np.arange(n), span + j] = b[:, j]
     return basis

@@ -11,8 +11,10 @@ each iteration runs K4 (``sharpen_hist``) -> the expectation's FFT chain
 (plain PyTorch, as ventjax keeps it in XLA) -> K5 (``sharpen_resid``) -> K1
 (``fit_moment``, the fit numerator) -> K2 (``fit_delta_conv_field``: field
 update, next residual, its range, convergence sums), and K1 gives each
-level's denominator once.  The kernels live in ``ops/n4_sharpen_cuda.py``
-and ``ops/n4_cuda.py``; on CPU tensors they run their plain versions.
+level's denominator once.  The dense field is evaluated once at the end,
+every level in one launch of the fixed-order field kernel (``n4_field``).
+The kernels live in ``ops/n4_sharpen_cuda.py``, ``ops/n4_cuda.py`` and
+``ops/n4_field_cuda.py``; on CPU tensors they run their plain versions.
 ``VentConfig.n4_use_pallas`` is not read: the port has one route, kernels on
 CUDA and plain versions on the CPU.  No step sums with float atomics, so two
 runs on one card give the same bits.
@@ -31,8 +33,9 @@ from typing import Optional
 import torch
 
 from ventjax_torch.ops.basic import sort_compact_masked
-from ventjax_torch.ops.geometry import _next_pow2_padded, bspline_basis_1d
+from ventjax_torch.ops.geometry import _next_pow2_padded
 from ventjax_torch.ops.n4_cuda import fit_delta_conv_field, fit_moment
+from ventjax_torch.ops.n4_field_cuda import n4_field
 from ventjax_torch.ops.n4_sharpen_cuda import sharpen_hist, sharpen_resid
 
 LOG2 = math.log(2.0)
@@ -207,26 +210,13 @@ def n4_bias_correction(
         level_iters.append(itc)
         phi_totals.append(phi_total)
 
-    # Dense field: one separable evaluation per level, as three batched
-    # GEMMs (bmm) whose batch entries have the same shape whatever N: a
-    # GEMM that folds the batch into a matrix dimension grows with N, and
-    # cuBLAS may then round it another way.  On the card a lane's field
-    # kept its bits in batches of 2-16 at the slice's shape, and a batch of
-    # one rounded another way (scripts/batch_size_bits.py).
-    total_field = torch.zeros((N, H, W, D), dtype=torch.float32, device=dev)
-    for level, phi_total in enumerate(phi_totals):
-        n_elements = (control_points - 3) * 2 ** level
-        ncp = n_elements + 3
-        th, tw, ts = (torch.as_tensor(bspline_basis_1d(n, n_elements),
-                                      dtype=torch.float32,
-                                      device=dev).expand(N, n, ncp)
-                      for n in (H, W, D))
-        t = torch.bmm(th, phi_total)
-        t = t.reshape(N, H, ncp, ncp).transpose(1, 2).reshape(
-            N, ncp, H * ncp)                          # [N, d, (h, e)]
-        t = torch.bmm(tw, t)                          # [N, W, (h, e)]
-        t = torch.bmm(t.reshape(N, W * H, ncp), ts.transpose(1, 2))
-        total_field = total_field + t.reshape(N, W, H, D).transpose(1, 2)
+    # Dense field: every level's lattice on the full grid in one kernel
+    # (ops/n4_field_cuda.py), each voxel summed in one written order, so a
+    # lane's field has the same bits at any batch size.
+    phi_flat = torch.cat([p.reshape(N, -1) for p in phi_totals], 1)
+    ncps = [(control_points - 3) * 2 ** level + 3
+            for level in range(fitting_levels)]
+    total_field = n4_field(phi_flat, (H, W, D), ncps)
 
     corrected = img * torch.exp(-total_field)
     out = (corrected,)
@@ -237,7 +227,7 @@ def n4_bias_correction(
     if return_iters:
         out = out + (torch.stack(level_iters, dim=1),)
     if return_phi:
-        out = out + (torch.cat([p.reshape(N, -1) for p in phi_totals], 1),)
+        out = out + (phi_flat,)
     if return_compacted:
         corrected_vals = raw_vals * torch.exp(-field_v)
         wv_mask_only = (ar[None, :] < n_mask[:, None]).to(torch.float32)

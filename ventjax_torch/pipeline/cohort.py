@@ -24,9 +24,20 @@ several (``dist/mesh.py``):
 
 The device-to-host pack is dense: the N4 image in float32, the defect map
 in uint8, and the CI values at the defect compaction with their count
-(``_densify_ci`` rebuilds the map).  ventjax's compact pack is not
-ported; its multi-process driver (process-0 export, ``shard_export``, the
-broadcast of the done flags) waits for a later slice.
+(``_densify_ci`` rebuilds the map).  ventjax's compact pack is not ported.
+
+Several processes: where ``torch.distributed`` is initialised with more
+than one rank (``dist.initialize_multihost``; the counterpart of
+``jax.process_count() > 1``), every rank runs the same dispatch sequence
+over the same manifest.  Rank 0's view of the ``.done`` markers is
+broadcast first.  With ``use_mesh`` each batch is split over a
+``RankMesh``: every rank decodes the whole batch and analyses only its own
+lanes on its device.  The export packs are gathered on the dispatch
+thread, and rank 0 writes every file (process-0 export); with
+``shard_export`` only the metrics vectors are gathered and each rank
+writes its own lanes.  Every collective is issued from the dispatch
+thread, in the same order on every rank; the export workers do file I/O
+only.
 
 Decoding and exports go through the port's own ``ventjax_torch.io.dicom``,
 ``ventjax_torch.io.native`` and ``ventjax_torch.report.export``.
@@ -179,13 +190,25 @@ def _metrics_from_vec(v) -> StudyMetrics:
     return StudyMetrics(**kw)
 
 
+def _lane_metrics(m: StudyMetrics, i: int) -> StudyMetrics:
+    return StudyMetrics(**{f: getattr(m, f)[i] for f in _METRIC_FIELDS})
+
+
 def _lane(host: Dict, i: int) -> Dict:
     """One subject's slice of a host pack (metrics included)."""
     out = {k: v[i] for k, v in host.items() if k != "metrics"}
-    m = host["metrics"]
-    out["metrics"] = StudyMetrics(**{f: getattr(m, f)[i]
-                                     for f in _METRIC_FIELDS})
+    out["metrics"] = _lane_metrics(host["metrics"], i)
     return out
+
+
+def _process_count() -> int:
+    """Ranks of the default torch.distributed group (1 where there is
+    none)."""
+    import torch.distributed as tdist
+
+    if tdist.is_available() and tdist.is_initialized():
+        return tdist.get_world_size()
+    return 1
 
 
 class _GeometryRunner:
@@ -199,14 +222,16 @@ class _GeometryRunner:
 
     def __init__(self, shape, vox, config: VentConfig, batch_size: int,
                  adaptive_pad: bool = False, device="cuda",
-                 mesh: Optional[dmesh.Mesh] = None):
+                 mesh=None):
         self.shape = tuple(shape)
         self.vox = tuple(vox)
         self.config = config
         self.bs = batch_size
         self.device = resolve_device(device)
         # A batch mesh (use_mesh): each batch is split over its shards
-        # (dist.shard_cohort_fn), so bs is a multiple of the mesh size.
+        # (dist.shard_cohort_fn), so bs is a multiple of the mesh size.  On
+        # a RankMesh (several processes) this rank analyses its own lanes
+        # only, and dispatch returns their pack.
         self.mesh = mesh
         # adaptive_pad (the serving path): pad a partial batch to the next
         # power of two >= its size (at most bs, a multiple of the mesh
@@ -265,7 +290,8 @@ class _GeometryRunner:
         Returns (device pack, pads) without reading any result back: the
         export worker reads the overflow flags when it copies the pack to
         the host, and an overflowed batch comes back through
-        ``bump_for_retry`` and the retry queue.
+        ``bump_for_retry`` and the retry queue.  On a RankMesh the pack
+        holds this rank's lanes only.
         """
         n = len(batch)
         pad = self._eff_bs(n) - n
@@ -283,14 +309,20 @@ class _GeometryRunner:
                 self._n4_cap)
             pads = (self.ci_bucket, self.n4_bucket, self.ci_tail_full)
         cfg, geom = self._fn(*pads)
-        hp, mask = torch.from_numpy(hp_np), torch.from_numpy(mask_np)
-        if self.mesh is None:
-            res = analyze_cohort(hp.to(self.device), mask.to(self.device),
-                                 geom, cfg)
-        else:   # each shard moves its own lanes to its device
+        if isinstance(self.mesh, dmesh.Mesh):
+            # each shard moves its own lanes to its device
             res = dmesh.shard_cohort_fn(
                 lambda h, m: analyze_cohort(h, m, geom, cfg), self.mesh)(
-                    hp, mask)
+                    torch.from_numpy(hp_np), torch.from_numpy(mask_np))
+        else:
+            if self.mesh is not None:
+                # a RankMesh: every rank stacked the whole batch (the pads
+                # above agree); it feeds only its own lanes
+                own = self.mesh.lanes(hp_np.shape[0])
+                hp_np, mask_np = hp_np[own], mask_np[own]
+            res = analyze_cohort(torch.from_numpy(hp_np).to(self.device),
+                                 torch.from_numpy(mask_np).to(self.device),
+                                 geom, cfg)
         B = res.defect.shape[0]
         V = int(np.prod(self.shape))
         # The CI values at the engines' own ascending-flat defect
@@ -361,6 +393,7 @@ def run_cohort(
     adaptive_pad: bool = False,
     device="cuda",
     use_mesh: bool = False,
+    shard_export: bool = False,
 ) -> List[Dict]:
     """Analyse every subject of the manifest; returns per-subject metrics.
 
@@ -391,30 +424,65 @@ def run_cohort(
     shards one after another on the host thread, and each shard of this
     launch- and sync-bound pipeline costs about a whole batch, so n cards
     would take about n times one card's time.
+
+    Several processes (a torch.distributed default group of more than one
+    rank): every rank calls run_cohort with the same arguments.  Rank 0's
+    done markers are broadcast, so every rank skips the same subjects (a
+    done subject whose ``metrics.json`` a rank cannot read comes back as
+    ``{"id": ..., "resumed": True}`` there).  ``use_mesh`` then splits each
+    batch over a ``RankMesh``, one shard per rank on the rank's device
+    (batch_size rounded up to a multiple of the world size); without it
+    every rank analyses every lane.  Rank 0 writes every file after an
+    all-gather of the export pack, and the other ranks record the metrics.
+    ``shard_export`` (only where the batch really is split over the ranks;
+    otherwise process-0 export) gathers only the per-lane metrics vector:
+    every rank records every lane's metrics and writes the files of the
+    lanes it owns, stamping ``export_process`` (its rank) into
+    ``metrics.json``; the ranks then need one shared filesystem.  The
+    overflow and retry decision is taken from the gathered metrics of the
+    valid lanes, identically on every rank, and a retried batch re-runs on
+    every rank.  No rank returns before every rank's exports are written.
     """
-    devices = dmesh.local_devices(device) if use_mesh else None
+    multiproc = _process_count() > 1
+    rank_mesh = dmesh.make_rank_mesh(device) if multiproc else None
+    devices = dmesh.local_devices(device) if use_mesh and not multiproc \
+        else None
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
+    done_flags = np.array(
+        [1 if resume and os.path.exists(os.path.join(out_dir, e["id"],
+                                                     ".done")) else 0
+         for e in manifest], np.int32)
+    if multiproc:
+        # Rank 0 owns the done markers: its view goes to every rank, so
+        # every rank runs the same dispatch sequence (divergent todo lists
+        # would leave the collectives unmatched).
+        done_flags = dmesh.broadcast_one_to_all(done_flags, rank_mesh)
     todo: List[Dict] = []
     results: List[Dict] = []
-    for entry in manifest:
-        sdir = os.path.join(out_dir, entry["id"])
-        if resume and os.path.exists(os.path.join(sdir, ".done")):
+    for entry, done in zip(manifest, done_flags):
+        if done:
             try:
-                with open(os.path.join(sdir, "metrics.json")) as f:
+                with open(os.path.join(out_dir, entry["id"],
+                                       "metrics.json")) as f:
                     results.append(json.load(f))
             except OSError:
+                # a rank that does not share rank 0's filesystem
                 results.append({"id": entry["id"], "resumed": True})
             continue
         todo.append(entry)
     if not todo:
         return results
 
-    devices = devices or [device]
-    n_dev = len(devices)
+    if multiproc:
+        mesh = rank_mesh if use_mesh else None
+        n_dev = rank_mesh.size if use_mesh else 1
+    else:
+        devices = devices or [device]
+        n_dev = len(devices)
+        mesh = dmesh.make_batch_mesh(devices=devices) if n_dev > 1 else None
     bs = batch_size or max(n_dev, 8)
     bs = -(-bs // n_dev) * n_dev   # divisible by the mesh size
-    mesh = dmesh.make_batch_mesh(devices=devices) if n_dev > 1 else None
     if runners is None:
         runners = {}
     results_lock = threading.Lock()
@@ -427,7 +495,8 @@ def run_cohort(
     # Backpressure: at most 2 batches of results may wait for export.
     export_slots = threading.BoundedSemaphore(2)
     # Overflowed batches come back here for re-dispatch at grown pads (the
-    # dispatch thread drains it); the flags are read in the export workers.
+    # dispatch thread drains it); one process reads the flags in the export
+    # workers, several on the dispatch thread.
     retry_lock = threading.Lock()
     retry_queue: deque = deque()
 
@@ -439,41 +508,98 @@ def run_cohort(
         if progress:
             progress("export", cnt, total)
 
+    def _requeued(runner, batch, m, pads) -> bool:
+        """Queue the batch for a re-run when a valid lane overflowed and
+        the pads can still grow.  An empty-mask subject runs on a stand-in
+        all-ones mask whose defects always overflow the CI pad; its flags
+        still export (valid=False says why)."""
+        n = len(batch)
+        ci_ovf = bool((m.ci_overflow & m.valid)[:n].any())
+        n4_ovf = bool((m.n4_overflow & m.valid)[:n].any())
+        if (ci_ovf or n4_ovf) and runner.bump_for_retry(ci_ovf, n4_ovf,
+                                                        pads):
+            log.info("geometry %s: overflow at ci=%d n4=%d tail_full=%s, "
+                     "queueing batch for re-run", runner.shape, *pads)
+            with retry_lock:
+                retry_queue.append((runner, batch))
+            _touch_export(0)
+            return True
+        return False
+
+    def _submit(fn, *args, **kw):
+        """fn in an export worker, holding one of the export slots."""
+        export_slots.acquire()
+
+        def run():
+            try:
+                fn(*args, **kw)
+            finally:
+                export_slots.release()
+        export_futures.append(export_pool.submit(run))
+
+    def _write_lanes(lanes, **kw):
+        """File I/O only: (entry, decoded, host lane pack) triples."""
+        for entry, decoded, lane_pack in lanes:
+            _write_subject(out_dir, entry, decoded, lane_pack, results,
+                           results_lock, npz=export_npz, config=config, **kw)
+            _touch_export()
+
     def _export_batch(runner, batch, pack, pads):
-        try:
-            # The first host sync of the batch: the copy to the host.
-            host = {k: v.cpu().numpy() for k, v in pack.items()
-                    if k != "mvec"}
-            host["metrics"] = _metrics_from_vec(pack["mvec"].cpu().numpy())
-            n = len(batch)
-            # Overflow on a valid lane only: an empty-mask subject runs on
-            # a stand-in all-ones mask whose defects always overflow the CI
-            # pad; its flags still export (valid=False says why).
-            m = host["metrics"]
-            ci_ovf = bool((m.ci_overflow & m.valid)[:n].any())
-            n4_ovf = bool((m.n4_overflow & m.valid)[:n].any())
-            if (ci_ovf or n4_ovf) and runner.bump_for_retry(ci_ovf, n4_ovf,
-                                                            pads):
-                log.info("geometry %s: overflow at ci=%d n4=%d "
-                         "tail_full=%s, queueing batch for re-run",
-                         runner.shape, *pads)
-                with retry_lock:
-                    retry_queue.append((runner, batch))
-                _touch_export(0)
+        """One process: the copy to the host (the batch's first host
+        sync), the overflow check and the files, in an export worker."""
+        host = {k: v.cpu().numpy() for k, v in pack.items() if k != "mvec"}
+        host["metrics"] = _metrics_from_vec(pack["mvec"].cpu().numpy())
+        if not _requeued(runner, batch, host["metrics"], pads):
+            _write_lanes([(e, d, _lane(host, i))
+                          for i, (e, d) in enumerate(batch)])
+
+    def _record(batch, m):
+        with results_lock:
+            for lane, (entry, _) in enumerate(batch):
+                results.append({"id": entry["id"],
+                                **_lane_metrics(m, lane).as_dict()})
+
+    def _gather_batch(runner, batch, pack, pads):
+        """Several processes, on the dispatch thread: every collective of
+        the batch, in the same order on every rank."""
+        sharded = isinstance(runner.mesh, dmesh.RankMesh)
+        if sharded and shard_export:
+            m = _metrics_from_vec(
+                dmesh.process_allgather(pack["mvec"], runner.mesh).numpy())
+            if _requeued(runner, batch, m, pads):
                 return
-            for lane, (entry, decoded) in enumerate(batch):
-                _write_subject(out_dir, entry, decoded, _lane(host, lane),
-                               results, results_lock, npz=export_npz,
-                               config=config)
-                _touch_export()
-        finally:
-            export_slots.release()
+            _record(batch, m)   # every rank records every lane
+            own = runner.mesh.lanes(runner.mesh.size * pack["mvec"].shape[0])
+            local = {k: v.cpu().numpy() for k, v in pack.items()
+                     if k != "mvec"}
+            owned = [(*batch[lane], {**{k: v[i] for k, v in local.items()},
+                                     "metrics": _lane_metrics(m, lane)})
+                     for i, lane in enumerate(range(own.start, own.stop))
+                     if lane < len(batch)]
+            if owned:
+                _submit(_write_lanes, owned, record=False,
+                        exporter=rank_mesh.index)
+            return
+        host = {k: (dmesh.process_allgather(v, runner.mesh) if sharded
+                    else v.cpu()).numpy() for k, v in pack.items()}
+        host["metrics"] = _metrics_from_vec(host.pop("mvec"))
+        if _requeued(runner, batch, host["metrics"], pads):
+            return
+        if rank_mesh.index == 0:
+            _submit(_write_lanes, [(e, d, _lane(host, i))
+                                   for i, (e, d) in enumerate(batch)])
+        else:
+            # recording the metrics is this rank's export: it feeds the
+            # watchdog as rank 0's files do
+            _record(batch, host["metrics"])
+            _touch_export(len(batch))
 
     def submit_export(runner, batch, pack, pads, is_retry=False):
         nonlocal n_done
-        export_slots.acquire()
-        export_futures.append(
-            export_pool.submit(_export_batch, runner, batch, pack, pads))
+        if multiproc:
+            _gather_batch(runner, batch, pack, pads)
+        else:
+            _submit(_export_batch, runner, batch, pack, pads)
         if not is_retry:
             n_done += len(batch)
             if progress:
@@ -555,6 +681,12 @@ def run_cohort(
             drain_retries()
             if not export_futures:
                 break
+        if multiproc:
+            # No rank returns before every rank's files are durable: a
+            # caller that resumes at once must see all the done markers.
+            import torch.distributed as tdist
+
+            tdist.barrier(group=rank_mesh.group)
     finally:
         export_pool.shutdown(wait=True)
     return results
@@ -578,10 +710,13 @@ def _densify_ci(pack: Dict) -> np.ndarray:
 
 
 def _write_subject(out_dir, entry, decoded, pack, results, lock, npz=False,
-                   config=None) -> None:
+                   config=None, record=True, exporter=None) -> None:
     """Write one subject's exports; ``pack`` is its host-side slice (n4
     float32, defect uint8, ci_cv/n_def, metrics).  The ``.done`` marker is
-    written last, so a marker implies a complete export."""
+    written last, so a marker implies a complete export.  ``record=False``
+    skips the results entry (shard_export records on the dispatch thread);
+    ``exporter`` stamps the rank that wrote the files into metrics.json
+    as ``export_process``."""
     hp, mask, vox, ds, proton = decoded
     # exports keep the float32 convention of the reference's artifacts
     hp = np.asarray(hp, np.float32)
@@ -591,6 +726,8 @@ def _write_subject(out_dir, entry, decoded, pack, results, lock, npz=False,
     sdir = os.path.join(out_dir, sid)
     os.makedirs(sdir, exist_ok=True)
     metrics = {"id": sid, **pack["metrics"].as_dict()}
+    if exporter is not None:
+        metrics["export_process"] = int(exporter)
     rexport.export_nifti(
         sdir, sid, hp, mask, proton=proton, n4=np.asarray(pack["n4"]),
         defect=np.asarray(pack["defect"], dtype=np.float32), ci=ci_map)
@@ -616,5 +753,6 @@ def _write_subject(out_dir, entry, decoded, pack, results, lock, npz=False,
         rexport.save_npz(state, os.path.join(sdir, f"{sid}.npz"))
     with open(os.path.join(sdir, ".done"), "w") as f:
         f.write("ok\n")
-    with lock:
-        results.append(metrics)
+    if record:
+        with lock:
+            results.append(metrics)

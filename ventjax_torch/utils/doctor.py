@@ -11,7 +11,7 @@ CPU (``device="cpu"``).  Without a card the default reports ``backend`` and
 never carries on on the CPU.
 
 Required: versions, backend, device_probe, kernel_build (on a CUDA device:
-nvcc builds and loads the port's four CUDA libraries), codec_roundtrip,
+nvcc builds and loads the port's five CUDA libraries), codec_roundtrip,
 pipeline_selftest.  Optional (reported, never fatal): native_scanner (the
 Python codec is a complete fallback), seg_checkpoint (the shipped
 ``--auto-mask`` artifact: its path and presence; where present it loads and
@@ -30,7 +30,7 @@ from typing import Callable, Dict, List, Optional
 #: points.
 VDP_TOLERANCE_PP = 0.1
 #: The CUDA libraries of the port (ventjax_torch/csrc/<name>.cu).
-LIBRARIES = ("n4_fit", "n4_sharpen", "ci_head", "ci_densify")
+LIBRARIES = ("n4_fit", "n4_sharpen", "ci_head", "ci_densify", "n4_field")
 #: CI defect pad of the quick self-test (VDP only; its CI is not checked).
 QUICK_CI_PAD = 512
 
