@@ -144,6 +144,26 @@ Phases, in order; any failure raises and the script exits non-zero:
       path), the in-progress blue statuses, VDPs within 0.1 pp of
       Vent_Analysis on the same study and its CI map equal, and the
       export's files;
+   l. the space axis (dist.make_batch_space_mesh, dist.spatial_shard_fn,
+      models.segmentation.make_sharded_train_step), each run in its own
+      counted window: the headline batch over a 4 x 4 mesh of the card
+      (32 rows a slab) against path a's analyze_cohort of the same batch
+      (defect maps and CI map equal, SNR and the flags bit-equal, VDPs
+      within 0.1 pp and equal where N4's image is, its deviation printed),
+      a repeat bit-identical, batch row 0's N4 iteration counts over its
+      slabs equal on a repeat and to the unsharded N4's; path i's
+      256x256x64 geometry as one study (make_cohort, seed 0, N4 pad
+      covering its mask) over a 1 x 4 mesh, the same checks, with the peak
+      memory above the start beside the unsharded run's (one shard a card
+      where four cards are visible); K1 (its partial), K2, K4 (its
+      partial), K5 and the dense field at least once a slab and K3 once a
+      batch row in each window; outside them, each kernel on its slab
+      operands against its plain version, and K1's reduce, K2's fold and
+      K4's finish against their plain versions and the one-call entry
+      points; then the train step at base 16 on path h's training shapes
+      over a 2 x 4 mesh, 3 steps from train_step's state (loss within
+      1e-5 relative, parameters within SEG_STEP_ATOL), host ms and device
+      ms of each run beside the unsharded run's;
    then the doctor: run_doctor(full=True) on the card, every required
    check passed and kernel_build naming the five libraries;
 5. timing (information only): the slice's volumes/s, the N4 and CI stages
@@ -182,10 +202,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    and busy share, the rows of K1, K2, K3, K4, K5 and the dense field
    (the table goes to chiprun_out/profile_slice.txt);
 8. one JSON line of kernel records (``launches_path_g``,
-   ``launches_path_h``, ``launches_path_i``, ``launches_path_j`` and
-   ``launches_path_k``: each kernel's launches in path g, in path h's
-   analyze --auto-mask, in path i's entries summed, in path j's ranks and
-   modes summed and in path k,
+   ``launches_path_h``, ``launches_path_i``, ``launches_path_j``,
+   ``launches_path_k`` and ``launches_path_l``: each kernel's launches in
+   path g, in path h's analyze --auto-mask, in path i's entries summed, in
+   path j's ranks and modes summed, in path k and in path l's two
+   analysis runs (K1's and K4's partial phases counted as K1 and K4; the
+   split entry points' own counts on the line before),
    ``launches_path_i_by_entry`` by entry; K3's ``path_i_shard`` record;
    ``timed_by_events``: the keys whose times CUDA events took, host launch
    gaps included, where torch.profiler lost the activities), then the
@@ -2391,6 +2413,372 @@ def phase_gui(dev):
     return launches, wall
 
 
+# ---------------------------------------------------------------------------
+# Path l: the space axis (the ("batch", "space") mesh on the card)
+# ---------------------------------------------------------------------------
+
+SPACE_MESH = (4, 4)            # the headline: 16 shards, 32 rows a slab
+SPACE_OVERSIZE_MESH = (1, 4)   # path i's oversize geometry as one study
+SPACE_TRAIN_MESH = (2, 4)      # the train step: 4 lanes a row, 32-row slabs
+SPACE_TRAIN_STEPS = 3
+# the wrappers of path l's kernels, with the kernel record each launches
+SPACE_KERNELS = {"fit_moment_partial": "fit_moment",
+                 "fit_delta_conv_field": "fit_delta_conv_field",
+                 "sharpen_hist_partial": "sharpen_hist",
+                 "sharpen_resid": "sharpen_resid",
+                 "n4_field": "n4_field", "head_counts": "head_counts"}
+# the split entry points (one reduce, fold and finish per N4 step)
+SPACE_ENTRIES = ("fit_moment_partial", "fit_moment_reduce", "fit_fold_stats",
+                 "sharpen_hist_partial", "sharpen_hist_finish")
+
+
+def profiled_run(fn):
+    """(fn(), device ms of its activities, activity count): one call under
+    torch.profiler, after spin kernels that take the activities a session
+    can lose first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(24):
+            torch.cuda._sleep(100)
+        out = fn()
+        torch.cuda.synchronize()
+    ev = [e for e in device_events(prof) if "spin_kernel" not in e.name]
+    return out, sum(e.time_range.elapsed_us() for e in ev) / 1e3, len(ev)
+
+
+def capture_space(fn):
+    """(fn(), the arguments of the first call of each of path l's kernel
+    wrappers in it): the slab-shaped operands, for the plain checks."""
+    from ventjax_torch.ops import ci_pairwise as tcp
+    from ventjax_torch.ops import n4_space
+
+    seen, undo = {}, []
+    for mod, name in ((n4_space, "fit_moment_partial"),
+                      (n4_space, "fit_delta_conv_field"),
+                      (n4_space, "sharpen_hist_partial"),
+                      (n4_space, "sharpen_resid"), (n4_space, "n4_field"),
+                      (tcp, "head_counts")):
+        real = getattr(mod, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            seen.setdefault(_name, (a, kw))
+            return _real(*a, **kw)
+
+        setattr(mod, name, spy)
+        undo.append((mod, name, real))
+    try:
+        return fn(), seen
+    finally:
+        for mod, name, real in undo:
+            setattr(mod, name, real)
+
+
+def check_space_kernels(seen):
+    """Every kernel of path l on its slab operands against its plain
+    version, and each split entry point against its plain version and the
+    one-call entry point.  Returns (checks, max error per kernel record)."""
+    from ventjax_torch.ops import ci_cuda, n4_cuda, n4_field_cuda
+    from ventjax_torch.ops import n4_sharpen_cuda as sc
+
+    checks, err = {}, {}
+    cpu = lambda ts: [t.cpu() if isinstance(t, torch.Tensor) else t
+                      for t in ts]
+    a, _ = seen["fit_moment_partial"]
+    part = n4_cuda.fit_moment_partial(*a)
+    err["fit_moment"] = scaled_err(part.cpu(),
+                                   n4_cuda.fit_moment_partial_plain(*cpu(a)))
+    checks["k1_partial_plain"] = err["fit_moment"] <= KERNEL_RTOL
+    red = n4_cuda.fit_moment_reduce(part)
+    checks["k1_reduce_plain_bit_equal"] = torch.equal(
+        red.cpu(), n4_cuda.fit_moment_reduce_plain(part.cpu()))
+    checks["k1_split_equals_one_call"] = torch.equal(
+        red, n4_cuda.fit_moment(*a))
+    a, kw = seen["fit_delta_conv_field"]
+    got = n4_cuda.fit_delta_conv_field(*a, **kw)
+    want = n4_cuda.fit_delta_conv_field_plain(*cpu(a), **kw)
+    e2 = [scaled_err(g.cpu(), w) for g, w in zip(got[:2], want[:2])]
+    e2.append(scaled_err(got[2][:, :2].cpu(), want[2][:, :2]))
+    err["fit_delta_conv_field"] = max(e2)
+    checks["k2_plain"] = max(e2) <= KERNEL_RTOL
+    fold = n4_cuda.fit_fold_stats(got[3])
+    checks["k2_fold_equals_one_call"] = torch.equal(fold, got[2])
+    checks["k2_fold_plain_bit_equal"] = torch.equal(
+        fold.cpu(), n4_cuda.fit_fold_stats_plain(got[3].cpu()))
+    a, _ = seen["sharpen_hist_partial"]
+    hp = sc.sharpen_hist_partial(*a)
+    checks["k4_partial_fixed_plain_bit_equal"] = torch.equal(
+        hp.cpu(), sc.sharpen_hist_partial_plain(*cpu(a)))
+    hist = sc.sharpen_hist_finish(hp, a[-1])
+    checks["k4_finish_plain_bit_equal"] = torch.equal(
+        hist.cpu(), sc.sharpen_hist_finish_plain(hp.cpu(), a[-1]))
+    checks["k4_split_equals_one_call"] = torch.equal(hist,
+                                                     sc.sharpen_hist(*a))
+    err["sharpen_hist"] = scaled_err(hist.cpu(),
+                                     sc.sharpen_hist_plain(*cpu(a)))
+    a, _ = seen["sharpen_resid"]
+    r5 = sc.sharpen_resid(*a)
+    checks["k5_plain_bit_equal"] = torch.equal(
+        r5.cpu(), sc.sharpen_resid_plain(*cpu(a)))
+    err["sharpen_resid"] = scaled_err(r5.cpu(),
+                                      sc.sharpen_resid_plain(*cpu(a)))
+    a, kw = seen["n4_field"]
+    f = n4_field_cuda.n4_field(*a, **kw)
+    checks["field_rows_plain_bit_equal"] = torch.equal(
+        f.cpu(), n4_field_cuda.n4_field_plain(*cpu(a), **kw))
+    r0, r1 = kw["rows"]
+    checks["field_rows_equal_full_field"] = torch.equal(
+        f, n4_field_cuda.n4_field(*a)[:, r0:r1])
+    err["n4_field"] = scaled_err(f.cpu(), n4_field_cuda.n4_field_plain(
+        *cpu(a), **kw))
+    a, _ = seen["head_counts"]
+    checks["k3_plain_bit_equal"] = torch.equal(
+        ci_cuda.head_counts(*a), ci_cuda.head_counts_plain(*a))
+    err["head_counts"] = 0.0
+    shape = lambda name: list(seen[name][0][1].shape)
+    log(f"space: kernels at slab shapes (K1 rows {shape('fit_moment_partial')}"
+        f", K2 rows {shape('fit_delta_conv_field')}, field rows {r1 - r0}): "
+        f"errors {json.dumps(err)}")
+    return checks, err
+
+
+def space_required(counts, n_batch, n_space):
+    """The counted window's launches meet path l's rule: K1, K2, K4 and K5
+    at least once a slab (a whole number of times per batch row's slabs),
+    the dense field once a slab, K3 once a batch row."""
+    shards = n_batch * n_space
+    n4 = ("fit_moment_partial", "fit_delta_conv_field",
+          "sharpen_hist_partial", "sharpen_resid")
+    return (all(counts[k] >= shards and counts[k] % n_space == 0
+                for k in n4)
+            and counts["n4_field"] == shards
+            and counts["head_counts"] == n_batch)
+
+
+def space_compare(got, want, tag, checks):
+    """Path l's checks of a spatial run against the unsharded one; returns
+    the N4 image's max |difference|."""
+    equal = lambda f: torch.equal(getattr(got, f), getattr(want, f))
+    for f in ("defect", "defect_lb", "defect_km", "ci_map"):
+        checks[f"{tag}_{f}_equal"] = equal(f)
+    g, w = got.metrics, want.metrics
+    checks[f"{tag}_snr_bit_equal"] = torch.equal(g.snr.isnan(),
+                                                 w.snr.isnan()) and bool(
+        (g.snr == w.snr)[~w.snr.isnan()].all())
+    for f in ("lung_volume", "ci_saturated", "ci_overflow", "n4_overflow",
+              "valid"):
+        checks[f"{tag}_{f}_equal"] = torch.equal(getattr(g, f),
+                                                 getattr(w, f))
+    n4_dev = float((got.n4 - want.n4).abs().max())
+    dv = max(float((getattr(g, f) - getattr(w, f)).abs().max())
+             for f in ("vdp", "vdp_lb", "vdp_km"))
+    checks[f"{tag}_vdp_within_0.1pp"] = dv < 0.1
+    if n4_dev == 0.0:
+        checks[f"{tag}_vdp_equal_where_n4_bit_equal"] = all(
+            torch.equal(getattr(g, f), getattr(w, f))
+            for f in ("vdp", "vdp_lb", "vdp_km", "ci"))
+    log(f"space {tag}: N4 image max |d| {n4_dev!r}, VDPs max |d| {dv!r} pp")
+    return n4_dev
+
+
+def phase_space(dev, cfg, geom, hp_d, mask_d, res):
+    """Path l: the space axis on the card (see the module docstring).
+    Returns (launches per kernel record, launches by entry point, max
+    errors, timings)."""
+    import functools
+
+    from ventjax_torch.config import DEFAULT_CONFIG
+    from ventjax_torch.dist import make_batch_space_mesh, spatial_shard_fn
+    from ventjax_torch.io.phantom import make_cohort, make_random_cohort
+    from ventjax_torch.models import segmentation as seg
+    from ventjax_torch.ops import n4
+    from ventjax_torch.ops.basic import sort_compact_masked
+    from ventjax_torch.ops.n4_space import n4_slabs
+    from ventjax_torch.pipeline import analyze_cohort, build_geometry
+
+    t_path = time.perf_counter()
+    checks, times, counts = {}, {}, {}
+
+    # 1. the headline batch over a 4 x 4 mesh of the card, against path a's
+    #    analyze_cohort of the same batch (res, same cfg)
+    nb, ns = SPACE_MESH
+    mesh = make_batch_space_mesh(nb, ns, devices=[dev] * (nb * ns))
+    fn = spatial_shard_fn(functools.partial(analyze_cohort, geom=geom,
+                                            config=cfg), mesh)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = fn(hp_d, mask_d)
+    torch.cuda.synchronize()
+    times["headline_host_ms"] = (time.perf_counter() - t0) * 1e3
+    counts["headline"] = launch_counts()
+    syncs = n4.HOST_SYNCS["n4"]
+    checks["headline_kernels"] = space_required(counts["headline"], nb, ns)
+    log(f"space headline {nb}x{ns}: launches "
+        f"{json.dumps(counts['headline'])}; N4 host syncs {syncs}")
+    n4_dev = space_compare(got, res, "headline", checks)
+    (again, seen), times["headline_device_ms"], acts = profiled_run(
+        lambda: capture_space(lambda: fn(hp_d, mask_d)))
+    checks["headline_repeat_bit_identical"] = all(
+        torch.equal(getattr(got, f), getattr(again, f))
+        for f in ("n4", "defect", "defect_lb", "defect_km", "defect_border",
+                  "ci_map")) and all(
+        torch.equal(getattr(got.metrics, f).nan_to_num(),
+                    getattr(again.metrics, f).nan_to_num())
+        for f in ("snr", "vdp", "vdp_lb", "vdp_km", "ci", "ci_saturated"))
+    t0 = time.perf_counter()
+    analyze_cohort(hp_d, mask_d, geom, cfg)
+    torch.cuda.synchronize()
+    times["unsharded_host_ms"] = (time.perf_counter() - t0) * 1e3
+    _, times["unsharded_device_ms"], acts_u = profiled_run(
+        lambda: analyze_cohort(hp_d, mask_d, geom, cfg))
+    log(f"space headline: host ms {times['headline_host_ms']!r} (unsharded "
+        f"{times['unsharded_host_ms']!r}), device ms "
+        f"{times['headline_device_ms']!r} in {acts} activities (unsharded "
+        f"{times['unsharded_device_ms']!r} in {acts_u})")
+    kchecks, err = check_space_kernels(seen)
+    checks.update(kchecks)
+
+    # N4's iteration counts: batch row 0's slabs, twice, against the
+    # unsharded N4 of its lanes
+    lanes = hp_d[:BATCH // nb]
+    m0 = mask_d[:BATCH // nb]
+    N, H, W, D = lanes.shape
+    h = H // ns
+    P = cfg.n4_mask_pad
+
+    def row0_slabs():
+        runs = []
+        for s in range(ns):
+            x, m = lanes[:, s * h:(s + 1) * h], m0[:, s * h:(s + 1) * h]
+            i, v, c = sort_compact_masked(x.reshape(N, -1),
+                                          m.reshape(N, -1) > 0,
+                                          min(P, h * W * D))
+            runs.append((i + s * h * W * D, v, c))
+        return n4_slabs([lanes[:, s * h:(s + 1) * h].contiguous()
+                         for s in range(ns)], runs, (H, W, D), P,
+                        fitting_levels=cfg.n4_fitting_levels,
+                        max_iters=cfg.n4_max_iters,
+                        convergence_threshold=cfg.n4_convergence_threshold,
+                        bins=cfg.n4_histogram_bins, fwhm=cfg.n4_bias_fwhm,
+                        wiener_noise=cfg.n4_wiener_noise,
+                        control_points=cfg.n4_control_points)
+
+    it1, it2 = row0_slabs()[2], row0_slabs()[2]
+    comp = sort_compact_masked(lanes.reshape(N, -1),
+                               m0.reshape(N, -1) > 0, P)
+    _, _, it_u = n4_call(lanes, m0, cfg, return_overflow=True,
+                         return_iters=True, compacted=comp)
+    checks["n4_iters_repeat_identical"] = torch.equal(it1, it2)
+    checks["n4_iters_equal_unsharded"] = torch.equal(it1, it_u)
+    log(f"space: N4 iterations of batch row 0 over {ns} slabs "
+        f"{it1.tolist()}, unsharded {it_u.tolist()}")
+
+    # 2. path i's oversize geometry as one study over a (1, 4) mesh
+    ob, os_ = SPACE_OVERSIZE_MESH
+    ohp, omask, _ = make_cohort(1, OVERSIZE, VOX, seed=SEED)
+    n_mask = int((omask > 0).sum())
+    ocfg = DEFAULT_CONFIG.replace(
+        n4_mask_pad=min(int(np.prod(OVERSIZE)), -(-n_mask // 8192) * 8192))
+    ogeom = build_geometry(VOX, OVERSIZE, ocfg)
+    ohp_d, omask_d = torch.from_numpy(ohp).to(dev), torch.from_numpy(
+        omask).to(dev)
+    cards = torch.cuda.device_count()
+    odevs = ([torch.device("cuda", i) for i in range(os_)]
+             if cards >= os_ else [dev] * os_)
+    for d in set(odevs):
+        torch.cuda.reset_peak_memory_stats(d)
+    base = {d: torch.cuda.memory_allocated(d) for d in set(odevs)}
+    ofn = spatial_shard_fn(functools.partial(analyze_cohort, geom=ogeom,
+                                             config=ocfg),
+                           make_batch_space_mesh(ob, os_, devices=odevs))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ogot = ofn(ohp_d, omask_d)
+    torch.cuda.synchronize()
+    times["oversize_host_ms"] = (time.perf_counter() - t0) * 1e3
+    counts["oversize"] = launch_counts()
+    checks["oversize_kernels"] = space_required(counts["oversize"], ob, os_)
+    peaks = {str(d): torch.cuda.max_memory_allocated(d) - base[d]
+             for d in sorted(set(odevs), key=str)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_u = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    owant = analyze_cohort(ohp_d, omask_d, ogeom, ocfg)
+    torch.cuda.synchronize()
+    times["oversize_unsharded_host_ms"] = (time.perf_counter() - t0) * 1e3
+    peak_u = torch.cuda.max_memory_allocated(dev) - base_u
+    o_dev = space_compare(ogot, owant, "oversize", checks)
+    oagain = ofn(ohp_d, omask_d)
+    checks["oversize_repeat_bit_identical"] = all(
+        torch.equal(getattr(ogot, f), getattr(oagain, f))
+        for f in ("n4", "defect", "defect_lb", "defect_km", "ci_map"))
+    log(f"space oversize {OVERSIZE} over ({ob}, {os_}): {n_mask} mask "
+        f"voxels, n4_mask_pad {ocfg.n4_mask_pad}, ci_overflow "
+        f"{bool(ogot.metrics.ci_overflow[0])}; launches "
+        f"{json.dumps(counts['oversize'])}; host ms "
+        f"{times['oversize_host_ms']!r} (unsharded "
+        f"{times['oversize_unsharded_host_ms']!r}); peak bytes allocated "
+        f"above the start: by device {json.dumps(peaks)} "
+        f"({'one shard a card' if cards >= os_ else 'all shards on the one card'}"
+        f"), unsharded {peak_u}")
+    times["oversize_peak_bytes"] = peaks
+    times["oversize_unsharded_peak_bytes"] = peak_u
+
+    # 3. the train step at base 16 on path h's training shapes over a (2, 4)
+    #    mesh, 3 steps from the same state as train_step's
+    tb, ts = SPACE_TRAIN_MESH
+    make = lambda: seg.create_train_state(
+        torch.Generator().manual_seed(SEED), shape=SHAPE[:2], base=16,
+        learning_rate=1e-3, device=dev)
+    ref, state = make(), make()
+    step = seg.make_sharded_train_step(state, make_batch_space_mesh(
+        tb, ts, devices=[dev] * (tb * ts)))
+    lerr, ms_s, ms_u = [], [], []
+    for i in range(SPACE_TRAIN_STEPS):
+        _, mask, proton = make_random_cohort(SEG_BATCH, shape=SHAPE,
+                                             seed=SEED + 1 + i * SEG_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = float(seg.train_step(ref, proton, mask))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got_l = float(step(state, proton, mask))
+        torch.cuda.synchronize()
+        ms_u.append((t1 - t0) * 1e3)
+        ms_s.append((time.perf_counter() - t1) * 1e3)
+        lerr.append(abs(got_l - want) / abs(want))
+    perr = max(float((p.detach() - q.detach()).abs().max()) for p, q in zip(
+        state.model.parameters(), ref.model.parameters()))
+    checks["train_loss_within_1e-5"] = max(lerr) <= 1e-5
+    checks["train_params_within_step_atol"] = perr <= SEG_STEP_ATOL
+    times["train_step_ms"] = ms_s
+    times["train_step_unsharded_ms"] = ms_u
+    log(f"space train step over ({tb}, {ts}), base 16, {SEG_BATCH} x "
+        f"{SHAPE}: loss relative differences {lerr!r}, parameters max |d| "
+        f"after {SPACE_TRAIN_STEPS} steps {perr!r}; step host ms {ms_s!r} "
+        f"(unsharded {ms_u!r})")
+
+    checks = {k: bool(x) for k, x in checks.items()}
+    log(f"space checks: {json.dumps(checks)}")
+    if not all(checks.values()):
+        raise AssertionError(f"the space path failed: {checks}")
+    by_entry = {e: counts["headline"][e] + counts["oversize"][e]
+                for e in SPACE_ENTRIES}
+    launches = {k: 0 for k in KERNELS}
+    for run in counts.values():
+        for k, v in run.items():
+            rec = SPACE_KERNELS.get(k, k)
+            if rec in launches:
+                launches[rec] += v
+    times["n4_max_abs_dev"] = {"headline": n4_dev, "oversize": o_dev}
+    times["path_s"] = time.perf_counter() - t_path
+    log(f"time space (host clock): {json.dumps(times)}")
+    return launches, by_entry, err, times
+
+
 def phase_doctor():
     """The deployment self-check on the card: every required check passed
     and kernel_build naming the five libraries."""
@@ -3155,6 +3543,10 @@ def main():
         dev, cfg, geom, hp_d, mask_d, res)
     mp_rates, mp_launches = phase_multiproc(dev)
     gui_launches, _ = phase_gui(dev)
+    space_launches_l, space_by_entry, space_err, _ = phase_space(
+        dev, cfg, geom, hp_d, mask_d, res)
+    for k, e in space_err.items():
+        max_err[k] = max(max_err[k], e)
     phase_doctor()
     med, rec = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
                             dev)
@@ -3182,6 +3574,7 @@ def main():
                     e: c[k] for e, c in dist_by_entry.items()},
                 "launches_path_j": mp_launches[k],
                 "launches_path_k": gui_launches[k],
+                "launches_path_l": space_launches_l[k],
                 "max_abs_err": max_err[k], **rec[k],
                 "timed_by_events": events_timed(rec[k])}
                for k, (s, r) in KERNELS.items()]
@@ -3190,6 +3583,8 @@ def main():
                  or m.startswith(("jax.", "jaxlib.", "ventjax.")))
     if bad:
         raise AssertionError(f"the port loaded JAX or ventjax: {bad[:5]}")
+    log("path l's split entry points (launches): "
+        + json.dumps(space_by_entry))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

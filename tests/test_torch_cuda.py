@@ -25,7 +25,11 @@ convolutions, TF32 off) against the CPU: masks equal except where the CPU
 relative and its parameters within 1e-5 absolute.  dist/ on shards of the
 one card: the halo CI and the batch mesh bit-equal to their unsharded runs.
 N4's dense field (the n4_field kernel) bit-equal to its plain version, and
-every output of the pipeline the same in groups of 1, 2 and 4 lanes.
+every output of the pipeline the same in groups of 1, 2 and 4 lanes.  The
+space axis: K1's partial and reduce, K2's fold and K4's partial and finish
+bit-equal to their plain versions (K1's partial within 1e-5) and to the
+one-call entry points; a slab's field rows bit-equal to the full field's;
+the pipeline over a (2, 4) mesh of the card bit-equal to analyze_cohort.
 """
 import numpy as np
 import pytest
@@ -790,3 +794,107 @@ def test_batch_mesh_on_card_bit_identical(cuda):
     for name in ("snr", "vdp", "vdp_lb", "vdp_km", "ci"):
         a, b = getattr(meshed.metrics, name), getattr(whole.metrics, name)
         assert bool(((a == b) | (a.isnan() & b.isnan())).all()), name
+
+
+# ------------------------------------------------ the space axis on the card
+
+def test_split_entry_points_on_card(cuda):
+    """K1's partial and reduce, K2's fold and K4's partial and finish:
+    each against its plain version and against the one-call entry point."""
+    g = torch.Generator().manual_seed(0)
+    N, ncp, P = 3, 7, 3 * n4_cuda.CHUNK + 77
+    a = torch.randn(N, P, generator=g)
+    rows = [torch.rand(N, ncp, P, generator=g) for _ in range(3)]
+    ad, rd = a.to(cuda), [r.to(cuda) for r in rows]
+    part = n4_cuda.fit_moment_partial(ad, *rd)
+    want = n4_cuda.fit_moment_partial_plain(a, *rows)
+    assert _err(part, want) < RTOL
+    red = n4_cuda.fit_moment_reduce(part)
+    assert torch.equal(red, n4_cuda.fit_moment(ad, *rd))
+    assert torch.equal(red.cpu(), n4_cuda.fit_moment_reduce_plain(part.cpu()))
+    lu = torch.randn(N, P, generator=g)
+    wv = (torch.rand(N, P, generator=g) > 0.3).to(torch.float32)
+    bmn, sl = torch.full((N,), -3.0), torch.full((N,), 6.0 / 199)
+    dev = [t.to(cuda) for t in (lu, wv, bmn, sl)]
+    hp = sc.sharpen_hist_partial(*dev, 200)
+    assert torch.equal(hp.cpu(), sc.sharpen_hist_partial_plain(
+        lu, wv, bmn, sl, 200))
+    hist = sc.sharpen_hist_finish(hp, 200)
+    assert torch.equal(hist, sc.sharpen_hist(*dev, 200))
+    assert torch.equal(hist.cpu(), sc.sharpen_hist_finish_plain(hp.cpu(), 200))
+    phi = torch.randn(N, ncp, ncp * ncp, generator=g).to(cuda)
+    zero = torch.zeros(N, device=cuda)
+    out = n4_cuda.fit_delta_conv_field(phi, *rd, dev[1], torch.zeros_like(
+        ad), dev[0], zero, return_part=True)
+    folded = n4_cuda.fit_fold_stats(out[3])
+    assert torch.equal(folded, out[2])
+    assert torch.equal(folded.cpu(), n4_cuda.fit_fold_stats_plain(
+        out[3].cpu()))
+
+
+def test_field_slab_rows_on_card(cuda):
+    from ventjax_torch.ops import n4_field_cuda as nf
+
+    g = torch.Generator().manual_seed(1)
+    ncps = (4, 5, 7, 11)
+    shape = (128, 128, 16)
+    phi = torch.randn(2, sum(c ** 3 for c in ncps), generator=g).to(cuda)
+    full = nf.n4_field(phi, shape, ncps)
+    for s in range(4):
+        rows = (s * 32, (s + 1) * 32)
+        got = nf.n4_field(phi, shape, ncps, rows=rows)
+        assert torch.equal(got, full[:, rows[0]:rows[1]])
+        assert torch.equal(got.cpu(), nf.n4_field_plain(phi.cpu(), shape,
+                                                        ncps, rows=rows))
+
+
+def test_spatial_pipeline_on_card_bit_equal(cuda):
+    """The headline's slab program at 64x64x8 over a (2, 4) mesh of the one
+    card against analyze_cohort on the card: every output bit-equal."""
+    import functools
+
+    from ventjax_torch.dist import make_batch_space_mesh, spatial_shard_fn
+
+    shape, vox = (64, 64, 8), (1.5, 1.5, 10.0)
+    cfg = DEFAULT_CONFIG.replace(ci_max_defect_voxels=1024, n4_mask_pad=16384)
+    hp, mask, _ = make_cohort(4, shape, vox, seed=2)
+    hp, mask = torch.from_numpy(hp).to(cuda), torch.from_numpy(mask).to(cuda)
+    geom = build_geometry(vox, shape, cfg)
+    fn = functools.partial(analyze_cohort, geom=geom, config=cfg)
+    counts = n4_cuda.LAUNCHES
+    before = counts["fit_moment_partial"]
+    got = spatial_shard_fn(fn, make_batch_space_mesh(
+        2, 4, devices=[cuda] * 8))(hp, mask)
+    assert counts["fit_moment_partial"] > before
+    want = analyze_cohort(hp, mask, geom, cfg)
+    for name in ("n4", "defect", "defect_lb", "defect_km", "defect_border",
+                 "ci_map"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    for name in ("snr", "vdp", "vdp_lb", "vdp_km", "lung_volume", "ci",
+                 "ci_saturated", "ci_overflow", "n4_overflow", "valid"):
+        torch.testing.assert_close(getattr(got.metrics, name),
+                                   getattr(want.metrics, name), rtol=0,
+                                   atol=0, equal_nan=True, msg=name)
+
+
+def test_spatial_pipeline_across_cards_bit_equal(cuda):
+    """One slab a card: each wrapper launches on its tensors' card, so the
+    slabs give analyze_cohort's bits there too."""
+    import functools
+
+    from ventjax_torch.dist import make_batch_space_mesh, spatial_shard_fn
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two cards or more, found {n}")
+    shape, vox = (64, 64, 8), (1.5, 1.5, 10.0)
+    cfg = DEFAULT_CONFIG.replace(ci_max_defect_voxels=1024, n4_mask_pad=16384)
+    hp, mask, _ = make_cohort(2, shape, vox, seed=2)
+    hp, mask = torch.from_numpy(hp).to(cuda), torch.from_numpy(mask).to(cuda)
+    geom = build_geometry(vox, shape, cfg)
+    fn = functools.partial(analyze_cohort, geom=geom, config=cfg)
+    cards = [torch.device("cuda", i) for i in range(2)]
+    got = spatial_shard_fn(fn, make_batch_space_mesh(1, 2, cards))(hp, mask)
+    want = analyze_cohort(hp, mask, geom, cfg)
+    for name in ("n4", "defect", "defect_lb", "defect_km", "ci_map"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name

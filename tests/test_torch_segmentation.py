@@ -372,11 +372,6 @@ def test_load_checkpoint_rejects_orbax_and_junk(tmp_path):
         tseg.load_checkpoint(str(tmp_path / "absent.npz"), device="cpu")
 
 
-def test_make_sharded_train_step_raises():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tseg.make_sharded_train_step(None, None, None)
-
-
 def test_default_device_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

@@ -18,6 +18,13 @@
 // fixed-order reductions are shared code, so K7's d and (s1, s2) equal
 // K2's with done = 0 bit for bit, and flush(K6) * wv equals K7's d.
 //
+// Split entry points, for a compacted list held in slabs (one launch per
+// slab, each over whole chunks of the list): vj_fit_moment_partial writes
+// K1's per-chunk partials and vj_fit_moment_reduce adds any concatenation
+// of them in chunk order; vj_fit_fold_stats folds K2's per-chunk
+// statistics (its part) as K2's last block does.  vj_fit_moment is the
+// first two in turn.
+//
 // Layout: basis rows are [N, ncp, P] float32 (voxel index fastest, so a
 // warp reads 32 consecutive voxels of one row); vectors are [N, P]; the
 // moment and phi are [N, ncp^3] with c slowest and e fastest.
@@ -107,6 +114,7 @@ namespace {
 constexpr int MAXCP = 16;       // largest ncp the kernels take
 constexpr int CHUNK = 2048;     // voxels per block (one partial sum each)
 constexpr int K2_THREADS = 256;
+constexpr int MAX_DEVICES = 64;   // cards whose K1 opt-in is remembered
 constexpr unsigned FULL = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
@@ -351,13 +359,17 @@ int launch_moment(const float* a, const float* br, const float* bc,
                   int vec4, cudaStream_t st) {
   using C = MomentCfg<NCP>;
   const size_t smem = moment_smem<NCP>();
-  static bool opted_in = false;   // the attribute is set once per kernel
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  // the attribute is set once per kernel and device (it is per device)
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(
         moment_partial<NCP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
-    opted_in = true;
+    if (dev < MAX_DEVICES) opted_in[dev] = true;
   }
   moment_partial<NCP><<<dim3(nchunk, N, C::NER), C::THREADS, smem, st>>>(
       a, br, bc, bs, part, P, nchunk, vec4);
@@ -557,11 +569,35 @@ __device__ __forceinline__ void block_stats(float (*red)[K2_THREADS],
   }
 }
 
+// Fold a lane's chunk statistics in chunk order: sums from 0 for slots
+// 0-1, min and max for slots 2-3.  The block's threads load the partials
+// together, K2_THREADS at a time, into buf (K2_THREADS floats of shared
+// memory); NS threads fold them.
+template <int NS>
+__device__ __forceinline__ void fold_chunks(const float* __restrict__ part,
+                                            float* __restrict__ stats,
+                                            float* __restrict__ buf, int lane,
+                                            int nchunk) {
+  const int t = threadIdx.x;
+  const float* p = part + (size_t)lane * nchunk * NS;
+  float s = t < 2 ? 0.f : (t == 2 ? INFINITY : -INFINITY);
+  constexpr int CPR = K2_THREADS / NS;         // chunks per round
+  for (int c0 = 0; c0 < nchunk; c0 += CPR) {
+    const int n = min(CPR, nchunk - c0) * NS;
+    if (t < n) buf[t] = __ldcg(p + (size_t)c0 * NS + t);
+    __syncthreads();
+    if (t < NS) {
+      for (int i = t; i < n; i += NS)
+        s = t < 2 ? s + buf[i] : (t == 2 ? fminf(s, buf[i])
+                                         : fmaxf(s, buf[i]));
+    }
+    __syncthreads();
+  }
+  if (t < NS) stats[(size_t)lane * NS + t] = s;
+}
+
 // The last block of a lane to finish (a ticket per lane, which atomicInc
-// brings back to 0 as that block takes it) folds the chunks' statistics in
-// chunk order: sums from 0 for slots 0-1, min and max for slots 2-3.  The
-// block's threads load the partials together, K2_THREADS at a time, into
-// buf (K2_THREADS floats of shared memory); NS threads fold them.
+// brings back to 0 as that block takes it) folds the chunks' statistics.
 template <int NS>
 __device__ __forceinline__ void fold_lane(const float* __restrict__ part,
                                           float* __restrict__ stats,
@@ -578,21 +614,16 @@ __device__ __forceinline__ void fold_lane(const float* __restrict__ part,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const float* p = part + (size_t)lane * nchunk * NS;
-  float s = t < 2 ? 0.f : (t == 2 ? INFINITY : -INFINITY);
-  constexpr int CPR = K2_THREADS / NS;         // chunks per round
-  for (int c0 = 0; c0 < nchunk; c0 += CPR) {
-    const int n = min(CPR, nchunk - c0) * NS;
-    if (t < n) buf[t] = __ldcg(p + (size_t)c0 * NS + t);
-    __syncthreads();
-    if (t < NS) {
-      for (int i = t; i < n; i += NS)
-        s = t < 2 ? s + buf[i] : (t == 2 ? fminf(s, buf[i])
-                                         : fmaxf(s, buf[i]));
-    }
-    __syncthreads();
-  }
-  if (t < NS) stats[(size_t)lane * NS + t] = s;
+  fold_chunks<NS>(part, stats, buf, lane, nchunk);
+}
+
+// K2's fold on its own: one block per lane folds chunk statistics that
+// launches over several slabs of one compacted list wrote, concatenated
+// in chunk order.
+__global__ void __launch_bounds__(K2_THREADS) fold_stats(
+    const float* __restrict__ part, float* __restrict__ stats, int nchunk) {
+  __shared__ float buf[K2_THREADS];
+  fold_chunks<4>(part, stats, buf, blockIdx.x, nchunk);
 }
 
 // Three blocks an SM up to ncp 11 (80 registers a thread), so the 384
@@ -711,9 +742,10 @@ bool bad_shape(int N, int P, int ncp, int nchunk) {
 
 extern "C" int vj_n4_chunk(void) { return CHUNK; }
 
-extern "C" int vj_fit_moment(const float* a, const float* br, const float* bc,
-                             const float* bs, float* part, float* out, int N,
-                             int P, int ncp, int nchunk, void* stream) {
+extern "C" int vj_fit_moment_partial(const float* a, const float* br,
+                                     const float* bc, const float* bs,
+                                     float* part, int N, int P, int ncp,
+                                     int nchunk, void* stream) {
   if (bad_shape(N, P, ncp, nchunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int vec4 = P % 4 == 0 && aligned16(a) && aligned16(br) &&
@@ -731,10 +763,37 @@ extern "C" int vj_fit_moment(const float* a, const float* br, const float* bc,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef VJ_MOMENT
-  if (err != 0) return err;
+  return err;
+}
+
+// part: [N, nchunk, ncp^3] partials of any number of chunks (the partials
+// of several launches concatenated in chunk order) -> out [N, ncp^3].
+extern "C" int vj_fit_moment_reduce(const float* part, float* out, int N,
+                                    int ncp, int nchunk, void* stream) {
+  if (N < 1 || N > 65535 || ncp < 1 || ncp > MAXCP || nchunk < 1)
+    return (int)cudaErrorInvalidValue;
   const int n3 = ncp * ncp * ncp;
-  reduce_chunks<<<dim3((n3 + 255) / 256, N), 256, 0, st>>>(part, out, nchunk,
-                                                            n3);
+  reduce_chunks<<<dim3((n3 + 255) / 256, N), 256, 0, (cudaStream_t)stream>>>(
+      part, out, nchunk, n3);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vj_fit_moment(const float* a, const float* br, const float* bc,
+                             const float* bs, float* part, float* out, int N,
+                             int P, int ncp, int nchunk, void* stream) {
+  const int err = vj_fit_moment_partial(a, br, bc, bs, part, N, P, ncp,
+                                        nchunk, stream);
+  if (err != 0) return err;
+  return vj_fit_moment_reduce(part, out, N, ncp, nchunk, stream);
+}
+
+// part: [N, nchunk, 4] chunk statistics of K2 (s1, s2, min, max), from one
+// or several launches concatenated in chunk order -> stats [N, 4], folded
+// as K2's last block folds them.
+extern "C" int vj_fit_fold_stats(const float* part, float* stats, int N,
+                                 int nchunk, void* stream) {
+  if (N < 1 || N > 65535 || nchunk < 1) return (int)cudaErrorInvalidValue;
+  fold_stats<<<N, K2_THREADS, 0, (cudaStream_t)stream>>>(part, stats, nchunk);
   return (int)cudaGetLastError();
 }
 

@@ -9,6 +9,10 @@
 //     a = flush((logu - interp(e_loc, t + 1) * wv) * wv) / max(sv, 1e-30),
 //     and 0 where wv = 0: the B-spline fit target from the expectation table
 //     e_loc [N, bins + 2] that the FFT chain between the two computes.
+// K4 is two launches, also callable one at a time: vj_sharpen_hist_partial
+// (the per-chunk fixed-point partials) and vj_sharpen_hist_finish (their
+// sum, over any concatenation of partials along the chunk axis, to
+// float32), so slabs of one lane give one histogram.
 //
 // Index guard.  A lane whose weights are all 0 has the range (+inf, -inf),
 // and a constant lane has slope 0; either way (logu - binmin) / slope can be
@@ -291,22 +295,39 @@ bool bad_shape(int N, int P, int bins) {
 extern "C" int vj_sharpen_chunk(void) { return CHUNK; }
 extern "C" int vj_sharpen_max_slots(void) { return MAX_SLOTS; }
 
+extern "C" int vj_sharpen_hist_partial(const float* logu, const float* wv,
+                                       const float* binmin,
+                                       const float* slope, void* part, int N,
+                                       int P, int bins, int nchunk,
+                                       void* stream) {
+  if (bad_shape(N, P, bins) || nchunk != (P + CHUNK - 1) / CHUNK)
+    return (int)cudaErrorInvalidValue;
+  const int vec4 = P % 4 == 0 && ((size_t)logu & 15) == 0 &&
+                   ((size_t)wv & 15) == 0;
+  hist_partial<<<dim3(nchunk, N), THREADS, 0, (cudaStream_t)stream>>>(
+      logu, wv, binmin, slope, (u64*)part, P, bins, nchunk, vec4);
+  return (int)cudaGetLastError();
+}
+
+// part: [N, nchunk, bins + 2] fixed-point partials of any number of chunks
+// (several launches' partials concatenated along the chunk axis).
+extern "C" int vj_sharpen_hist_finish(const void* part, float* hist, int N,
+                                      int bins, int nchunk, void* stream) {
+  if (N < 1 || N > 65535 || bins < 2 || bins + 2 > MAX_SLOTS || nchunk < 1)
+    return (int)cudaErrorInvalidValue;
+  hist_finish<<<dim3((bins + 31) / 32, N), THREADS, 0,
+                (cudaStream_t)stream>>>((const u64*)part, hist, bins, nchunk);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int vj_sharpen_hist(const float* logu, const float* wv,
                                const float* binmin, const float* slope,
                                void* part, float* hist, int N, int P, int bins,
                                int nchunk, void* stream) {
-  if (bad_shape(N, P, bins) || nchunk != (P + CHUNK - 1) / CHUNK)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int vec4 = P % 4 == 0 && ((size_t)logu & 15) == 0 &&
-                   ((size_t)wv & 15) == 0;
-  hist_partial<<<dim3(nchunk, N), THREADS, 0, st>>>(
-      logu, wv, binmin, slope, (u64*)part, P, bins, nchunk, vec4);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  hist_finish<<<dim3((bins + 31) / 32, N), THREADS, 0, st>>>(
-      (const u64*)part, hist, bins, nchunk);
-  return (int)cudaGetLastError();
+  const int err = vj_sharpen_hist_partial(logu, wv, binmin, slope, part, N,
+                                          P, bins, nchunk, stream);
+  if (err != 0) return err;
+  return vj_sharpen_hist_finish(part, hist, N, bins, nchunk, stream);
 }
 
 extern "C" int vj_sharpen_resid(const float* logu, const float* wv,

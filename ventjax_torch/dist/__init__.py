@@ -9,18 +9,22 @@ from ventjax_torch.dist.halo import (
     padded_depth_for,
 )
 from ventjax_torch.dist.mesh import (
+    BatchSpaceMesh,
     Mesh,
     RankMesh,
     broadcast_one_to_all,
     initialize_multihost,
     local_devices,
     make_batch_mesh,
+    make_batch_space_mesh,
     make_rank_mesh,
     process_allgather,
     shard_cohort_fn,
+    spatial_shard_fn,
 )
 
 __all__ = [
+    "BatchSpaceMesh",
     "Mesh",
     "RankMesh",
     "broadcast_one_to_all",
@@ -29,9 +33,11 @@ __all__ = [
     "initialize_multihost",
     "local_devices",
     "make_batch_mesh",
+    "make_batch_space_mesh",
     "make_rank_mesh",
     "make_sliced_ci_fn",
     "padded_depth_for",
     "process_allgather",
     "shard_cohort_fn",
+    "spatial_shard_fn",
 ]

@@ -18,6 +18,13 @@ mesh carry the same shard body:
   cohort driver takes one when the default group holds several ranks;
   ``process_allgather`` and ``broadcast_one_to_all`` are its collectives.
 
+A third, ``BatchSpaceMesh`` (``make_batch_space_mesh``), is the 2-D
+("batch", "space") mesh: batch rows take lanes, and the shards of a row
+take H-slabs of each volume (``dist/space.py``).  ``spatial_shard_fn`` runs
+the analysis pipeline over it and ``models.segmentation.
+make_sharded_train_step`` the U-Net's train step; its shards live in this
+process, like ``Mesh``'s.
+
 ``local_devices`` is the one function that lists the devices of this
 process; the meshes default to it.
 """
@@ -54,6 +61,83 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSpaceMesh:
+    """A 2-D ("batch", "space") mesh in one process: ``devices[b][s]`` is
+    the device of batch row b's space shard s.  A device may repeat, as in
+    ``Mesh``, so one card or the CPU can hold every shard."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+
+    @property
+    def n_batch(self) -> int:
+        return len(self.devices)
+
+    @property
+    def n_space(self) -> int:
+        return len(self.devices[0])
+
+    @property
+    def size(self) -> int:
+        return self.n_batch * self.n_space
+
+
+def make_batch_space_mesh(
+    n_batch: int,
+    n_space: int,
+    devices: Optional[Sequence[torch.device]] = None,
+) -> BatchSpaceMesh:
+    """A ("batch", "space") mesh of n_batch x n_space shards over the first
+    n_batch * n_space of ``devices`` (default: every local card), row-major
+    (batch row b holds devices[b * n_space:(b + 1) * n_space])."""
+    if devices is None:
+        devices = local_devices()
+    devices = [torch.device(d) for d in devices]
+    need = n_batch * n_space
+    if n_batch < 1 or n_space < 1 or len(devices) < need:
+        raise ValueError(
+            f"a ({n_batch}, {n_space}) batch x space mesh needs "
+            f"{n_batch} * {n_space} = {need} devices, got {len(devices)} "
+            f"(a device may repeat: pass devices=[dev] * {need})")
+    return BatchSpaceMesh(tuple(
+        tuple(devices[b * n_space:(b + 1) * n_space])
+        for b in range(n_batch)))
+
+
+def spatial_shard_fn(cohort_fn: Callable, mesh: BatchSpaceMesh) -> Callable:
+    """The analysis pipeline with its inputs sharded [N@batch, H@space, W,
+    D] over ``mesh``: the counterpart of ventjax's ``spatial_shard_fn``.
+
+    ventjax jits any function under sharding annotations and XLA derives
+    the collectives.  Here they are written by hand for the pipeline
+    (``pipeline/spatial.py``), so ``cohort_fn`` must name the pipeline and
+    its geometry: ``functools.partial(analyze_cohort, geom=...,
+    config=...)`` or what ``make_analyze_fn(vox, shape, config,
+    batched=True)`` returns.  Any other function raises a TypeError.
+
+    The returned fn takes [N, H, W, D] host or device tensors, splits N
+    over the batch rows and H over each row's space shards (H divisible by
+    the space size, N by the batch size), runs the slab program row after
+    row (within an N4 iteration the slabs go in lockstep) and returns a
+    VentResult whose leaves are in lane and row order on the mesh's first
+    device."""
+    from ventjax_torch.pipeline.spatial import analyze_spatial, pipeline_of
+
+    geom, config = pipeline_of(cohort_fn)
+
+    def sharded(hp, mask):
+        per = _per_shard(hp.shape[0], mesh.n_batch)
+        parts = [analyze_spatial(hp[b * per:(b + 1) * per],
+                                 mask[b * per:(b + 1) * per], geom, config,
+                                 row)
+                 for b, row in enumerate(mesh.devices)]
+        first = mesh.devices[0][0]
+        return map_leaves(
+            lambda xs: torch.cat([x.to(first) for x in xs], dim=0), parts)
+
+    return sharded
 
 
 def _per_shard(n: int, shards: int) -> int:
@@ -223,11 +307,10 @@ def initialize_multihost(
         world_size=int(num_processes or 1), rank=int(process_id))
 
 
-def make_rank_mesh(device=None, group=None) -> RankMesh:
+def make_rank_mesh(device="cuda", group=None) -> RankMesh:
     """A mesh of one shard per rank of ``group`` (None: the default group,
     after ``initialize_multihost``), on ``device`` (default: the card
-    ``torch.cuda.current_device()`` where a card is visible, else the
-    CPU)."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return RankMesh(resolve_device(device), group)
+    ``torch.cuda.current_device()``; without a card that raises, as every
+    entry point of the port does: pass ``device="cpu"`` for the CPU)."""
+    return RankMesh(resolve_device("cuda" if device is None else device),
+                    group)

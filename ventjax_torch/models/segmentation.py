@@ -28,7 +28,9 @@ in HWIO, ``step``, and Adam's moments and count unless ``params_only``.
 ``scripts/convert_seg_ckpt.py`` converts an orbax checkpoint of the
 reference package; the shipped artifact is ``models/seg_ckpt.npz``.
 
-``make_sharded_train_step`` waits for the port of ``dist/``.
+``make_sharded_train_step`` runs the train step over a ("batch",
+"space") mesh: lanes over batch rows, H-slabs of each slice over space
+shards, with the convolutions' halos and the loss's sums written out.
 """
 from __future__ import annotations
 
@@ -268,14 +270,128 @@ def train_step(state: TrainState, proton, mask) -> torch.Tensor:
     return loss.detach()
 
 
-def make_sharded_train_step(*args, **kwargs):
-    """The reference's data- and space-parallel train step over a
-    ("batch", "space") mesh.  Not ported: it waits for the "space" axis of
-    ``dist/`` (halo exchange of the U-Net's activations)."""
-    raise NotImplementedError(
-        "make_sharded_train_step is not ported: the sharded train step waits "
-        "for the space axis of dist/ (ROADMAP.md §1 item 6, part b); "
-        "train_step runs on one card")
+def _conv_slabs(xs, w, b):
+    """A SAME 3x3 convolution of the image the slabs ``xs`` ([S, C, h, W]
+    each, H-slabs in order) make up: each slab takes one halo row from
+    either neighbour (zeros beyond the image's edges) and pads W itself.
+    Autograd carries the adjoint back through the halo copies."""
+    from ventjax_torch.dist import space
+
+    return [F.conv2d(p, wi, bi, padding=(0, 1))
+            for p, wi, bi in zip(space.with_halo(xs, 1, dim=2), w, b)]
+
+
+def _forward_slabs(params, xs):
+    """SegUNet's forward over H-slabs; ``params[k]`` holds shard k's copy of
+    every parameter (names as in the state_dict)."""
+    def block(i, ys):
+        for j in range(2):
+            key = f"blocks.{i}.conv{j}"
+            ys = [F.gelu(y, approximate="tanh") for y in _conv_slabs(
+                ys, [p[key + ".weight"] for p in params],
+                [p[key + ".bias"] for p in params])]
+        return ys
+
+    pool = lambda ys: [F.avg_pool2d(y, 2) for y in ys]
+    up = lambda ys: [F.interpolate(y, scale_factor=2, mode="nearest")
+                     for y in ys]
+    cat = lambda a, b: [torch.cat([x, y], dim=1) for x, y in zip(a, b)]
+    c1 = block(0, xs)
+    c2 = block(1, pool(c1))
+    c3 = block(2, pool(c2))
+    c4 = block(3, cat(up(c3), c2))
+    c5 = block(4, cat(up(c4), c1))
+    return [F.conv2d(c, p["head.weight"], p["head.bias"])[:, 0]
+            for c, p in zip(c5, params)]
+
+
+def make_sharded_train_step(state: TrainState, mesh):
+    """The train step over a ("batch", "space") mesh
+    (``dist.make_batch_space_mesh``): the counterpart of ventjax's
+    ``make_sharded_train_step(model, tx, mesh)``.
+
+    Returns ``step(state, proton, mask) -> loss``, which, like
+    ``train_step``, updates ``state`` in place (the port's TrainState holds
+    the model and its optimizer, where ventjax's step returns a new state
+    with the loss).  ``state`` names the model the step will train; every
+    call takes its state.
+
+    Batch rows take lanes and space shards take H-slabs of each slice (the
+    slab height a multiple of 4, for the U-Net's two 2x2 VALID pools).
+    Every SAME 3x3 convolution takes 1-row halos from its neighbours;
+    pools, x2 upsampling, the concatenations and the 1x1 head stay local.
+    Each slice's min and max for the normalisation, BCE's sum and Dice's
+    per-slice sums are combined across shards.  The parameters and Adam's
+    state stay replicated: each shard computes with its own copy, the
+    shards' gradients are summed in one fixed order (shard order, batch
+    row by batch row) and one Adam step updates the model, as every
+    replica would alike.  The shards run in this process, in turn."""
+    from ventjax_torch.dist import space
+    from ventjax_torch.dist.mesh import BatchSpaceMesh, _per_shard
+
+    if not isinstance(mesh, BatchSpaceMesh):
+        raise TypeError("make_sharded_train_step takes a ('batch', 'space') "
+                        "mesh from dist.make_batch_space_mesh")
+    if not isinstance(state, TrainState) or state.optimizer is None:
+        raise TypeError("make_sharded_train_step needs a TrainState with "
+                        "its optimizer (not a params-only checkpoint)")
+    shards = [d for row in mesh.devices for d in row]
+
+    def step(state: TrainState, proton, mask) -> torch.Tensor:
+        _exact_float32()
+        model = state.model
+        model.train()
+        first = shards[0]
+        hp = _as_tensor(proton, first)
+        y = _as_tensor(mask, first)
+        n, H = hp.shape[0], hp.shape[1]
+        h = space.slab_height(hp.shape[1:], mesh.n_space)
+        if h % 4:
+            raise ValueError(
+                f"a slab of {h} rows (H {H} over {mesh.n_space} space "
+                f"shards) does not take the U-Net's two 2x2 pools; the "
+                f"slab height must be a multiple of 4")
+        per = _per_shard(n, mesh.n_batch)
+        named = list(model.named_parameters())
+        params = [{k: p.detach().to(d).requires_grad_(True)
+                   for k, p in named} for d in shards]
+        bce_sums, dices, count = [], [], 0
+        for b, row in enumerate(mesh.devices):
+            lanes = slice(b * per, (b + 1) * per)
+            xs = space.split_rows(_slices(hp[lanes]), row, dim=2)
+            ys = [t[:, 0] for t in
+                  space.split_rows(_slices(y[lanes]), row, dim=2)]
+            lo = space.reduce_min([x.amin(dim=(1, 2, 3)) for x in xs])
+            hi = space.reduce_max([x.amax(dim=(1, 2, 3)) for x in xs])
+            scale = torch.clamp(hi - lo, min=1e-6)
+            xs = [(x - space.to(lo, x.device)[:, None, None, None])
+                  / space.to(scale, x.device)[:, None, None, None]
+                  for x in xs]
+            ps = params[b * mesh.n_space:(b + 1) * mesh.n_space]
+            logits = _forward_slabs(ps, xs)
+            bce_sums += [F.binary_cross_entropy_with_logits(
+                lg, t, reduction="sum") for lg, t in zip(logits, ys)]
+            count += sum(t.numel() for t in ys)
+            prob = [torch.sigmoid(lg) for lg in logits]
+            inter = space.sum_in_order([(p * t).sum(dim=(1, 2))
+                                        for p, t in zip(prob, ys)])
+            psum = space.sum_in_order([p.sum(dim=(1, 2)) for p in prob])
+            ysum = space.sum_in_order([t.sum(dim=(1, 2)) for t in ys])
+            dices.append((1.0 - (2 * inter + 1.0) / (psum + ysum + 1.0)
+                          ).to(first))
+        loss = (space.sum_in_order(bce_sums).to(first) / count
+                + torch.cat(dices).mean())
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        with torch.no_grad():
+            for k, p in named:
+                p.grad = space.sum_in_order(
+                    [q[k].grad for q in params]).to(p.device)
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    return step
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,11 @@ A wrapper checks devices, types and contiguity on either route
 take; it then takes its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (``route``).  The C entry points take
 PyTorch's current stream (``stream``) and return ``cudaGetLastError()``,
-which ``raise_on`` turns into an exception.  There is no fallback from a
+which ``raise_on`` turns into an exception.  Each wrapper calls its entry
+point with its tensors' device current (``torch.cuda.device``): a C launch
+goes to the current device, whose stream it must take (PyTorch's default
+stream is handle 0, the current device's), and a launch on another card
+than its tensors' would race with their stream.  There is no fallback from a
 kernel to a plain version.
 """
 from __future__ import annotations

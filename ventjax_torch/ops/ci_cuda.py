@@ -127,11 +127,12 @@ def head_counts(
     out = torch.empty((N, K, ns), dtype=torch.int32, device=dev)
     flat = [int(v) for pqs in combos for v in pqs]
     combo_arr = (ctypes.c_int * len(flat))(*flat)
-    rc = lib.vj_head_counts(
-        *(t.data_ptr() for t in (*centers, *witnesses)),
-        r2.data_ptr(), out.data_ptr(), N, K, Kw, ns,
-        ctypes.cast(combo_arr, ctypes.c_void_p), len(combos),
-        *(float(s) for s in scale), int(rmax), stream(dev))
+    with torch.cuda.device(dev):
+        rc = lib.vj_head_counts(
+            *(t.data_ptr() for t in (*centers, *witnesses)),
+            r2.data_ptr(), out.data_ptr(), N, K, Kw, ns,
+            ctypes.cast(combo_arr, ctypes.c_void_p), len(combos),
+            *(float(s) for s in scale), int(rmax), stream(dev))
     raise_on(rc, "head_counts")
     LAUNCHES["head_counts"] += 1
     return out

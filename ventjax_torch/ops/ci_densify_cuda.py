@@ -100,8 +100,9 @@ def rank(d01):
     ntile = -(-V // lib.vj_rank_tile())
     ws = _workspace(lib, d01.device, N * (ntile + 2))
     out = torch.empty((N, V), dtype=torch.int32, device=d01.device)
-    rc = lib.vj_rank(d01.data_ptr(), ws.data_ptr(), out.data_ptr(), N, V,
-                     ntile, stream(d01.device))
+    with torch.cuda.device(d01.device):
+        rc = lib.vj_rank(d01.data_ptr(), ws.data_ptr(), out.data_ptr(), N, V,
+                         ntile, stream(d01.device))
     raise_on(rc, "rank")
     LAUNCHES["rank"] += 1
     return out
@@ -137,9 +138,10 @@ def densify_rank(rank, d01, cv, k):
     if not route("densify_rank", d01):
         return densify_rank_plain(rank, d01, cv, k)
     out = torch.empty((N, V), dtype=torch.float32, device=d01.device)
-    rc = _lib().vj_densify_rank(rank.data_ptr(), d01.data_ptr(),
-                                cv.data_ptr(), out.data_ptr(), N, V, k,
-                                stream(d01.device))
+    with torch.cuda.device(d01.device):
+        rc = _lib().vj_densify_rank(rank.data_ptr(), d01.data_ptr(),
+                                    cv.data_ptr(), out.data_ptr(), N, V, k,
+                                    stream(d01.device))
     raise_on(rc, "densify_rank")
     LAUNCHES["densify_rank"] += 1
     return out

@@ -236,7 +236,15 @@ def defect_coords(defect: torch.Tensor, K: int):
     real-row mask)."""
     N, H, W, D = defect.shape
     cidx, n_def = compact_mask_indices((defect != 0).reshape(N, -1), K)
-    valid = torch.arange(K, device=defect.device)[None, :] < n_def[:, None]
+    return coords_of(cidx, n_def, (H, W, D))
+
+
+def coords_of(cidx: torch.Tensor, n_def: torch.Tensor, shape):
+    """``defect_coords`` from the compacted flat indices [N, K] and the
+    defect counts [N] of volumes of ``shape``."""
+    _, W, D = shape
+    K = cidx.shape[1]
+    valid = torch.arange(K, device=cidx.device)[None, :] < n_def[:, None]
 
     def coord(v, fill):
         return torch.where(valid, v, torch.full_like(v, fill)).to(
@@ -269,15 +277,10 @@ def calculate_ci_pairwise(
     H, W, D = geom.shape
     V = H * W * D
     K = max_defect_voxels
-    M = geom.n_balls
     dev = defect.device
     coords, cidx, n_def, valid = defect_coords(defect, K)
-    jballs, tail_overflow = resolve_balls_two_phase(
-        coords, coords, geom,
-        head_balls=head_balls, tail_k=tail_k, valid=valid)
-
-    saturated = (jballs >= M - 1) & valid
-    cv = torch.as_tensor(geom.radii32, device=dev)[jballs] * geom.min_vox
+    cv, n_sat, overflow = ci_pairwise_values(coords, n_def, valid, geom, K,
+                                             head_balls, tail_k)
     if pallas_densify:
         d01 = (defect != 0).reshape(N, V)
         ci_flat = densify_rank(rank(d01), d01, cv, K)
@@ -286,5 +289,19 @@ def calculate_ci_pairwise(
         ci_flat.scatter_(
             1, torch.where(valid, cidx, torch.full_like(cidx, V)), cv)
         ci_flat = ci_flat[:, :V]
-    return (ci_flat.reshape(N, H, W, D), saturated.sum(1),
-            (n_def > K) | tail_overflow)
+    return ci_flat.reshape(N, H, W, D), n_sat, overflow
+
+
+def ci_pairwise_values(coords, n_def, valid, geom: CIPairwiseGeometry,
+                       K: int, head_balls: int = 96,
+                       tail_k: Optional[int] = None):
+    """(CI value [N, K] of each compacted defect voxel, saturated count
+    [N], overflow [N]) from ``defect_coords``' coordinates: the engine
+    without the dense map."""
+    jballs, tail_overflow = resolve_balls_two_phase(
+        coords, coords, geom,
+        head_balls=head_balls, tail_k=tail_k, valid=valid)
+    saturated = (jballs >= geom.n_balls - 1) & valid
+    cv = torch.as_tensor(geom.radii32,
+                         device=n_def.device)[jballs] * geom.min_vox
+    return cv, saturated.sum(1), (n_def > K) | tail_overflow

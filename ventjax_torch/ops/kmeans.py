@@ -42,6 +42,50 @@ def _assign_first_min(vals: torch.Tensor, centers: torch.Tensor) -> torch.Tensor
     return torch.where(is_min, j, k).min(dim=2).values
 
 
+def kmeans_centers(vals: torch.Tensor, wv: torch.Tensor, k: int = 4,
+                   iters: int = 30) -> torch.Tensor:
+    """[N, k] Lloyd centers of the compacted values ``vals`` [N, P] whose
+    weights ``wv`` are set (quantile start, first-of-ties assignment, a
+    lane frozen once its centers stop moving)."""
+    N = vals.shape[0]
+    vals = vals.to(torch.float32)
+    wv = wv.to(torch.float32)
+    centers = _masked_quantiles(vals, wv, k)
+    done = torch.zeros(N, dtype=torch.bool, device=vals.device)
+    for _ in range(iters):
+        assign = _assign_first_min(vals, centers)
+        onehot = assign[:, :, None] == torch.arange(k, device=vals.device)
+        zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+        sums = torch.where(onehot, (wv * vals)[:, :, None], zero).sum(1)
+        counts = torch.where(onehot, wv[:, :, None], zero).sum(1)
+        new = torch.where(counts > 0,
+                          sums / torch.where(counts > 0, counts, 1.0), centers)
+        unchanged = (new == centers).all(1)
+        centers = torch.where(done[:, None], centers, new)
+        done = done | unchanged
+        if bool(done.all()):
+            break
+    return centers
+
+
+def kmeans_defect(n4: torch.Tensor, mask: torch.Tensor,
+                  centers: torch.Tensor,
+                  defect_clusters: int = 1) -> torch.Tensor:
+    """[N, ...] 0/1 defect map: the masked voxels of ``n4`` (any [N, ...]
+    block of the volume) assigned to one of the ``defect_clusters``
+    lowest centers."""
+    N = n4.shape[0]
+    flat = n4.reshape(N, -1).to(torch.float32)
+    flat_m = mask.reshape(N, -1) > 0
+    assign_full = _assign_first_min(flat, centers)
+    order = torch.argsort(centers, dim=1, stable=True)
+    defect_flat = torch.zeros_like(flat)
+    for i in range(int(defect_clusters)):
+        defect_flat = defect_flat + (assign_full == order[:, i:i + 1]).to(
+            flat.dtype)
+    return (defect_flat * flat_m.to(flat.dtype)).reshape(n4.shape)
+
+
 def vdp_kmeans(
     n4: torch.Tensor,
     mask: torch.Tensor,
@@ -58,35 +102,8 @@ def vdp_kmeans(
     compacted by N4 (``n4_bias_correction(return_compacted=True)``).
     """
     N = n4.shape[0]
-    flat = n4.reshape(N, -1).to(torch.float32)
-    flat_m = mask.reshape(N, -1) > 0
-    vals, wv = compacted
-    vals = vals.to(torch.float32)
-    wv = wv.to(torch.float32)
-
-    centers = _masked_quantiles(vals, wv, k)
-    done = torch.zeros(N, dtype=torch.bool, device=n4.device)
-    for _ in range(iters):
-        assign = _assign_first_min(vals, centers)
-        onehot = assign[:, :, None] == torch.arange(k, device=n4.device)
-        zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
-        sums = torch.where(onehot, (wv * vals)[:, :, None], zero).sum(1)
-        counts = torch.where(onehot, wv[:, :, None], zero).sum(1)
-        new = torch.where(counts > 0,
-                          sums / torch.where(counts > 0, counts, 1.0), centers)
-        unchanged = (new == centers).all(1)
-        centers = torch.where(done[:, None], centers, new)
-        done = done | unchanged
-        if bool(done.all()):
-            break
-
-    assign_full = _assign_first_min(flat, centers)
-    order = torch.argsort(centers, dim=1, stable=True)
-    defect_flat = torch.zeros_like(flat)
-    for i in range(int(defect_clusters)):
-        defect_flat = defect_flat + (assign_full == order[:, i:i + 1]).to(
-            flat.dtype)
-    defect = (defect_flat * flat_m.to(flat.dtype)).reshape(n4.shape)
+    centers = kmeans_centers(*compacted, k, iters)
+    defect = kmeans_defect(n4, mask, centers, defect_clusters)
     vdp_km = (100.0 * defect.reshape(N, -1).sum(1)
               / mask.reshape(N, -1).sum(1))
     return defect, vdp_km

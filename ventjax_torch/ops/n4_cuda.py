@@ -24,6 +24,14 @@ the flushed, weighted K6 equals K7's delta, bit for bit.  Only the unfused
 fit chain (``chip_smoke.py``'s counterpart of
 ``benchmarks/n4_pallas_micro.py``) runs K6 and K7; N4 runs K1 and K2.
 
+For a compacted list held in slabs (``ops/n4_space.py``), K1 and K2's
+statistics come in two phases: ``fit_moment_partial`` writes K1's per-chunk
+partials and ``fit_moment_reduce`` adds a concatenation of several slabs'
+partials in chunk order; ``fit_delta_conv_field(..., return_part=True)``
+also returns K2's per-chunk statistics, which ``fit_fold_stats`` folds as
+K2's last block does.  A slab that launches over whole chunks of the list
+then gives the one-launch bits.
+
 Each wrapper runs its plain PyTorch version for a CPU tensor, launches the
 kernel for a CUDA tensor, and raises for anything else.  Everything is
 float32; the kernels and plain versions share one algorithm and differ
@@ -39,9 +47,11 @@ from ventjax_torch import _build
 from ventjax_torch.ops._launch import check, raise_on, route, stream
 
 MAX_NCP = 16
+CHUNK = 2048     # voxels per chunk of K1 and K2 (csrc/n4_fit.cu CHUNK)
 # Kernel launches per wrapper since the counts were last set to 0.
 LAUNCHES = {"fit_moment": 0, "fit_delta_conv_field": 0, "fit_delta": 0,
-            "fit_delta_conv": 0}
+            "fit_delta_conv": 0, "fit_moment_partial": 0,
+            "fit_moment_reduce": 0, "fit_fold_stats": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +64,12 @@ def _typed(lib):
         lib.vj_n4_chunk.restype = _I
         lib.vj_fit_moment.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.vj_fit_moment.restype = _I
+        lib.vj_fit_moment_partial.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+        lib.vj_fit_moment_partial.restype = _I
+        lib.vj_fit_moment_reduce.argtypes = [_P] * 2 + [_I] * 3 + [_P]
+        lib.vj_fit_moment_reduce.restype = _I
+        lib.vj_fit_fold_stats.argtypes = [_P] * 2 + [_I] * 2 + [_P]
+        lib.vj_fit_fold_stats.restype = _I
         lib.vj_fit_delta_conv_field.argtypes = [_P] * 13 + [_I] * 4 + [_P]
         lib.vj_fit_delta_conv_field.restype = _I
         lib.vj_fit_delta.argtypes = [_P] * 5 + [_I] * 4 + [_P]
@@ -61,6 +77,8 @@ def _typed(lib):
         lib.vj_fit_delta_conv.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.vj_fit_delta_conv.restype = _I
         lib._vj_typed = True
+        if lib.vj_n4_chunk() != CHUNK:
+            raise RuntimeError("n4_fit: CHUNK differs from the kernel source")
     return lib
 
 
@@ -120,12 +138,95 @@ def fit_moment(a, br, bc, bs):
     part = torch.empty((N, nchunk, n3), device=a.device, dtype=torch.float32)
     out = torch.empty((N, ncp, ncp * ncp), device=a.device,
                       dtype=torch.float32)
-    rc = lib.vj_fit_moment(
-        a.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
-        part.data_ptr(), out.data_ptr(), N, P, ncp, nchunk,
-        stream(a.device))
+    with torch.cuda.device(a.device):
+        rc = lib.vj_fit_moment(
+            a.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
+            part.data_ptr(), out.data_ptr(), N, P, ncp, nchunk,
+            stream(a.device))
     raise_on(rc, "fit_moment")
     LAUNCHES["fit_moment"] += 1
+    return out
+
+
+def _chunked(t, nchunk):
+    """[N, ..., P] -> [N, nchunk, ..., CHUNK], zero past P."""
+    P = t.shape[-1]
+    t = torch.nn.functional.pad(t, (0, nchunk * CHUNK - P))
+    t = t.reshape(t.shape[:-1] + (nchunk, CHUNK))
+    return t.movedim(-2, 1)
+
+
+def fit_moment_partial_plain(a, br, bc, bs):
+    """Plain PyTorch version of K1's first phase: [N, nchunk, ncp^3], the
+    moment of each CHUNK voxels of the list."""
+    N, ncp, P = br.shape
+    nchunk = -(-P // CHUNK)
+    ca, cr, cc, cs = (_chunked(t, nchunk) for t in (a, br, bc, bs))
+    M = N * nchunk
+    mom = fit_moment_plain(ca.reshape(M, CHUNK), cr.reshape(M, ncp, CHUNK),
+                           cc.reshape(M, ncp, CHUNK),
+                           cs.reshape(M, ncp, CHUNK))
+    return mom.reshape(N, nchunk, ncp ** 3)
+
+
+def fit_moment_partial(a, br, bc, bs):
+    """K1's first phase: a [N, P]; br/bc/bs [N, ncp, P] -> the per-chunk
+    partials [N, ceil(P / CHUNK), ncp^3] float32."""
+    N, ncp, P = _check_rows("fit_moment_partial", br, bc, bs)
+    if a.shape != (N, P):
+        raise ValueError(f"fit_moment_partial: a is {tuple(a.shape)}, "
+                         f"expected {(N, P)}")
+    check("fit_moment_partial", a, br, bc, bs)
+    if not route("fit_moment_partial", a):
+        return fit_moment_partial_plain(a, br, bc, bs)
+    lib = _lib()
+    nchunk = -(-P // CHUNK)
+    part = torch.empty((N, nchunk, ncp ** 3), device=a.device,
+                       dtype=torch.float32)
+    with torch.cuda.device(a.device):
+        rc = lib.vj_fit_moment_partial(
+            a.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
+            part.data_ptr(), N, P, ncp, nchunk, stream(a.device))
+    raise_on(rc, "fit_moment_partial")
+    LAUNCHES["fit_moment_partial"] += 1
+    return part
+
+
+def _ncp_of(part):
+    ncp = round(part.shape[2] ** (1.0 / 3.0))
+    if part.dim() != 3 or ncp ** 3 != part.shape[2] or not (
+            1 <= ncp <= MAX_NCP):
+        raise ValueError(f"fit_moment_reduce: part is {tuple(part.shape)}, "
+                         f"expected [N, nchunk, ncp^3] with ncp <= {MAX_NCP}")
+    return ncp
+
+
+def fit_moment_reduce_plain(part):
+    """Plain PyTorch version of K1's second phase: the chunks added one
+    after another, in chunk order, from 0."""
+    N, nchunk, _ = part.shape
+    ncp = _ncp_of(part)
+    out = torch.zeros((N, ncp ** 3), dtype=part.dtype, device=part.device)
+    for c in range(nchunk):
+        out = out + part[:, c]
+    return out.reshape(N, ncp, ncp * ncp)
+
+
+def fit_moment_reduce(part):
+    """K1's second phase: per-chunk partials [N, nchunk, ncp^3] (one launch's
+    or several slabs' concatenated in chunk order) -> [N, ncp, ncp*ncp]."""
+    ncp = _ncp_of(part)
+    check("fit_moment_reduce", part)
+    if not route("fit_moment_reduce", part):
+        return fit_moment_reduce_plain(part)
+    N, nchunk, _ = part.shape
+    out = torch.empty((N, ncp, ncp * ncp), device=part.device,
+                      dtype=torch.float32)
+    with torch.cuda.device(part.device):
+        rc = _lib().vj_fit_moment_reduce(part.data_ptr(), out.data_ptr(), N,
+                                         ncp, nchunk, stream(part.device))
+    raise_on(rc, "fit_moment_reduce")
+    LAUNCHES["fit_moment_reduce"] += 1
     return out
 
 
@@ -181,9 +282,10 @@ def fit_delta(phi, br, bc, bs):
     lib = _lib()
     nchunk = -(-P // lib.vj_n4_chunk())
     out = torch.empty((N, P), device=phi.device, dtype=torch.float32)
-    rc = lib.vj_fit_delta(phi.data_ptr(), br.data_ptr(), bc.data_ptr(),
-                          bs.data_ptr(), out.data_ptr(), N, P, ncp, nchunk,
-                          stream(phi.device))
+    with torch.cuda.device(phi.device):
+        rc = lib.vj_fit_delta(phi.data_ptr(), br.data_ptr(), bc.data_ptr(),
+                              bs.data_ptr(), out.data_ptr(), N, P, ncp, nchunk,
+                              stream(phi.device))
     raise_on(rc, "fit_delta")
     LAUNCHES["fit_delta"] += 1
     return out
@@ -216,11 +318,12 @@ def fit_delta_conv(phi, br, bc, bs, wv):
     d = torch.empty((N, P), **kw)
     part = torch.empty((N, nchunk, 2), **kw)
     stats = torch.empty((N, 2), **kw)
-    rc = lib.vj_fit_delta_conv(
-        phi.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
-        wv.data_ptr(), d.data_ptr(), part.data_ptr(),
-        _tickets(wv.device, N).data_ptr(), stats.data_ptr(),
-        N, P, ncp, nchunk, stream(wv.device))
+    with torch.cuda.device(wv.device):
+        rc = lib.vj_fit_delta_conv(
+            phi.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
+            wv.data_ptr(), d.data_ptr(), part.data_ptr(),
+            _tickets(wv.device, N).data_ptr(), stats.data_ptr(),
+            N, P, ncp, nchunk, stream(wv.device))
     raise_on(rc, "fit_delta_conv")
     LAUNCHES["fit_delta_conv"] += 1
     return d, stats
@@ -230,21 +333,65 @@ def fit_delta_conv(phi, br, bc, bs, wv):
 # K2: fused field update + next residual + convergence sums.
 
 
-def fit_delta_conv_field_plain(phi, br, bc, bs, wv, field, logv, done):
+def _field_stats(d, wv, lu):
+    """[..., 4] K2 statistics over the last axis: the convergence sums and
+    the masked range of lu."""
+    e1 = torch.exp(-d) - 1.0
+    inf = torch.full_like(lu, float("inf"))
+    return torch.stack([(wv * e1).sum(-1), (wv * e1 * e1).sum(-1),
+                        torch.where(wv > 0, lu, inf).min(-1).values,
+                        torch.where(wv > 0, lu, -inf).max(-1).values], -1)
+
+
+def fit_delta_conv_field_plain(phi, br, bc, bs, wv, field, logv, done,
+                               return_part=False):
     """Plain PyTorch version of K2; see ``fit_delta_conv_field``."""
     d = _flush_weight(fit_delta_plain(phi, br, bc, bs), wv)
     nf = field + (1.0 - done)[:, None] * d
     lu = (logv - nf) * wv
-    inf = torch.full_like(lu, float("inf"))
-    stats = torch.cat([
-        _conv_sums(d, wv),
-        torch.where(wv > 0, lu, inf).min(1).values[:, None],
-        torch.where(wv > 0, lu, -inf).max(1).values[:, None],
-    ], dim=1)
-    return nf, lu, stats
+    stats = _field_stats(d, wv, lu)
+    if not return_part:
+        return nf, lu, stats
+    nchunk = -(-wv.shape[1] // CHUNK)
+    part = _field_stats(*(_chunked(t, nchunk) for t in (d, wv, lu)))
+    return nf, lu, stats, part
 
 
-def fit_delta_conv_field(phi, br, bc, bs, wv, field, logv, done):
+def fit_fold_stats_plain(part):
+    """Plain PyTorch version of K2's fold: the chunks' statistics folded one
+    after another in chunk order (sums from 0, then min and max)."""
+    s = torch.tensor([0.0, 0.0, float("inf"), float("-inf")],
+                     dtype=part.dtype, device=part.device).expand(
+                         part.shape[0], 4)
+    for c in range(part.shape[1]):
+        p = part[:, c]
+        s = torch.stack([s[:, 0] + p[:, 0], s[:, 1] + p[:, 1],
+                         torch.minimum(s[:, 2], p[:, 2]),
+                         torch.maximum(s[:, 3], p[:, 3])], 1)
+    return s
+
+
+def fit_fold_stats(part):
+    """K2's fold on its own: chunk statistics [N, nchunk, 4] (one K2
+    launch's or several slabs' concatenated in chunk order) -> [N, 4]."""
+    if part.dim() != 3 or part.shape[2] != 4:
+        raise ValueError(f"fit_fold_stats: part is {tuple(part.shape)}, "
+                         f"expected [N, nchunk, 4]")
+    check("fit_fold_stats", part)
+    if not route("fit_fold_stats", part):
+        return fit_fold_stats_plain(part)
+    N, nchunk, _ = part.shape
+    stats = torch.empty((N, 4), device=part.device, dtype=torch.float32)
+    with torch.cuda.device(part.device):
+        rc = _lib().vj_fit_fold_stats(part.data_ptr(), stats.data_ptr(), N,
+                                      nchunk, stream(part.device))
+    raise_on(rc, "fit_fold_stats")
+    LAUNCHES["fit_fold_stats"] += 1
+    return stats
+
+
+def fit_delta_conv_field(phi, br, bc, bs, wv, field, logv, done,
+                         return_part=False):
     """K2: one N4 iteration tail for every lane.
 
     phi [N, ncp, ncp*ncp] coefficients; br/bc/bs [N, ncp, P] power-1 rows;
@@ -252,7 +399,8 @@ def fit_delta_conv_field(phi, br, bc, bs, wv, field, logv, done):
     Returns (field' [N, P], logu' [N, P], stats [N, 4]) with
     field' = field + (1 - done) * delta, logu' = (logv - field') * wv and
     stats = (sum wv*(e^-delta - 1), sum wv*(e^-delta - 1)^2,
-    masked min logu', masked max logu').
+    masked min logu', masked max logu').  ``return_part`` also returns
+    the per-chunk statistics [N, ceil(P / CHUNK), 4] that stats folds.
     """
     N, ncp, P = _check_rows("fit_delta_conv_field", br, bc, bs)
     _check_phi("fit_delta_conv_field", phi, N, ncp)
@@ -262,7 +410,7 @@ def fit_delta_conv_field(phi, br, bc, bs, wv, field, logv, done):
     check("fit_delta_conv_field", phi, br, bc, bs, wv, field, logv, done)
     if not route("fit_delta_conv_field", wv):
         return fit_delta_conv_field_plain(phi, br, bc, bs, wv, field, logv,
-                                          done)
+                                          done, return_part)
     lib = _lib()
     nchunk = -(-P // lib.vj_n4_chunk())
     kw = dict(device=wv.device, dtype=torch.float32)
@@ -270,12 +418,13 @@ def fit_delta_conv_field(phi, br, bc, bs, wv, field, logv, done):
     lu = torch.empty((N, P), **kw)
     part = torch.empty((N, nchunk, 4), **kw)
     stats = torch.empty((N, 4), **kw)
-    rc = lib.vj_fit_delta_conv_field(
-        phi.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
-        wv.data_ptr(), field.data_ptr(), logv.data_ptr(), done.data_ptr(),
-        nf.data_ptr(), lu.data_ptr(), part.data_ptr(),
-        _tickets(wv.device, N).data_ptr(), stats.data_ptr(),
-        N, P, ncp, nchunk, stream(wv.device))
+    with torch.cuda.device(wv.device):
+        rc = lib.vj_fit_delta_conv_field(
+            phi.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
+            wv.data_ptr(), field.data_ptr(), logv.data_ptr(), done.data_ptr(),
+            nf.data_ptr(), lu.data_ptr(), part.data_ptr(),
+            _tickets(wv.device, N).data_ptr(), stats.data_ptr(),
+            N, P, ncp, nchunk, stream(wv.device))
     raise_on(rc, "fit_delta_conv_field")
     LAUNCHES["fit_delta_conv_field"] += 1
-    return nf, lu, stats
+    return (nf, lu, stats, part) if return_part else (nf, lu, stats)

@@ -19,6 +19,12 @@ sums in the same order as the kernel (each inner sum once per (c, d, s)
 and (c, w, s), where the kernel's threads recompute the ones they share,
 which gives the same values), so the kernel is bit-equal to it.
 
+A slab of the volume (``rows=(r0, r1)``, the space axis) takes the same
+kernel with the h part of the tables cut to its rows and H replaced by
+the slab height: each voxel is summed alone, and its f(c, w, s) column
+sums do not depend on h, so the slab's rows equal the full field's rows
+bit for bit.
+
 The wrapper runs the plain version for a CPU tensor, launches the kernel
 for a CUDA tensor, and raises for anything else.
 """
@@ -61,12 +67,18 @@ def _lib():
 _TABLES = {}
 
 
-def field_tables(shape, ncps, device):
-    """(spans int32 [L, H+W+D], weights float32 [L, H+W+D, 4]) on device:
-    each level's basis rows along h, then w, then s."""
-    key = (tuple(shape), tuple(ncps), str(torch.device(device)))
+def field_tables(shape, ncps, device, rows=None):
+    """(spans int32 [L, h+W+D], weights float32 [L, h+W+D, 4]) on device:
+    each level's basis rows along h (the rows r0..r1 - 1 of
+    ``rows=(r0, r1)``, default all H), then w, then s."""
+    r0, r1 = (0, shape[0]) if rows is None else rows
+    key = (tuple(shape), tuple(ncps), str(torch.device(device)), r0, r1)
     if key not in _TABLES:
-        parts = [[bspline_span_weights(n, ncp - 3) for n in shape]
+        def cut(p, axis):
+            return (p[0][r0:r1], p[1][r0:r1]) if axis == 0 else p
+
+        parts = [[cut(bspline_span_weights(n, ncp - 3), axis)
+                  for axis, n in enumerate(shape)]
                  for ncp in ncps]
         spans = np.stack([np.concatenate([p[0] for p in lv])
                           for lv in parts]).astype(np.int32)
@@ -89,12 +101,22 @@ def _contract(acc, idx, wts, dim):
     return out
 
 
-def n4_field_plain(phi, shape, ncps):
+def _rows(shape, rows):
+    H = int(shape[0])
+    r0, r1 = (0, H) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= r0 < r1 <= H:
+        raise ValueError(f"n4_field: rows {rows} outside 0..{H}")
+    return (r0, r1)
+
+
+def n4_field_plain(phi, shape, ncps, rows=None):
     """Plain PyTorch version of ``n4_field``: the same float32 operations
     in the same order."""
     N = phi.shape[0]
-    H, W, D = shape
-    spans, weights = field_tables(shape, ncps, phi.device)
+    r0, r1 = _rows(shape, rows)
+    _, W, D = shape
+    H = r1 - r0
+    spans, weights = field_tables(shape, ncps, phi.device, (r0, r1))
     four = torch.arange(4, device=phi.device)
     field, off = None, 0
     for L, ncp in enumerate(ncps):
@@ -136,13 +158,17 @@ def n4_field_bmm(phi, shape, ncps):
     return total
 
 
-def n4_field(phi, shape, ncps):
+def n4_field(phi, shape, ncps, rows=None):
     """Dense N4 field [N, H, W, D] from the per-level lattices.
 
     phi [N, sum ncp^3] float32, contiguous: each lane's lattices in level
     order, each [ncp, ncp, ncp] as (c, d, e) over (h, w, s); shape (H, W,
-    D); ncps each level's control points per axis (4 .. MAX_NCP)."""
-    H, W, D = (int(x) for x in shape)
+    D); ncps each level's control points per axis (4 .. MAX_NCP).  With
+    ``rows=(r0, r1)`` only those rows of the field, [N, r1 - r0, W, D]."""
+    shape = tuple(int(x) for x in shape)
+    r0, r1 = _rows(shape, rows)
+    _, W, D = shape
+    H = r1 - r0
     ncps = tuple(int(c) for c in ncps)
     if phi.dim() != 2 or phi.shape[1] != sum(c ** 3 for c in ncps):
         raise ValueError(f"n4_field: phi is {tuple(phi.shape)}, expected "
@@ -153,16 +179,17 @@ def n4_field(phi, shape, ncps):
                          f"{MAX_NCP} each, got {ncps}")
     check("n4_field", phi)
     if not route("n4_field", phi):
-        return n4_field_plain(phi, (H, W, D), ncps)
+        return n4_field_plain(phi, shape, ncps, (r0, r1))
     lib = _lib()
     N = phi.shape[0]
-    spans, weights = field_tables((H, W, D), ncps, phi.device)
+    spans, weights = field_tables(shape, ncps, phi.device, (r0, r1))
     out = torch.empty((N, H, W, D), device=phi.device, dtype=torch.float32)
     c_ncps = (ctypes.c_int * len(ncps))(*ncps)
-    rc = lib.vj_n4_field(phi.data_ptr(), spans.data_ptr(),
-                         weights.data_ptr(), out.data_ptr(), N, H, W, D,
-                         len(ncps), ctypes.cast(c_ncps, _P), phi.shape[1],
-                         stream(phi.device))
+    with torch.cuda.device(phi.device):
+        rc = lib.vj_n4_field(phi.data_ptr(), spans.data_ptr(),
+                             weights.data_ptr(), out.data_ptr(), N, H, W, D,
+                             len(ncps), ctypes.cast(c_ncps, _P), phi.shape[1],
+                             stream(phi.device))
     raise_on(rc, "n4_field")
     LAUNCHES["n4_field"] += 1
     return out

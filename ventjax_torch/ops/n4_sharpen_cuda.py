@@ -13,6 +13,8 @@ in three steps; the first and last are kernels (``csrc/n4_sharpen.cu``):
   PyTorch, and equals the kernel bit for bit.
 - ``ops.n4._sharpen_expectation`` (plain PyTorch, FFTs): the conditional
   expectation table ``e_loc`` [N, bins+2] of the slots ``t + 1`` can reach.
+  For a list held in slabs, ``sharpen_hist_partial`` and
+  ``sharpen_hist_finish`` are the kernel's two phases one at a time.
 - ``sharpen_resid`` (K5; replaces ``sharpen_resid_pallas``): the B-spline fit
   target ``((logu - interp(e_loc, t+1)*wv)*wv``, flushed below 1e-18 and
   divided by ``max(sv, 1e-30)``; 0 where ``wv = 0``.
@@ -39,7 +41,9 @@ from ventjax_torch.ops._launch import check, raise_on, route, stream
 # budget (csrc/n4_sharpen.cu MAX_SLOTS).
 MAX_SLOTS = 768
 # Kernel launches per wrapper since the counts were last set to 0.
-LAUNCHES = {"sharpen_hist": 0, "sharpen_resid": 0}
+LAUNCHES = {"sharpen_hist": 0, "sharpen_resid": 0,
+            "sharpen_hist_partial": 0, "sharpen_hist_finish": 0}
+CHUNK = 1024     # voxels per chunk of K4 and K5 (csrc/n4_sharpen.cu CHUNK)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,12 +58,17 @@ def _typed(lib):
         lib.vj_sharpen_max_slots.restype = _I
         lib.vj_sharpen_hist.argtypes = [_P] * 6 + [_I] * 4 + [_P]
         lib.vj_sharpen_hist.restype = _I
+        lib.vj_sharpen_hist_partial.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+        lib.vj_sharpen_hist_partial.restype = _I
+        lib.vj_sharpen_hist_finish.argtypes = [_P] * 2 + [_I] * 3 + [_P]
+        lib.vj_sharpen_hist_finish.restype = _I
         lib.vj_sharpen_resid.argtypes = [_P] * 7 + [_I] * 3 + [_P]
         lib.vj_sharpen_resid.restype = _I
         lib._vj_typed = True
-        if lib.vj_sharpen_max_slots() != MAX_SLOTS:
-            raise RuntimeError("n4_sharpen: MAX_SLOTS differs from the "
-                               "kernel source")
+        if (lib.vj_sharpen_max_slots() != MAX_SLOTS
+                or lib.vj_sharpen_chunk() != CHUNK):
+            raise RuntimeError("n4_sharpen: MAX_SLOTS or CHUNK differs "
+                               "from the kernel source")
     return lib
 
 
@@ -121,13 +130,20 @@ def sharpen_hist_fixed_plain(logu, wv, binmin, slope, bins):
     N, _ = logu.shape
     i0, f = _split(_t_index(logu, wv, binmin, slope, bins), bins)
 
-    def fix(v):          # v * 2^32 is exact in float32; round half to even
-        return torch.round(v * FIX).to(torch.int64)
-
     hist = torch.zeros((N, bins + 2), dtype=torch.int64, device=logu.device)
-    hist.scatter_add_(1, i0, fix(wv * (1.0 - f)))
-    hist.scatter_add_(1, i0 + 1, fix(wv * f))
-    return (hist[:, :bins].to(torch.float64) / FIX).to(torch.float32)
+    hist.scatter_add_(1, i0, _fix(wv * (1.0 - f)))
+    hist.scatter_add_(1, i0 + 1, _fix(wv * f))
+    return _unfix(hist[:, :bins])
+
+
+def _unfix(h):
+    """int64 fixed-point sums -> float32, through float64 as K4 does."""
+    return (h.to(torch.float64) / FIX).to(torch.float32)
+
+
+def _fix(v):
+    """v * 2^32 (exact in float32) rounded half to even, as int64."""
+    return torch.round(v * FIX).to(torch.int64)
 
 
 def sharpen_hist(logu, wv, binmin, slope, bins):
@@ -141,12 +157,75 @@ def sharpen_hist(logu, wv, binmin, slope, bins):
     part = torch.empty((N, nchunk, bins + 2), dtype=torch.int64,
                        device=logu.device)
     hist = torch.empty((N, bins), dtype=torch.float32, device=logu.device)
-    rc = lib.vj_sharpen_hist(
-        logu.data_ptr(), wv.data_ptr(), binmin.data_ptr(), slope.data_ptr(),
-        part.data_ptr(), hist.data_ptr(), N, P, bins, nchunk,
-        stream(logu.device))
+    with torch.cuda.device(logu.device):
+        rc = lib.vj_sharpen_hist(
+            logu.data_ptr(), wv.data_ptr(), binmin.data_ptr(),
+            slope.data_ptr(), part.data_ptr(), hist.data_ptr(), N, P, bins,
+            nchunk, stream(logu.device))
     raise_on(rc, "sharpen_hist")
     LAUNCHES["sharpen_hist"] += 1
+    return hist
+
+
+def sharpen_hist_partial_plain(logu, wv, binmin, slope, bins):
+    """Plain PyTorch version of K4's first phase: the int64 fixed-point
+    histogram [N, nchunk, bins + 2] of each CHUNK voxels, equal to the
+    kernel's bit for bit."""
+    N, P = logu.shape
+    nchunk = -(-P // CHUNK)
+    i0, f = _split(_t_index(logu, wv, binmin, slope, bins), bins)
+    slot = i0 + (torch.arange(P, device=logu.device) // CHUNK) * (bins + 2)
+    part = torch.zeros((N, nchunk * (bins + 2)), dtype=torch.int64,
+                       device=logu.device)
+    part.scatter_add_(1, slot, _fix(wv * (1.0 - f)))
+    part.scatter_add_(1, slot + 1, _fix(wv * f))
+    return part.reshape(N, nchunk, bins + 2)
+
+
+def sharpen_hist_partial(logu, wv, binmin, slope, bins):
+    """K4's first phase: logu, wv [N, P]; binmin, slope [N] -> the int64
+    fixed-point partials [N, ceil(P / CHUNK), bins + 2] (2^-32 units)."""
+    N, P = _check_shapes("sharpen_hist_partial", logu, wv, binmin, slope,
+                         bins)
+    check("sharpen_hist_partial", logu, wv, binmin, slope)
+    if not route("sharpen_hist_partial", logu):
+        return sharpen_hist_partial_plain(logu, wv, binmin, slope, bins)
+    nchunk = -(-P // CHUNK)
+    part = torch.empty((N, nchunk, bins + 2), dtype=torch.int64,
+                       device=logu.device)
+    with torch.cuda.device(logu.device):
+        rc = _lib().vj_sharpen_hist_partial(
+            logu.data_ptr(), wv.data_ptr(), binmin.data_ptr(),
+            slope.data_ptr(), part.data_ptr(), N, P, bins, nchunk,
+            stream(logu.device))
+    raise_on(rc, "sharpen_hist_partial")
+    LAUNCHES["sharpen_hist_partial"] += 1
+    return part
+
+
+def sharpen_hist_finish_plain(part, bins):
+    """Plain PyTorch version of K4's second phase (integers: any order)."""
+    return _unfix(part[:, :, :bins].sum(1))
+
+
+def sharpen_hist_finish(part, bins):
+    """K4's second phase: int64 partials [N, nchunk, bins + 2] (one launch's
+    or several slabs' concatenated along the chunk axis) -> hist [N, bins]
+    float32."""
+    if part.dim() != 3 or part.shape[2] != bins + 2 or not (
+            2 <= bins <= MAX_SLOTS - 2):
+        raise ValueError(f"sharpen_hist_finish: part is {tuple(part.shape)}"
+                         f", expected [N, nchunk, {bins + 2}]")
+    check("sharpen_hist_finish", part, dtype=torch.int64)
+    if not route("sharpen_hist_finish", part):
+        return sharpen_hist_finish_plain(part, bins)
+    N, nchunk, _ = part.shape
+    hist = torch.empty((N, bins), dtype=torch.float32, device=part.device)
+    with torch.cuda.device(part.device):
+        rc = _lib().vj_sharpen_hist_finish(part.data_ptr(), hist.data_ptr(), N,
+                                           bins, nchunk, stream(part.device))
+    raise_on(rc, "sharpen_hist_finish")
+    LAUNCHES["sharpen_hist_finish"] += 1
     return hist
 
 
@@ -176,10 +255,11 @@ def sharpen_resid(logu, wv, sv, e_loc, binmin, slope, bins):
         return sharpen_resid_plain(logu, wv, sv, e_loc, binmin, slope, bins)
     lib = _lib()
     a = torch.empty((N, P), dtype=torch.float32, device=logu.device)
-    rc = lib.vj_sharpen_resid(
-        logu.data_ptr(), wv.data_ptr(), sv.data_ptr(), e_loc.data_ptr(),
-        binmin.data_ptr(), slope.data_ptr(), a.data_ptr(), N, P, bins,
-        stream(logu.device))
+    with torch.cuda.device(logu.device):
+        rc = lib.vj_sharpen_resid(
+            logu.data_ptr(), wv.data_ptr(), sv.data_ptr(), e_loc.data_ptr(),
+            binmin.data_ptr(), slope.data_ptr(), a.data_ptr(), N, P, bins,
+            stream(logu.device))
     raise_on(rc, "sharpen_resid")
     LAUNCHES["sharpen_resid"] += 1
     return a

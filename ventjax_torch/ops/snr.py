@@ -16,18 +16,28 @@ from ventjax_torch.ops.basic import masked_mean, masked_std
 
 def noise_mask(mask: torch.Tensor, fov_buffer: int = 20) -> torch.Tensor:
     """[N,H,W,D] float mask of noise voxels (1 = noise)."""
-    N, H, W, D = mask.shape
-    dev = mask.device
     m = mask > 0
     row_has = m.any(dim=3).any(dim=2)           # [N, H]
     col_has = m.any(dim=3).any(dim=1)           # [N, W]
     slc_has = m.any(dim=2).any(dim=1)           # [N, D]
-    r_idx = torch.arange(H, device=dev)
+    return noise_keep(row_has, col_has, slc_has, row_has.all(1), 0,
+                      mask.shape[1], fov_buffer)
+
+
+def noise_keep(row_has, col_has, slc_has, all_rows, r0: int, H: int,
+               fov_buffer: int) -> torch.Tensor:
+    """The noise mask of the rows r0 .. r0 + h - 1 of an H-row volume, from
+    which of those rows ([N, h]), of the columns ([N, W]) and of the slices
+    ([N, D]) meet the mask, and whether every row of the volume does
+    ([N])."""
+    dev = row_has.device
+    h, W, D = row_has.shape[1], col_has.shape[1], slc_has.shape[1]
+    r_idx = r0 + torch.arange(h, device=dev)
     c_idx = torch.arange(W, device=dev)
     s_idx = torch.arange(D, device=dev)
 
     # (has * index) products include 0 whenever some index has no mask.
-    row_zero = row_has | ((r_idx == 0)[None] & ~row_has.all(1, keepdim=True))
+    row_zero = row_has | ((r_idx == 0)[None] & ~all_rows[:, None])
     slc_zero = slc_has | ((s_idx == 0)[None] & ~slc_has.all(1, keepdim=True))
 
     big = torch.full_like(c_idx, W + 1)

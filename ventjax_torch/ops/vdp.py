@@ -38,10 +38,18 @@ def vdp_linear_binning(
     floor-index 99th percentile; VDP_lb counts bins 1 and 2."""
     m = (mask > 0).to(n4.dtype)
     denom = masked_sorted_index(n4, m, percentile)
+    lb = linear_bins(n4, mask, denom, edges)
+    vdp_lb = 100.0 * (_count(lb == 1) + _count(lb == 2)) / _count(mask)
+    return lb, vdp_lb
+
+
+def linear_bins(n4: torch.Tensor, mask: torch.Tensor, denom: torch.Tensor,
+                edges: Tuple[float, ...]) -> torch.Tensor:
+    """The six-bin map of n4 / denom ([N] per lane) over the mask."""
     norm = n4 / denom[:, None, None, None]
     e = edges
     f = lambda b: b.to(n4.dtype)
-    lb = (
+    return (
         f(norm <= e[0]) * 1.0
         + f(norm > e[0]) * f(norm <= e[1]) * 2.0
         + f(norm > e[1]) * f(norm <= e[2]) * 3.0
@@ -49,5 +57,3 @@ def vdp_linear_binning(
         + f(norm > e[3]) * f(norm <= e[4]) * 5.0
         + f(norm > e[4]) * 6.0
     ) * mask
-    vdp_lb = 100.0 * (_count(lb == 1) + _count(lb == 2)) / _count(mask)
-    return lb, vdp_lb

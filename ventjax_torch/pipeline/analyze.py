@@ -238,16 +238,29 @@ def build_geometry(
                              config.ci_border_mode)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class AnalyzeFn:
+    """The pipeline for one geometry and config: ``fn(hp, mask)`` runs
+    ``analyze_cohort`` on a [N,H,W,D] batch when ``batched``, else
+    ``analyze_study`` on one [H,W,D] study.  It carries its geometry and
+    config, so ``dist.spatial_shard_fn`` can shard it."""
+    geom: Geometry
+    config: VentConfig
+    batched: bool
+
+    def __call__(self, hp, mask):
+        fn = analyze_cohort if self.batched else analyze_study
+        return fn(hp, mask, self.geom, self.config)
+
+
 @functools.lru_cache(maxsize=8)
 def make_analyze_fn(
     vox: Tuple[float, float, float],
     shape: Tuple[int, int, int],
     config: VentConfig = DEFAULT_CONFIG,
     batched: bool = False,
-):
+) -> AnalyzeFn:
     """The pipeline for a fixed (vox, volume shape, config), with its
     geometry built once: ``fn(hp, mask)`` on a [N,H,W,D] batch when
     ``batched``, else on one [H,W,D] study."""
-    geom = build_geometry(vox, shape, config)
-    fn = analyze_cohort if batched else analyze_study
-    return lambda hp, mask: fn(hp, mask, geom, config)
+    return AnalyzeFn(build_geometry(vox, shape, config), config, batched)
