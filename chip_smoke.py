@@ -51,7 +51,11 @@ Phases, in order; any failure raises and the script exits non-zero:
       overflows the first CI pad and is retried) and one entry that does
       not decode; every export written, metrics of the first 16 within
       0.1 pp of analyze_cohort on the same volumes, and a second run
-      resumes every subject without a kernel launch;
+      resumes every subject without a kernel launch; the run takes the
+      compact export pack (the default), and a run with the dense pack
+      (compact_export=False, cohort --dense-export) writes the same
+      metrics, defect and CI channels and masked N4 voxels, the N4
+      background within 1e-5 relative;
    f. the watch-folder service: WatchService(device=card) prewarmed for
       the geometry, then an inbox of 16 back-dated studies of 128x128x16
       analysed in one batch by the first scan (K1-K5 launched; each
@@ -164,6 +168,23 @@ Phases, in order; any failure raises and the script exits non-zero:
       over a 2 x 4 mesh, 3 steps from train_step's state (loss within
       1e-5 relative, parameters within SEG_STEP_ATOL), host ms and device
       ms of each run beside the unsharded run's;
+   m. the space axis over torch.distributed ranks, one slab a rank
+      (dist.make_rank_space_mesh; ranks of this script, --rank with a
+      space job): four gloo ranks sharing the card run the headline batch
+      over a (2, 2) rank mesh, path l's 256x256x64 study over (1, 4) and
+      the train step at base 16 on path h's shapes over (2, 2), 3 steps;
+      then one NCCL rank runs the headline over (1, 1).  Each analysis
+      run in each rank's own counted window, every rank's gathered result
+      bit-equal to the unsharded analyze_cohort's (path a's for the
+      headline) and the same on every rank, a repeat bit-identical, the
+      headline's N4 iteration counts over each row's slabs equal to the
+      unsharded N4's, K1 (its partial), K2, K4 (its partial), K5 and the
+      dense field launched in every rank's window and K3 in each batch
+      row's first rank's (the row's CI engine runs there), each kernel on
+      that rank's operands held to its plain version; each rank's peak
+      memory above its start logged; the train step's losses within 1e-6
+      relative of train_step's and its parameters bit-identical across
+      ranks;
    then the doctor: run_doctor(full=True) on the card, every required
    check passed and kernel_build naming the five libraries;
 5. timing (information only): the slice's volumes/s, the N4 and CI stages
@@ -203,19 +224,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    (the table goes to chiprun_out/profile_slice.txt);
 8. one JSON line of kernel records (``launches_path_g``,
    ``launches_path_h``, ``launches_path_i``, ``launches_path_j``,
-   ``launches_path_k`` and ``launches_path_l``: each kernel's launches in
-   path g, in path h's analyze --auto-mask, in path i's entries summed, in
-   path j's ranks and modes summed, in path k and in path l's two
-   analysis runs (K1's and K4's partial phases counted as K1 and K4; the
-   split entry points' own counts on the line before),
+   ``launches_path_k``, ``launches_path_l`` and ``launches_path_m``: each
+   kernel's launches in path g, in path h's analyze --auto-mask, in path
+   i's entries summed, in path j's ranks and modes summed, in path k, in
+   path l's two analysis runs and in path m's analysis runs, every rank's
+   window summed (K1's and K4's partial phases counted as K1 and K4; path
+   l's split entry points' own counts on the line before),
    ``launches_path_i_by_entry`` by entry; K3's ``path_i_shard`` record;
    ``timed_by_events``: the keys whose times CUDA events took, host launch
    gaps included, where torch.profiler lost the activities), then the
    result line {"ok": true, "device": {...}} last.
 
 It imports nothing of JAX and nothing of the ventjax package.  With
---rank PORT RANK WORLD BACKEND DIR it runs one rank of path i (or of path j
-where DIR holds a job.json) and nothing else.
+--rank PORT RANK WORLD BACKEND DIR it runs one rank of path i (of path j
+where DIR holds a job.json, of path m where it holds a space.json) and
+nothing else.
 """
 from __future__ import annotations
 
@@ -1101,6 +1124,55 @@ def phase_cohort(dev):
         resume_s = time.perf_counter() - t0
         resumed = launch_counts()
         checks["resume_no_launch"] = not any(resumed.values())
+        # the compact pack (the default) against the dense one (cohort
+        # --dense-export) on the same studies, in turns (compact, dense,
+        # dense, compact), each run's runner seeded with the first run's
+        # final pads: the retry's timing, which can move a lane's N4 pad
+        # and so its bits, is then out of the comparison
+        (geo,) = runners
+
+        def seeded(compact):
+            r = tc._GeometryRunner(runner.shape, runner.vox, runner.config,
+                                   COHORT_BATCH, device=dev,
+                                   compact_export=compact)
+            r.ci_bucket, r.n4_bucket = runner.ci_bucket, runner.n4_bucket
+            r.ci_tail_full = runner.ci_tail_full
+            return {geo: r}
+
+        pack_s = {True: [], False: []}
+        for turn, compact in enumerate((True, False, False, True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tc.run_cohort(manifest, os.path.join(root, f"pack{turn}"),
+                          batch_size=COHORT_BATCH, device=dev,
+                          runners=seeded(compact), compact_export=compact)
+            pack_s[compact].append(time.perf_counter() - t0)
+        n4_rel, differ = 0.0, []
+        for s in ids:
+            a = nifti_load(os.path.join(root, "pack0", s,
+                                        f"{s}_dataArray.nii"))[0]
+            b = nifti_load(os.path.join(root, "pack1", s,
+                                        f"{s}_dataArray.nii"))[0]
+            m = b[..., 2] > 0
+            for what, same in (
+                    ("defect", np.array_equal(a[..., 4], b[..., 4])),
+                    ("ci", np.array_equal(a[..., 5], b[..., 5])),
+                    ("masked_n4", np.array_equal(a[..., 3][m],
+                                                 b[..., 3][m])),
+                    ("metrics", open(os.path.join(
+                        root, "pack0", s, "metrics.json")).read() == open(
+                            os.path.join(root, "pack1", s,
+                                         "metrics.json")).read())):
+                if not same:
+                    differ.append(f"{s}:{what}")
+            n4_rel = max(n4_rel, float(np.max(np.abs(a[..., 3] - b[..., 3])
+                                              / np.maximum(np.abs(b[..., 3]),
+                                                           1e-6))))
+        checks["compact_equals_dense"] = not differ
+        log(f"cohort compact vs dense pack (seeded pads ci "
+            f"{runner.ci_bucket} n4 {runner.n4_bucket}): differing "
+            f"{differ}, N4 background max relative difference {n4_rel!r}")
+        checks["compact_background_within_1e-5"] = n4_rel < 1e-5
         checks["resume_all"] = len(again) == len(manifest) and all(
             r.get("error") == "decode_failed" or r["id"] in ids
             for r in again)
@@ -1113,7 +1185,10 @@ def phase_cohort(dev):
             f"{rate:.2f} subjects/s end to end (decode, analysis, export); "
             f"analysis {sum(analysis_s):.2f} s, share {share:.3f} (batches "
             f"s: {[round(t, 3) for t in analysis_s]}); resume {resume_s:.2f}"
-            f" s")
+            f" s; subjects/s by pack at the final pads, in turns (compact, "
+            f"dense, dense, compact): compact "
+            f"{[COHORT_STUDIES / t for t in pack_s[True]]!r}, dense "
+            f"{[COHORT_STUDIES / t for t in pack_s[False]]!r}")
     return rate
 
 
@@ -1846,6 +1921,8 @@ def rank_main(port, rank, world, backend, data):
 
     if os.path.exists(os.path.join(data, "job.json")):
         return rank_cohort(port, int(rank), int(world), backend, data)
+    if os.path.exists(os.path.join(data, "space.json")):
+        return rank_space(port, int(rank), int(world), backend, data)
 
     from ventjax_torch.dist import (
         initialize_multihost, make_rank_mesh, make_sliced_ci_fn,
@@ -2478,7 +2555,8 @@ def capture_space(fn):
 def check_space_kernels(seen):
     """Every kernel of path l on its slab operands against its plain
     version, and each split entry point against its plain version and the
-    one-call entry point.  Returns (checks, max error per kernel record)."""
+    one-call entry point.  Returns (checks, max error per kernel record,
+    K2's error by output)."""
     from ventjax_torch.ops import ci_cuda, n4_cuda, n4_field_cuda
     from ventjax_torch.ops import n4_sharpen_cuda as sc
 
@@ -2498,10 +2576,9 @@ def check_space_kernels(seen):
     a, kw = seen["fit_delta_conv_field"]
     got = n4_cuda.fit_delta_conv_field(*a, **kw)
     want = n4_cuda.fit_delta_conv_field_plain(*cpu(a), **kw)
-    e2 = [scaled_err(g.cpu(), w) for g, w in zip(got[:2], want[:2])]
-    e2.append(scaled_err(got[2][:, :2].cpu(), want[2][:, :2]))
-    err["fit_delta_conv_field"] = max(e2)
-    checks["k2_plain"] = max(e2) <= KERNEL_RTOL
+    e2 = k2_errors([g.cpu() for g in got[:3]], want, cpu(a))
+    err["fit_delta_conv_field"] = max(e2.values())
+    checks["k2_plain"] = err["fit_delta_conv_field"] <= KERNEL_RTOL
     fold = n4_cuda.fit_fold_stats(got[3])
     checks["k2_fold_equals_one_call"] = torch.equal(fold, got[2])
     checks["k2_fold_plain_bit_equal"] = torch.equal(
@@ -2532,15 +2609,38 @@ def check_space_kernels(seen):
         f, n4_field_cuda.n4_field(*a)[:, r0:r1])
     err["n4_field"] = scaled_err(f.cpu(), n4_field_cuda.n4_field_plain(
         *cpu(a), **kw))
-    a, _ = seen["head_counts"]
-    checks["k3_plain_bit_equal"] = torch.equal(
-        ci_cuda.head_counts(*a), ci_cuda.head_counts_plain(*a))
-    err["head_counts"] = 0.0
+    if "head_counts" in seen:   # over ranks, the row's first rank's only
+        a, _ = seen["head_counts"]
+        checks["k3_plain_bit_equal"] = torch.equal(
+            ci_cuda.head_counts(*a), ci_cuda.head_counts_plain(*a))
+        err["head_counts"] = 0.0
     shape = lambda name: list(seen[name][0][1].shape)
     log(f"space: kernels at slab shapes (K1 rows {shape('fit_moment_partial')}"
         f", K2 rows {shape('fit_delta_conv_field')}, field rows {r1 - r0}): "
-        f"errors {json.dumps(err)}")
-    return checks, err
+        f"errors {json.dumps(err)}; K2 by output {json.dumps(e2)}")
+    return checks, err, e2
+
+
+def k2_errors(got, want, args):
+    """K2's outputs (field', logu', stats) against its plain version's by
+    check_fit's measures: field' and logu' relative to their largest
+    magnitude; s1, which sums terms of both signs, relative to the summed
+    magnitude of its terms; s2 relative to itself; min and max relative
+    to their span.  ``args`` are K2's host operands (phi, the three rows,
+    wv, field, logv, done)."""
+    from ventjax_torch.ops import n4_cuda
+
+    wv, field = args[4], args[5]
+    free = n4_cuda.fit_delta_conv_field_plain(
+        *args[:7], torch.zeros_like(args[7]))[0]
+    s_scale = (wv * torch.expm1(field - free)).abs().sum(1)
+    span = want[2][:, 3] - want[2][:, 2]
+    rel = lambda i, scale: float(((got[2][:, i] - want[2][:, i]).abs()
+                                  / scale).max())
+    return {"field": scaled_err(got[0], want[0]),
+            "logu": scaled_err(got[1], want[1]),
+            "s1": rel(0, s_scale), "s2": rel(1, want[2][:, 1].abs()),
+            "min": rel(2, span), "max": rel(3, span)}
 
 
 def space_required(counts, n_batch, n_space):
@@ -2637,7 +2737,7 @@ def phase_space(dev, cfg, geom, hp_d, mask_d, res):
         f"{times['unsharded_host_ms']!r}), device ms "
         f"{times['headline_device_ms']!r} in {acts} activities (unsharded "
         f"{times['unsharded_device_ms']!r} in {acts_u})")
-    kchecks, err = check_space_kernels(seen)
+    kchecks, err, _ = check_space_kernels(seen)
     checks.update(kchecks)
 
     # N4's iteration counts: batch row 0's slabs, twice, against the
@@ -2777,6 +2877,322 @@ def phase_space(dev, cfg, geom, hp_d, mask_d, res):
     times["path_s"] = time.perf_counter() - t_path
     log(f"time space (host clock): {json.dumps(times)}")
     return launches, by_entry, err, times
+
+
+# ---------------------------------------------------------------------------
+# Path m: the space axis over torch.distributed ranks (one slab a rank)
+# ---------------------------------------------------------------------------
+
+RANK_MESH = (2, 2)            # the headline: four gloo ranks on the card
+RANK_OVERSIZE_MESH = (1, 4)   # path l's oversize study, four gloo ranks
+RANK_TRAIN_MESH = (2, 2)      # the train step: 4 lanes a row, 64-row slabs
+RANK_TIMEOUT = 300            # s a collective may wait (init_process_group)
+RESULT_FIELDS = ("n4", "defect", "defect_lb", "defect_km", "defect_border",
+                 "ci_map")
+
+
+def save_result(res, path):
+    """A VentResult's volumes and metrics as an .npz of host arrays."""
+    import dataclasses
+
+    leaves = {f: getattr(res, f).cpu().numpy() for f in RESULT_FIELDS}
+    leaves.update({f"metrics.{f.name}": getattr(res.metrics, f.name).cpu()
+                   .numpy() for f in dataclasses.fields(res.metrics)})
+    np.savez(path, **leaves)
+
+
+def result_differences(res, path):
+    """The fields of ``res`` whose bits differ from the saved result's
+    (NaN equal to NaN), and a digest of ``res``'s bytes."""
+    import dataclasses
+    import hashlib
+
+    want = np.load(path)
+    got = {f: getattr(res, f).cpu().numpy() for f in RESULT_FIELDS}
+    got.update({f"metrics.{f.name}": getattr(res.metrics, f.name).cpu()
+                .numpy() for f in dataclasses.fields(res.metrics)})
+    digest = hashlib.sha256()
+    bad = []
+    for k in sorted(want.files):
+        a, b = got[k], want[k]
+        digest.update(a.tobytes())
+        if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(
+                a, b, equal_nan=a.dtype.kind == "f"):
+            bad.append(k)
+    return bad, digest.hexdigest()
+
+
+def rank_space(port, rank, world, backend, data):
+    """One rank of path m: for each run of data/space.json, a
+    RankSpaceMesh of the group and spatial_shard_fn over it (headline,
+    oversize) or the sharded train step (train).  An analysis run is
+    counted in its own window and held bit for bit to the saved unsharded
+    result; a timed repeat captures each kernel's operands at this rank's
+    slab shapes, held to the plain versions; the headline also runs N4
+    over this row's slabs for its iteration counts.  Prints one RANK_OK
+    line."""
+    import functools
+    import hashlib
+    import os
+
+    import torch.distributed as tdist
+
+    from ventjax_torch.config import DEFAULT_CONFIG
+    from ventjax_torch.dist import (
+        initialize_multihost, make_rank_space_mesh, space, spatial_shard_fn,
+    )
+    from ventjax_torch.io.phantom import make_random_cohort
+    from ventjax_torch.models import segmentation as seg
+    from ventjax_torch.ops.basic import sort_compact_masked
+    from ventjax_torch.ops.n4_space import n4_slabs
+    from ventjax_torch.pipeline import analyze_cohort, build_geometry
+
+    with open(f"{data}/space.json") as f:
+        job = json.load(f)
+    if job["device"] == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke --rank: no CUDA card")
+    cuda = job["device"] == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda *a: None)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    initialize_multihost(f"localhost:{port}", world, rank, backend=backend,
+                         timeout=RANK_TIMEOUT)
+    out = {"rank": rank, "world": world, "backend": tdist.get_backend(),
+           "cpu_threads": [os.cpu_count(), torch.get_num_threads()],
+           "runs": {}}
+    for name in job["runs"]:
+        spec = job[name]
+        nb, ns = spec["mesh"]
+        mesh = make_rank_space_mesh(nb, ns, job["device"])
+        dev = mesh.device
+        rec = out["runs"][name] = {"row": mesh.row, "slab": mesh.slab}
+        if name == "train":
+            shape, batch = tuple(spec["shape"]), spec["batch"]
+            state = seg.create_train_state(
+                torch.Generator().manual_seed(SEED), shape=shape[:2],
+                base=spec["base"], learning_rate=1e-3, device=dev)
+            step = seg.make_sharded_train_step(state, mesh)
+            losses, ms = [], []
+            for i in range(len(spec["losses"])):
+                _, mask, proton = make_random_cohort(
+                    batch, shape=shape, seed=SEED + 1 + i * batch)
+                tdist.barrier()
+                sync()
+                t0 = time.perf_counter()
+                losses.append(float(step(state, proton, mask)))
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            digest = hashlib.sha256()
+            for p in state.model.parameters():
+                digest.update(p.detach().cpu().numpy().tobytes())
+            rec.update(losses=losses, step_ms=ms,
+                       params=digest.hexdigest(),
+                       loss_rel=[abs(a - b) / abs(b) for a, b in
+                                 zip(losses, spec["losses"])])
+            continue
+        hp = torch.from_numpy(np.load(spec["hp"])).to(dev)
+        mask = torch.from_numpy(np.load(spec["mask"])).to(dev)
+        cfg = DEFAULT_CONFIG.replace(**spec["config"])
+        geom = build_geometry(VOX, tuple(hp.shape[1:]), cfg)
+        fn = spatial_shard_fn(functools.partial(analyze_cohort, geom=geom,
+                                                config=cfg), mesh)
+        tdist.barrier()
+        sync()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = fn(hp, mask)
+        sync()
+        rec["first_ms"] = (time.perf_counter() - t0) * 1e3
+        rec["launches"] = launch_counts()
+        rec["peak_bytes"] = (torch.cuda.max_memory_allocated(dev) - base
+                             if cuda else None)
+        rec["differs"], rec["digest"] = result_differences(got,
+                                                           spec["want"])
+        tdist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        again, seen = capture_space(lambda: fn(hp, mask))
+        sync()
+        rec["ms"] = (time.perf_counter() - t0) * 1e3
+        rec["repeat_identical"] = result_differences(
+            again, spec["want"])[1] == rec["digest"]
+        kchecks, rec["err"], rec["k2_by_output"] = check_space_kernels(seen)
+        rec["kernel_checks"] = kchecks
+        if "iters" in spec:
+            # N4 over this row's slabs, one a rank: its iteration counts
+            per = hp.shape[0] // nb
+            H, W, D = hp.shape[1:]
+            h, P = H // ns, cfg.n4_mask_pad
+            lanes = slice(mesh.row * per, (mesh.row + 1) * per)
+            x = hp[lanes, mesh.slab * h:(mesh.slab + 1) * h].contiguous()
+            m = mask[lanes, mesh.slab * h:(mesh.slab + 1) * h]
+            i, v, c = sort_compact_masked(x.reshape(per, -1),
+                                          m.reshape(per, -1) > 0,
+                                          min(P, h * W * D))
+            with space.on_ranks(mesh.row_ranks):
+                its = n4_slabs(
+                    [x], [(i + mesh.slab * h * W * D, v, c)], (H, W, D), P,
+                    fitting_levels=cfg.n4_fitting_levels,
+                    max_iters=cfg.n4_max_iters,
+                    convergence_threshold=cfg.n4_convergence_threshold,
+                    bins=cfg.n4_histogram_bins, fwhm=cfg.n4_bias_fwhm,
+                    wiener_noise=cfg.n4_wiener_noise,
+                    control_points=cfg.n4_control_points)[2]
+            rec["iters"] = its.tolist()
+            rec["iters_equal"] = its.cpu().numpy().tolist() == np.load(
+                spec["iters"])[lanes].tolist()
+    tdist.destroy_process_group()
+    print("RANK_OK " + json.dumps(out), flush=True)
+
+
+def phase_ranks(dev, cfg, geom, hp, mask, hp_d, mask_d, res):
+    """Path m: the space axis over torch.distributed ranks (see the module
+    docstring).  Returns (launches per kernel record, summed over every
+    rank's counted windows, max errors, timings)."""
+    import os
+    import tempfile
+
+    from ventjax_torch.config import DEFAULT_CONFIG
+    from ventjax_torch.io.phantom import make_cohort, make_random_cohort
+    from ventjax_torch.models import segmentation as seg
+    from ventjax_torch.ops.basic import sort_compact_masked
+    from ventjax_torch.pipeline import analyze_cohort, build_geometry
+
+    t_path = time.perf_counter()
+    checks, times, err = {}, {}, {}
+    launches = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory() as root:
+        f = lambda name: os.path.join(root, name)
+        np.save(f("hp.npy"), hp)
+        np.save(f("mask.npy"), mask)
+        save_result(res, f("want.npz"))
+        N = hp_d.shape[0]
+        comp = sort_compact_masked(hp_d.reshape(N, -1),
+                                   mask_d.reshape(N, -1) > 0,
+                                   cfg.n4_mask_pad)
+        np.save(f("iters.npy"), n4_call(hp_d, mask_d, cfg,
+                                        return_overflow=True,
+                                        return_iters=True,
+                                        compacted=comp)[2].cpu().numpy())
+        # path l's oversize study, unsharded
+        ohp, omask, _ = make_cohort(1, OVERSIZE, VOX, seed=SEED)
+        n_mask = int((omask > 0).sum())
+        ocfg = DEFAULT_CONFIG.replace(n4_mask_pad=min(
+            int(np.prod(OVERSIZE)), -(-n_mask // 8192) * 8192))
+        ohp_d = torch.from_numpy(ohp).to(dev)
+        omask_d = torch.from_numpy(omask).to(dev)
+        ogeom = build_geometry(VOX, OVERSIZE, ocfg)
+        owant = analyze_cohort(ohp_d, omask_d, ogeom, ocfg)
+        torch.cuda.synchronize()
+        times["oversize_unsharded_host_ms"] = host_ms(
+            lambda: analyze_cohort(ohp_d, omask_d, ogeom, ocfg), reps=3)
+        times["headline_unsharded_host_ms"] = host_ms(
+            lambda: analyze_cohort(hp_d, mask_d, geom, cfg), reps=3)
+        np.save(f("ohp.npy"), ohp)
+        np.save(f("omask.npy"), omask)
+        save_result(owant, f("owant.npz"))
+        # train_step's losses from the same state on the same batches
+        ref = seg.create_train_state(torch.Generator().manual_seed(SEED),
+                                     shape=SHAPE[:2], base=16,
+                                     learning_rate=1e-3, device=dev)
+        losses = []
+        for i in range(SPACE_TRAIN_STEPS):
+            _, m, p = make_random_cohort(SEG_BATCH, shape=SHAPE,
+                                         seed=SEED + 1 + i * SEG_BATCH)
+            losses.append(float(seg.train_step(ref, p, m)))
+        keep = lambda c: {k: getattr(c, k) for k in (
+            "n4_mask_pad", "ci_max_defect_voxels")}
+        headline = {"hp": f("hp.npy"), "mask": f("mask.npy"),
+                    "want": f("want.npz"), "iters": f("iters.npy"),
+                    "config": keep(cfg)}
+        jobs = {
+            "gloo": {"device": "cuda", "runs": ["headline", "oversize",
+                                                "train"],
+                     "headline": {**headline, "mesh": RANK_MESH},
+                     "oversize": {"hp": f("ohp.npy"),
+                                  "mask": f("omask.npy"),
+                                  "want": f("owant.npz"),
+                                  "config": keep(ocfg),
+                                  "mesh": RANK_OVERSIZE_MESH},
+                     "train": {"mesh": RANK_TRAIN_MESH, "losses": losses,
+                               "shape": SHAPE, "batch": SEG_BATCH,
+                               "base": 16}},
+            "nccl": {"device": "cuda", "runs": ["headline"],
+                     "headline": {**headline, "mesh": (1, 1)}},
+        }
+        recs = {}
+        for backend, job in jobs.items():
+            os.makedirs(f(backend))
+            with open(os.path.join(f(backend), "space.json"), "w") as fh:
+                json.dump(job, fh)
+            world = 4 if backend == "gloo" else 1
+            t0 = time.perf_counter()
+            recs[backend] = finish_ranks(start_ranks(world, backend,
+                                                     f(backend)),
+                                         timeout=420)
+            times[f"{backend}_ranks_s"] = time.perf_counter() - t0
+    for backend, rs in recs.items():
+        checks[f"{backend}_backend"] = all(r["backend"] == backend
+                                           for r in rs)
+        for run in rs[0]["runs"]:
+            tag = f"{backend}_{run}"
+            per = [r["runs"][run] for r in rs]
+            if run == "train":
+                checks[f"{tag}_loss_within_1e-6"] = max(
+                    max(p["loss_rel"]) for p in per) <= 1e-6
+                checks[f"{tag}_params_identical_across_ranks"] = len(
+                    {p["params"] for p in per}) == 1
+                times[f"{tag}_step_ms"] = [p["step_ms"] for p in per]
+                log(f"ranks {tag}: loss relative differences "
+                    f"{[p['loss_rel'] for p in per]!r}; step host ms "
+                    f"{[p['step_ms'] for p in per]!r}")
+                continue
+            checks[f"{tag}_bit_equal"] = all(not p["differs"] for p in per)
+            checks[f"{tag}_same_on_every_rank"] = len(
+                {p["digest"] for p in per}) == 1
+            checks[f"{tag}_repeat_identical"] = all(p["repeat_identical"]
+                                                    for p in per)
+            if "iters" in per[0]:
+                checks[f"{tag}_iterations_equal"] = all(p["iters_equal"]
+                                                        for p in per)
+            for p in per:
+                where = f"{tag}_rank_row{p['row']}_slab{p['slab']}"
+                n = p["launches"]
+                checks[f"{where}_kernels"] = all(n[k] > 0 for k in (
+                    "fit_moment_partial", "fit_delta_conv_field",
+                    "sharpen_hist_partial", "sharpen_resid", "n4_field")) \
+                    and (n["head_counts"] > 0) == (p["slab"] == 0)
+                for k, ok in p["kernel_checks"].items():
+                    checks[f"{where}_{k}"] = ok
+                for k, e in p["err"].items():
+                    err[k] = max(err.get(k, 0.0), e)
+                for k, v in n.items():
+                    rec = SPACE_KERNELS.get(k, k)
+                    if rec in launches:
+                        launches[rec] += v
+            times[f"{tag}_host_ms"] = [p["ms"] for p in per]
+            times[f"{tag}_first_host_ms"] = [p["first_ms"] for p in per]
+            times[f"{tag}_peak_bytes"] = [p["peak_bytes"] for p in per]
+            log(f"ranks {tag} ({len(per)} ranks): differing fields "
+                f"{[p['differs'] for p in per]}; "
+                f"launches {json.dumps([p['launches'] for p in per])}; "
+                f"host ms {[round(p['ms'], 2) for p in per]} (first "
+                f"{[round(p['first_ms'], 2) for p in per]}); peak bytes "
+                f"above the start {[p['peak_bytes'] for p in per]}; kernel "
+                f"errors against the plain versions "
+                f"{json.dumps([p['err'] for p in per])}; K2 by output "
+                f"{json.dumps([p['k2_by_output'] for p in per])}")
+    checks = {k: bool(v) for k, v in checks.items()}
+    log("ranks' cpu count and torch threads: " + json.dumps(
+        {b: [r["cpu_threads"] for r in rs] for b, rs in recs.items()}))
+    log(f"ranks checks: {json.dumps(checks)}")
+    if not all(checks.values()):
+        raise AssertionError(f"the space axis over ranks failed: {checks}")
+    times["path_s"] = time.perf_counter() - t_path
+    log(f"time ranks (host clock): {json.dumps(times)}")
+    return launches, err, times
 
 
 def phase_doctor():
@@ -3422,7 +3838,7 @@ def profiled_batch(cfg, geom, hp_d, mask_d, tries=6):
 
     from ventjax_torch.pipeline import analyze_cohort
 
-    last = None
+    last, seen = None, []
     for _ in range(tries):
         reset_counts()
         torch.cuda.synchronize()
@@ -3443,8 +3859,14 @@ def profiled_batch(cfg, geom, hp_d, mask_d, tries=6):
         if complete and last is not None and len(last[1]) == len(events):
             return prof, events
         last = (prof, events) if complete else None
+        seen.append({"marks": len(marks), "activities": len(events),
+                     "kernels": {keys[0]: [
+                         sum(any(m in e.name for m in names) for e in events),
+                         sum(counts[k] for k in keys)]
+                         for names, keys in PROFILE_KERNELS}})
     raise RuntimeError(f"torch.profiler gave no two complete, agreeing "
-                       f"sessions of a slice batch in {tries}")
+                       f"sessions of a slice batch in {tries}: "
+                       f"{json.dumps(seen)}")
 
 
 def phase_profile(cfg, geom, hp_d, mask_d, tag=""):
@@ -3547,6 +3969,10 @@ def main():
         dev, cfg, geom, hp_d, mask_d, res)
     for k, e in space_err.items():
         max_err[k] = max(max_err[k], e)
+    rank_launches, rank_err, _ = phase_ranks(dev, cfg, geom, hp, mask, hp_d,
+                                             mask_d, res)
+    for k, e in rank_err.items():
+        max_err[k] = max(max_err[k], e)
     phase_doctor()
     med, rec = phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad,
                             dev)
@@ -3575,6 +4001,7 @@ def main():
                 "launches_path_j": mp_launches[k],
                 "launches_path_k": gui_launches[k],
                 "launches_path_l": space_launches_l[k],
+                "launches_path_m": rank_launches[k],
                 "max_abs_err": max_err[k], **rec[k],
                 "timed_by_events": events_timed(rec[k])}
                for k, (s, r) in KERNELS.items()]

@@ -313,7 +313,7 @@ def test_adaptive_pad_sizes():
     hp, mask, _ = make_cohort(1, SHAPE, VOX, seed=3)
     pack, _ = adaptive.dispatch([({"id": "a"},
                                   (hp[0], mask[0], VOX, None, None))])
-    assert pack["n4"].shape[0] == 1
+    assert pack["n4_cv"].shape[0] == 1     # the compact pack's N4 leaf
 
 
 def test_tail_escalation_clears_dense_cluster_overflow():

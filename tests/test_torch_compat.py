@@ -302,21 +302,21 @@ def test_foreign_pickle_raises_in_port(tmp_path):
     """A name of ventjax that the port has no copy of is reported, not
     imported; strip_foreign keeps the rest."""
     p = tmp_path / "odd.pkl"
-    # protocol 0 text: GLOBAL 'ventjax.ops.n4 n4_field_from_phi_np' (the
-    # compact pack's host field, not ported by decision; every ventjax
-    # class now has a copy), then a dict holding that name and an array
+    # protocol 0 text: GLOBAL 'ventjax.utils.profiling enable_compile_cache'
+    # (XLA's compile cache, not ported by decision; every ventjax class now
+    # has a copy), then a dict holding that name and an array
     state = {"mask": np.ones(3), "model": "PLACEHOLDER"}
     raw = pickle.dumps(state, protocol=0)
     raw = raw.replace(b"VPLACEHOLDER",
-                      b"cventjax.ops.n4\nn4_field_from_phi_np")
+                      b"cventjax.utils.profiling\nenable_compile_cache")
     p.write_bytes(raw)
     with pytest.raises(texport.ReferencePickleError,
-                       match="n4_field_from_phi_np"):
+                       match="enable_compile_cache"):
         texport.load_pickle(str(p))
     got = texport.load_pickle(str(p), strip_foreign=True)
     assert np.array_equal(got["mask"], np.ones(3))
     assert got["model"]._foreign_class == \
-        "ventjax.ops.n4.n4_field_from_phi_np"
+        "ventjax.utils.profiling.enable_compile_cache"
     # classes the port now has copies of load as those copies
     from ventjax_torch.gui.controller import VentController
     from ventjax_torch.models.segmentation import SegUNet

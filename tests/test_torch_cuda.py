@@ -29,7 +29,8 @@ every output of the pipeline the same in groups of 1, 2 and 4 lanes.  The
 space axis: K1's partial and reduce, K2's fold and K4's partial and finish
 bit-equal to their plain versions (K1's partial within 1e-5) and to the
 one-call entry points; a slab's field rows bit-equal to the full field's;
-the pipeline over a (2, 4) mesh of the card bit-equal to analyze_cohort.
+the pipeline over a (2, 4) mesh of the card, and over two gloo ranks
+sharing it, bit-equal to analyze_cohort.
 """
 import numpy as np
 import pytest
@@ -898,3 +899,64 @@ def test_spatial_pipeline_across_cards_bit_equal(cuda):
     want = analyze_cohort(hp, mask, geom, cfg)
     for name in ("n4", "defect", "defect_lb", "defect_km", "ci_map"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+_RANK_ON_CARD = """
+import functools, sys, torch
+sys.path.insert(0, {root!r})
+from ventjax_torch.config import DEFAULT_CONFIG
+from ventjax_torch.dist import (
+    initialize_multihost, make_rank_space_mesh, spatial_shard_fn)
+from ventjax_torch.io.phantom import make_cohort
+from ventjax_torch.ops import n4_cuda
+from ventjax_torch.pipeline import analyze_cohort, build_geometry
+rank = int(sys.argv[1])
+initialize_multihost("localhost:{port}", 2, rank, backend="gloo",
+                     timeout=300)
+shape, vox = (64, 64, 8), (1.5, 1.5, 10.0)
+cfg = DEFAULT_CONFIG.replace(ci_max_defect_voxels=1024, n4_mask_pad=16384)
+hp, mask, _ = make_cohort(4, shape, vox, seed=2)
+hp, mask = torch.from_numpy(hp).cuda(), torch.from_numpy(mask).cuda()
+geom = build_geometry(vox, shape, cfg)
+fn = functools.partial(analyze_cohort, geom=geom, config=cfg)
+got = spatial_shard_fn(fn, make_rank_space_mesh(1, 2))(hp, mask)
+assert n4_cuda.LAUNCHES["fit_moment_partial"] > 0
+want = analyze_cohort(hp, mask, geom, cfg)
+for name in ("n4", "defect", "defect_lb", "defect_km", "defect_border",
+             "ci_map"):
+    assert torch.equal(getattr(got, name), getattr(want, name)), name
+for name in ("snr", "vdp", "vdp_lb", "vdp_km", "lung_volume", "ci",
+             "ci_saturated", "ci_overflow", "n4_overflow", "valid"):
+    torch.testing.assert_close(getattr(got.metrics, name),
+                               getattr(want.metrics, name), rtol=0, atol=0,
+                               equal_nan=True, msg=name)
+torch.distributed.destroy_process_group()
+print("RANK_ON_CARD_OK", flush=True)
+"""
+
+
+def test_spatial_pipeline_over_two_gloo_ranks_on_card_bit_equal(cuda):
+    """The slab program over a (1, 2) rank mesh: two gloo ranks sharing the
+    card, each returning analyze_cohort's bits."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    code = _RANK_ON_CARD.format(root=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), port=port)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "RANK_ON_CARD_OK" in out, out[-3000:]

@@ -127,7 +127,7 @@ def test_package_imports_no_jax():
         "'report.screenshot', 'report.histogram', 'report.montage', "
         "'report.parula', 'ops.morphology', 'ops.wavelet', "
         "'ops.fft_recon', 'io.twix', 'oracle.ci_oracle', 'dist.halo', "
-        "'dist.mesh'):\n"
+        "'dist.mesh', 'dist.space', 'ops.n4_space', 'pipeline.spatial'):\n"
         "    assert 'ventjax_torch.' + n in names, n\n"
         "assert ventjax_torch.Vent_Analysis.__module__ == "
         "'ventjax_torch.compat.vent_analysis'\n"

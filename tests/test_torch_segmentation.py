@@ -255,7 +255,10 @@ def _pair(base=4, shape=(32, 32), lr=1e-3):
     state = tseg.create_train_state(torch.Generator().manual_seed(0),
                                     shape=shape, base=base,
                                     learning_rate=lr, device="cpu")
-    params = jax.tree_util.tree_map(jnp.asarray,
+    # copies: params_to_flax's arrays share the port's parameter memory,
+    # which jnp.asarray may alias on the CPU, so the port's in-place steps
+    # would move ventjax's parameters too
+    params = jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True),
                                     tseg.params_to_flax(state.params))
     tx = optax.adam(lr)
     jstate = jseg.TrainState(params=params, opt_state=tx.init(params),

@@ -341,7 +341,9 @@ def _module_level_imports(path):
     return names
 
 
-_PORT_FILES = ["chip_smoke.py"] + sorted(
+# the port, its card driver and the scripts that run on the card
+_PORT_FILES = ["chip_smoke.py", "scripts/space_ranks.py",
+               "scripts/space_memory.py"] + sorted(
     str(p.relative_to(REPO)) for p in (REPO / "ventjax_torch").rglob("*.py"))
 
 

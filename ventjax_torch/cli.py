@@ -18,7 +18,8 @@ Usage:
       [--recalculate]
   python -m ventjax_torch twix --dat FILE.dat --out OUT
   python -m ventjax_torch cohort --manifest subjects.json --out OUT
-      [--batch 16] [--mesh | --no-mesh] [--shard-export] [--device cuda|cpu]
+      [--batch 16] [--mesh | --no-mesh] [--shard-export] [--dense-export]
+      [--device cuda|cpu]
   torchrun --nproc_per_node 2 -m ventjax_torch cohort --manifest M --out OUT
       --mesh [--shard-export]
   python -m ventjax_torch serve --inbox IN --out OUT [--interval 5] [--once]
@@ -63,10 +64,11 @@ variables it stays one process.
 desktop app) with its analysis on ``--device``; without a display it exits
 2 and says so.
 
-Flags of the reference CLI that name features the port lacks are left out:
-``--dense-export`` names the compact pack, which the port does not ship (it
-ships the dense pack, so there is nothing to switch), and
-``--no-compile-cache`` has no XLA cache to name.
+``cohort --dense-export`` ships the dense N4 and defect volumes from the
+card instead of the compact pack (``run_cohort(compact_export=False)``).
+The reference CLI's ``--no-compile-cache`` is left out: the port has no
+XLA cache to name (its nvcc libraries are cached by a hash of their
+sources).
 """
 from __future__ import annotations
 
@@ -550,6 +552,7 @@ def _run_cohort_command(args) -> int:
             resume=not args.fresh, export_npz=args.npz, progress=progress,
             device=args.device, use_mesh=args.mesh,
             shard_export=args.shard_export,
+            compact_export=not args.dense_export,
         )
     ok = sum(1 for r in results if r.get("valid"))
     print(json.dumps({"subjects": len(results), "valid": ok,
@@ -925,6 +928,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "JSON) of the run into this directory")
     c.add_argument("--npz", action="store_true",
                    help="also write each subject's versioned NPZ artifact")
+    c.add_argument("--dense-export", action="store_true",
+                   help="ship the dense N4 and defect volumes from the "
+                   "device instead of the compact pack (N4's masked "
+                   "values, the B-spline lattices and the defect indices; "
+                   "the default, the dense pack's bits at every analysed "
+                   "voxel)")
     c.add_argument("--shard-export", action="store_true",
                    help="several ranks (torchrun): each rank exports its "
                    "own batch lanes (shared filesystem required) instead "

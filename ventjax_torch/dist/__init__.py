@@ -12,12 +12,14 @@ from ventjax_torch.dist.mesh import (
     BatchSpaceMesh,
     Mesh,
     RankMesh,
+    RankSpaceMesh,
     broadcast_one_to_all,
     initialize_multihost,
     local_devices,
     make_batch_mesh,
     make_batch_space_mesh,
     make_rank_mesh,
+    make_rank_space_mesh,
     process_allgather,
     shard_cohort_fn,
     spatial_shard_fn,
@@ -27,6 +29,7 @@ __all__ = [
     "BatchSpaceMesh",
     "Mesh",
     "RankMesh",
+    "RankSpaceMesh",
     "broadcast_one_to_all",
     "calculate_ci_sharded",
     "halo_width",
@@ -35,6 +38,7 @@ __all__ = [
     "make_batch_mesh",
     "make_batch_space_mesh",
     "make_rank_mesh",
+    "make_rank_space_mesh",
     "make_sliced_ci_fn",
     "padded_depth_for",
     "process_allgather",

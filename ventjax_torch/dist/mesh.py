@@ -23,7 +23,10 @@ A third, ``BatchSpaceMesh`` (``make_batch_space_mesh``), is the 2-D
 take H-slabs of each volume (``dist/space.py``).  ``spatial_shard_fn`` runs
 the analysis pipeline over it and ``models.segmentation.
 make_sharded_train_step`` the U-Net's train step; its shards live in this
-process, like ``Mesh``'s.
+process, like ``Mesh``'s.  ``RankSpaceMesh`` (``make_rank_space_mesh``)
+is the same mesh over torch.distributed ranks, one (row, slab) block a
+rank, each batch row with its own process group; both functions take
+either kind.
 
 ``local_devices`` is the one function that lists the devices of this
 process; the meshes default to it.
@@ -31,13 +34,19 @@ process; the meshes default to it.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ventjax_torch.dist import space
 from ventjax_torch.pipeline.result import map_leaves
 from ventjax_torch.utils.device import resolve_device
+
+#: How long a collective of a group made here may wait for its peers
+#: before it fails the run (``initialize_multihost``'s ``timeout``).
+_GROUP_TIMEOUT: Optional[datetime.timedelta] = None
 
 
 def local_devices(device="cuda") -> List[torch.device]:
@@ -106,7 +115,78 @@ def make_batch_space_mesh(
         for b in range(n_batch)))
 
 
-def spatial_shard_fn(cohort_fn: Callable, mesh: BatchSpaceMesh) -> Callable:
+@dataclasses.dataclass(frozen=True)
+class RankSpaceMesh:
+    """A ("batch", "space") mesh over the ranks of the default
+    torch.distributed group: rank r holds batch row r // n_space and slab
+    r % n_space on ``device``; ``row_groups[b]`` is batch row b's process
+    group, over which its slabs' collectives run."""
+
+    n_batch: int
+    n_space: int
+    device: torch.device
+    row_groups: Tuple[object, ...]
+
+    @property
+    def size(self) -> int:
+        return self.n_batch * self.n_space
+
+    @property
+    def rank(self) -> int:
+        import torch.distributed as dist
+
+        return dist.get_rank()
+
+    @property
+    def row(self) -> int:
+        return self.rank // self.n_space
+
+    @property
+    def slab(self) -> int:
+        return self.rank % self.n_space
+
+    @property
+    def row_ranks(self) -> space.RankGroup:
+        """This rank's batch row, one slab a rank."""
+        return space.RankGroup(self.row_groups[self.row], self.slab,
+                               self.n_space, self.device,
+                               self.row * self.n_space)
+
+    @property
+    def all_ranks(self) -> space.RankGroup:
+        """Every rank of the mesh, in rank order (row by row)."""
+        return space.RankGroup(None, self.rank, self.size, self.device, 0)
+
+
+def make_rank_space_mesh(n_batch: int, n_space: int,
+                         device="cuda") -> RankSpaceMesh:
+    """A ("batch", "space") mesh over the n_batch * n_space ranks of the
+    default group (after ``initialize_multihost``), on ``device`` (default:
+    the card ``torch.cuda.current_device()``; without a card that raises:
+    pass ``"cpu"``).  Every rank must call it, with the same shape: it
+    makes each batch row's group, in row order.  A world of another size
+    raises, naming both numbers."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "make_rank_space_mesh: no torch.distributed group; call "
+            "dist.initialize_multihost first")
+    need, world = n_batch * n_space, dist.get_world_size()
+    if n_batch < 1 or n_space < 1 or world != need:
+        raise ValueError(
+            f"a ({n_batch}, {n_space}) batch x space rank mesh needs "
+            f"{n_batch} * {n_space} = {need} ranks; the group has {world}")
+    groups = tuple(
+        dist.new_group(list(range(b * n_space, (b + 1) * n_space)),
+                       timeout=_GROUP_TIMEOUT)
+        for b in range(n_batch))
+    return RankSpaceMesh(n_batch, n_space,
+                         resolve_device("cuda" if device is None else device),
+                         groups)
+
+
+def spatial_shard_fn(cohort_fn: Callable, mesh) -> Callable:
     """The analysis pipeline with its inputs sharded [N@batch, H@space, W,
     D] over ``mesh``: the counterpart of ventjax's ``spatial_shard_fn``.
 
@@ -122,10 +202,41 @@ def spatial_shard_fn(cohort_fn: Callable, mesh: BatchSpaceMesh) -> Callable:
     the space size, N by the batch size), runs the slab program row after
     row (within an N4 iteration the slabs go in lockstep) and returns a
     VentResult whose leaves are in lane and row order on the mesh's first
-    device."""
+    device.
+
+    Over a ``RankSpaceMesh`` every rank calls the returned fn with the
+    whole batch and works on its own (row, slab) block: the batch row's
+    ranks run the slab program together, one slab each, and every rank
+    returns the whole VentResult on its device, all_gathered in lane and
+    row order (what ``process_allgather`` gives the cohort driver)."""
     from ventjax_torch.pipeline.spatial import analyze_spatial, pipeline_of
 
     geom, config = pipeline_of(cohort_fn)
+
+    if isinstance(mesh, RankSpaceMesh):
+        def on_ranks(hp, mask):
+            per = _per_shard(hp.shape[0], mesh.n_batch)
+            lanes = slice(mesh.row * per, (mesh.row + 1) * per)
+            with space.on_ranks(mesh.row_ranks):
+                res = analyze_spatial(hp[lanes], mask[lanes], geom, config,
+                                      [mesh.device], own_slab=True)
+            world, S = mesh.all_ranks, mesh.n_space
+
+            def volume(x):
+                parts = space.all_gather(x, world)
+                return torch.cat([torch.cat(parts[b * S:(b + 1) * S], dim=1)
+                                  for b in range(mesh.n_batch)], dim=0)
+
+            def lanes_of(x):
+                return torch.cat(space.all_gather(x, world)[::S], dim=0)
+
+            out = map_leaves(lambda xs: volume(xs[0]),
+                             [dataclasses.replace(res, metrics=None)])
+            return dataclasses.replace(
+                out, metrics=map_leaves(lambda xs: lanes_of(xs[0]),
+                                        [res.metrics]))
+
+        return on_ranks
 
     def sharded(hp, mask):
         per = _per_shard(hp.shape[0], mesh.n_batch)
@@ -276,6 +387,7 @@ def initialize_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     backend: Optional[str] = None,
+    timeout: float = 600.0,
 ) -> None:
     """Multi-process runtime init (a no-op when single-process):
     ``torch.distributed.init_process_group`` at
@@ -287,6 +399,10 @@ def initialize_multihost(
     and "gloo" on the CPU.  "gloo" lets several ranks share one card,
     which NCCL refuses; gloo moves host tensors only, so the collectives of
     this package copy card tensors to the host and back under it.
+
+    ``timeout`` (seconds) bounds how long a collective of the default
+    group, or of a group ``make_rank_space_mesh`` makes, waits for its
+    peers: a rank that hangs fails the run instead of stalling it.
     """
     if not (num_processes is not None and num_processes > 1
             or coordinator_address):
@@ -302,9 +418,12 @@ def initialize_multihost(
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl":
         torch.cuda.set_device(int(process_id) % torch.cuda.device_count())
+    global _GROUP_TIMEOUT
+    _GROUP_TIMEOUT = datetime.timedelta(seconds=float(timeout))
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator_address}",
-        world_size=int(num_processes or 1), rank=int(process_id))
+        world_size=int(num_processes or 1), rank=int(process_id),
+        timeout=_GROUP_TIMEOUT)
 
 
 def make_rank_mesh(device="cuda", group=None) -> RankMesh:

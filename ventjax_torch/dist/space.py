@@ -15,8 +15,8 @@ compacted in row-major order, are one contiguous run of the lane's global
 compacted list; slab s's run starts at the sum of the counts of the slabs
 before it.
 
-Every shard lives in this process: a collective takes the list of the
-shards' tensors (slab order, each on its shard's device) and returns
+In one process every shard lives here: a collective takes the list of
+the shards' tensors (slab order, each on its shard's device) and returns
 either a list of the same kind or one tensor on the first shard's device.
 A value every shard needs (a replicated one) is computed once there and
 copied to the others (``to``).  Reductions add in shard order, so the
@@ -25,15 +25,167 @@ result does not depend on the devices; ``row_sums_sharded`` reproduces
 (``gather_runs``, ``chunk_layout``, ``gather_owned``) let a slab launch
 kernels over whole chunks of the global list, whose per-chunk partials
 then combine to the unsharded launch's bits.
+
+Over ranks (``on_ranks``: one slab a torch.distributed rank) the same
+functions take this rank's one-element list.  Each collective first
+all_gathers every rank's part into the full slab-ordered list (a part
+whose size may differ between ranks is padded to the largest, its size
+gathered beside it) and then runs the in-process arithmetic on it, so the
+bits are the in-process form's; it returns this rank's element or the
+replicated value.  Nothing uses ``all_reduce``, whose order the backend
+picks.  The rank's own part keeps its autograd graph in the gathered
+list, and the halo exchange sends each halo's gradient back to the rank
+it came from (``_HaloExchange``), which is what the sharded train step
+needs.  ``once`` computes a value on the row's first rank and broadcasts
+it.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from ventjax_torch.ops.basic import row_sums
+
+
+@dataclasses.dataclass(frozen=True)
+class RankGroup:
+    """Ranks of a torch.distributed ``group`` that hold one shard each:
+    this rank's shard ``index`` of ``size``, on ``device``; ``src`` is the
+    default group's rank of the group's first rank (the source of its
+    broadcasts)."""
+
+    group: object
+    index: int
+    size: int
+    device: torch.device
+    src: int
+
+    @property
+    def comm_device(self) -> torch.device:
+        """Where the group's collectives take their tensors: the host under
+        gloo, which moves host tensors only, else the rank's device."""
+        import torch.distributed as dist
+
+        if dist.get_backend(self.group) == "gloo":
+            return torch.device("cpu")
+        return self.device
+
+
+_RANKS: contextvars.ContextVar = contextvars.ContextVar("space_ranks",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def on_ranks(ranks: RankGroup):
+    """The collectives of this module over ``ranks``, one shard a rank, in
+    this block: each takes and returns this rank's one-element list."""
+    token = _RANKS.set(ranks)
+    try:
+        yield ranks
+    finally:
+        _RANKS.reset(token)
+
+
+def numbered(xs):
+    """(slab index, slab) of the slabs this process holds: every one in
+    order, or this rank's one under ``on_ranks``."""
+    r = _RANKS.get()
+    if r is None:
+        return list(enumerate(xs))
+    (x,) = xs
+    return [(r.index, x)]
+
+
+def _wire(dtype):
+    """The dtype a tensor travels in (gloo and NCCL move no booleans)."""
+    return torch.uint8 if dtype == torch.bool else dtype
+
+
+def all_gather(x: torch.Tensor, r: RankGroup, dim: Optional[int] = None):
+    """Every rank's ``x`` of the group ``r`` in rank order, on this rank's
+    device in x's dtype, this rank's slot ``x`` itself.  With ``dim``, x's
+    size along it may differ between ranks: the sizes are gathered first
+    and each part is padded to the largest for the transfer."""
+    import torch.distributed as dist
+
+    y = x.detach().to(r.comm_device, _wire(x.dtype)).contiguous()
+    sizes = None
+    if dim is not None:
+        n = torch.tensor([y.shape[dim]], dtype=torch.int64,
+                         device=r.comm_device)
+        ns = [torch.empty_like(n) for _ in range(r.size)]
+        dist.all_gather(ns, n, group=r.group)
+        sizes = [int(v) for v in ns]
+        grow = max(sizes) - y.shape[dim]
+        if grow:
+            shape = list(y.shape)
+            shape[dim] = grow
+            y = torch.cat([y, y.new_zeros(shape)], dim)
+    bufs = [torch.empty_like(y) for _ in range(r.size)]
+    dist.all_gather(bufs, y, group=r.group)
+    out = []
+    for t, b in enumerate(bufs):
+        if t == r.index:
+            out.append(x)
+            continue
+        if sizes is not None:
+            b = b.narrow(dim, 0, sizes[t])
+        out.append(b.to(r.device, x.dtype))
+    return out
+
+
+def _gathered(parts, dim: Optional[int] = None):
+    """The full slab-ordered list of ``parts``: as given in one process,
+    every rank's under ``on_ranks`` (see ``all_gather``)."""
+    r = _RANKS.get()
+    if r is None:
+        return list(parts)
+    (x,) = parts
+    return all_gather(x, r, dim)
+
+
+_DTYPES = (torch.float32, torch.float64, torch.int64, torch.int32,
+           torch.int16, torch.uint8, torch.int8, torch.bool)
+
+
+def once(fn, *args):
+    """``fn(*args)`` (a tensor or a tuple of tensors), a value every slab
+    needs, computed once: directly in one process; under ``on_ranks`` on
+    the group's first rank, then broadcast with its shapes and dtypes to
+    the others, onto their devices."""
+    r = _RANKS.get()
+    if r is None or r.size == 1:
+        return fn(*args)
+    import torch.distributed as dist
+
+    head = torch.zeros(64, dtype=torch.int64)
+    if r.index == 0:
+        out = fn(*args)
+        ts = [out] if isinstance(out, torch.Tensor) else list(out)
+        fields = [int(isinstance(out, torch.Tensor)), len(ts)]
+        for t in ts:
+            fields += [_DTYPES.index(t.dtype), t.dim(), *t.shape]
+        head[:len(fields)] = torch.tensor(fields)
+    head = head.to(r.comm_device)
+    dist.broadcast(head, src=r.src, group=r.group)
+    h = head.tolist()
+    single, n, pos = h[0], h[1], 2
+    res = []
+    for i in range(n):
+        dt, nd = _DTYPES[h[pos]], h[pos + 1]
+        shape = h[pos + 2:pos + 2 + nd]
+        pos += 2 + nd
+        if r.index == 0:
+            buf = ts[i].to(r.comm_device, _wire(dt)).contiguous()
+        else:
+            buf = torch.empty(shape, dtype=_wire(dt), device=r.comm_device)
+        dist.broadcast(buf, src=r.src, group=r.group)
+        res.append(ts[i] if r.index == 0 else buf.to(r.device, dt))
+    return res[0] if single else tuple(res)
 
 
 def slab_height(shape, n_space: int) -> int:
@@ -51,7 +203,12 @@ def slab_height(shape, n_space: int) -> int:
 def split_rows(x: torch.Tensor, devices: Sequence[torch.device],
                dim: int = 1) -> List[torch.Tensor]:
     """x split along ``dim`` (H of [N, H, ...]) into len(devices) equal
-    slabs, slab s on devices[s], contiguous."""
+    slabs, slab s on devices[s], contiguous; under ``on_ranks`` this
+    rank's slab of the group's, on devices[0]."""
+    r = _RANKS.get()
+    if r is not None:
+        h = slab_height(x.shape[dim:], r.size)
+        return [x.narrow(dim, r.index * h, h).to(devices[0]).contiguous()]
     h = slab_height(x.shape[dim:], len(devices))
     return [x.narrow(dim, s * h, h).to(d).contiguous()
             for s, d in enumerate(devices)]
@@ -60,7 +217,8 @@ def split_rows(x: torch.Tensor, devices: Sequence[torch.device],
 def gather_rows(slabs: Sequence[torch.Tensor], device=None,
                 dim: int = 1) -> torch.Tensor:
     """The slabs concatenated along ``dim`` in slab order, on ``device``
-    (default: the first slab's)."""
+    (default: the first slab's); their sizes along ``dim`` may differ."""
+    slabs = _gathered(slabs, dim)
     dev = slabs[0].device if device is None else device
     return torch.cat([x.to(dev) for x in slabs], dim=dim)
 
@@ -77,6 +235,17 @@ def halo_rows(slabs: Sequence[torch.Tensor], width: int, dim: int = 1,
     previous slab's last ``width`` rows and hi the next slab's first, on
     the slab's own device.  Beyond the volume's global edges they are
     zeros (``edge="zeros"``) or absent, None (``edge="none"``)."""
+    r = _RANKS.get()
+    if r is not None:
+        (x,) = slabs
+        if width > x.shape[dim]:
+            raise ValueError(f"halo of {width} rows exceeds the slab height "
+                             f"{x.shape[dim]}")
+        lo, hi = _HaloExchange.apply(x, width, dim, r)
+        if edge == "none":
+            lo = None if r.index == 0 else lo
+            hi = None if r.index + 1 == r.size else hi
+        return [(lo, hi)]
     S = len(slabs)
     h = slabs[0].shape[dim]
     if width > h:
@@ -98,6 +267,40 @@ def halo_rows(slabs: Sequence[torch.Tensor], width: int, dim: int = 1,
     return out
 
 
+class _HaloExchange(torch.autograd.Function):
+    """A rank's (lo, hi) halo rows (zeros beyond the global edges): every
+    rank's first and last ``width`` rows are all_gathered and
+    ``halo_rows`` runs on them.  The backward sends each halo's gradient
+    back to the rank whose rows it was: lo's to the previous slab's last
+    rows, hi's to the next slab's first."""
+
+    @staticmethod
+    def forward(ctx, x, width, dim, r):
+        ctx.width, ctx.dim, ctx.r, ctx.shape = width, dim, r, x.shape
+        h = x.shape[dim]
+        edges = torch.cat([x.narrow(dim, 0, width),
+                           x.narrow(dim, h - width, width)], dim)
+        with on_ranks(None):
+            return halo_rows(all_gather(edges, r), width, dim)[r.index]
+
+    @staticmethod
+    def backward(ctx, g_lo, g_hi):
+        w, dim, r = ctx.width, ctx.dim, ctx.r
+        h = ctx.shape[dim]
+        ref = g_lo if g_lo is not None else g_hi
+        shape = list(ctx.shape)
+        shape[dim] = w
+        zero = lambda g: g if g is not None else ref.new_zeros(shape)
+        parts = all_gather(torch.cat([zero(g_lo), zero(g_hi)], dim), r)
+        gx = ref.new_zeros(ctx.shape)
+        if r.index > 0:
+            gx.narrow(dim, 0, w).add_(parts[r.index - 1].narrow(dim, w, w))
+        if r.index + 1 < r.size:
+            gx.narrow(dim, h - w, w).add_(parts[r.index + 1].narrow(dim, 0,
+                                                                    w))
+        return gx, None, None, None
+
+
 def with_halo(slabs: Sequence[torch.Tensor], width: int, dim: int = 1,
               edge: str = "zeros") -> List[torch.Tensor]:
     """Each slab with its halo rows on either side along ``dim`` (zeros, or
@@ -109,6 +312,7 @@ def with_halo(slabs: Sequence[torch.Tensor], width: int, dim: int = 1,
 def sum_in_order(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """((p0 + p1) + p2) + ... on the first shard's device: a shard-order
     sum of partials."""
+    parts = _gathered(parts)
     dev = parts[0].device
     out = parts[0]
     for p in parts[1:]:
@@ -123,6 +327,7 @@ def sum_int(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def reduce_min(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    parts = _gathered(parts)
     dev = parts[0].device
     out = parts[0]
     for p in parts[1:]:
@@ -131,6 +336,7 @@ def reduce_min(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def reduce_max(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    parts = _gathered(parts)
     dev = parts[0].device
     out = parts[0]
     for p in parts[1:]:
@@ -139,6 +345,7 @@ def reduce_max(parts: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def reduce_any(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    parts = _gathered(parts)
     dev = parts[0].device
     out = parts[0]
     for p in parts[1:]:
@@ -163,6 +370,7 @@ def row_sums_sharded(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     L2-segment is finished locally.  Where L is not a power of two the
     segments are first cut to the padded row's L2-segments (a shift of
     rows between neighbours).  Any other n gathers the row."""
+    parts = _gathered(parts)
     S = len(parts)
     L = parts[0].shape[-1]
     if any(p.shape[-1] != L for p in parts):
@@ -243,6 +451,7 @@ def gather_runs(runs: Sequence[torch.Tensor], counts: Sequence[torch.Tensor],
     slab s's first counts[s] entries of runs[s] [N, P_s] (clipped to P_s),
     one after another in slab order, ``fill`` past the last; on ``device``
     (default: the first slab's)."""
+    runs, counts = _gathered(runs, dim=1), _gathered(counts)
     dev = runs[0].device if device is None else device
     cat = torch.cat([r.to(dev) for r in runs], dim=1)
     ok = torch.cat([torch.arange(r.shape[1], device=dev)[None, :]
@@ -290,7 +499,21 @@ def chunk_layout(counts: Sequence[torch.Tensor], widths: Sequence[int],
                  cap: torch.Tensor, chunk: int) -> ChunkLayout:
     """The chunk ownership of a global compacted list whose slab s holds
     counts[s] [N] entries (in a run of width widths[s]) and whose first
-    ``cap`` [N] positions are valid (the rest is padding)."""
+    ``cap`` [N] positions are valid (the rest is padding).  Under
+    ``on_ranks`` every rank works out every slab's layout from the
+    gathered counts and widths and keeps its own."""
+    r = _RANKS.get()
+    if r is not None:
+        (c,) = counts
+        both = all_gather(torch.cat([
+            c.to(torch.int64), torch.tensor([widths[0]], device=c.device)]),
+            r)
+        with on_ranks(None):
+            full = chunk_layout([b[:-1] for b in both],
+                                [int(b[-1]) for b in both], cap, chunk)
+        i = r.index
+        return ChunkLayout(chunk, [full.widths[i]], [full.valid[i]],
+                           [full.counts[i]], [full.sources[i]])
     S = len(counts)
     dev0 = counts[0].device
     cnt = [c.to(dev0, torch.int64) for c in counts]
@@ -340,18 +563,25 @@ def gather_owned(runs: Sequence[torch.Tensor], layout: ChunkLayout,
     then the tail it receives from the next slabs (their first
     ``chunk - 1`` entries at most), ``fill`` in slots that hold no list
     entry."""
-    S = len(runs)
     head = layout.chunk - 1
-    out = []
-    for s in range(S):
-        dev = runs[s].device
-        cat = torch.cat([runs[s]] + [runs[t][:, :head].to(dev)
-                                     for t in range(s + 1, S)], dim=1)
-        src = layout.sources[s].clamp(max=cat.shape[1] - 1)
-        buf = cat.gather(1, src)
-        out.append(torch.where(layout.valid[s], buf,
-                               torch.full_like(buf, fill)).contiguous())
-    return out
+    r = _RANKS.get()
+    if r is not None:
+        (own,) = runs
+        heads = all_gather(own[:, :head], r, dim=1)
+        return [_owned(own, heads[r.index + 1:], layout.sources[0],
+                       layout.valid[0], fill)]
+    return [_owned(runs[s], [t[:, :head] for t in runs[s + 1:]],
+                   layout.sources[s], layout.valid[s], fill)
+            for s in range(len(runs))]
+
+
+def _owned(own, later_heads, sources, valid, fill):
+    """One slab's owned-chunk buffer from its own run and the heads of the
+    slabs after it."""
+    dev = own.device
+    cat = torch.cat([own] + [t.to(dev) for t in later_heads], dim=1)
+    buf = cat.gather(1, sources.clamp(max=cat.shape[1] - 1))
+    return torch.where(valid, buf, torch.full_like(buf, fill)).contiguous()
 
 
 def cat_chunks(parts: Sequence[torch.Tensor]) -> torch.Tensor:

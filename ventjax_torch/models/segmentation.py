@@ -307,7 +307,8 @@ def _forward_slabs(params, xs):
 
 def make_sharded_train_step(state: TrainState, mesh):
     """The train step over a ("batch", "space") mesh
-    (``dist.make_batch_space_mesh``): the counterpart of ventjax's
+    (``dist.make_batch_space_mesh``, or ``dist.make_rank_space_mesh`` over
+    torch.distributed ranks): the counterpart of ventjax's
     ``make_sharded_train_step(model, tx, mesh)``.
 
     Returns ``step(state, proton, mask) -> loss``, which, like
@@ -325,17 +326,34 @@ def make_sharded_train_step(state: TrainState, mesh):
     state stay replicated: each shard computes with its own copy, the
     shards' gradients are summed in one fixed order (shard order, batch
     row by batch row) and one Adam step updates the model, as every
-    replica would alike.  The shards run in this process, in turn."""
-    from ventjax_torch.dist import space
-    from ventjax_torch.dist.mesh import BatchSpaceMesh, _per_shard
+    replica would alike.  In one process the shards run in turn.  Over
+    ranks every rank calls the step with the whole batch and its own
+    model: the halos' gradients travel back to the ranks they came from,
+    every rank sums the all_gathered gradients in that order, and the
+    parameters stay bit-identical across ranks."""
+    import contextlib
 
-    if not isinstance(mesh, BatchSpaceMesh):
+    from ventjax_torch.dist import space
+    from ventjax_torch.dist.mesh import (
+        BatchSpaceMesh, RankSpaceMesh, _per_shard,
+    )
+
+    if not isinstance(mesh, (BatchSpaceMesh, RankSpaceMesh)):
         raise TypeError("make_sharded_train_step takes a ('batch', 'space') "
-                        "mesh from dist.make_batch_space_mesh")
+                        "mesh from dist.make_batch_space_mesh or "
+                        "dist.make_rank_space_mesh")
     if not isinstance(state, TrainState) or state.optimizer is None:
         raise TypeError("make_sharded_train_step needs a TrainState with "
                         "its optimizer (not a params-only checkpoint)")
-    shards = [d for row in mesh.devices for d in row]
+    ranked = isinstance(mesh, RankSpaceMesh)
+    if ranked:
+        rows = [(mesh.row, (mesh.device,))]
+        on_row = lambda: space.on_ranks(mesh.row_ranks)
+        on_all = lambda: space.on_ranks(mesh.all_ranks)
+    else:
+        rows = list(enumerate(mesh.devices))
+        on_row = on_all = contextlib.nullcontext
+    shards = [d for _, row in rows for d in row]
 
     def step(state: TrainState, proton, mask) -> torch.Tensor:
         _exact_float32()
@@ -355,38 +373,49 @@ def make_sharded_train_step(state: TrainState, mesh):
         named = list(model.named_parameters())
         params = [{k: p.detach().to(d).requires_grad_(True)
                    for k, p in named} for d in shards]
-        bce_sums, dices, count = [], [], 0
-        for b, row in enumerate(mesh.devices):
+        bce_sums, dices = [], []
+        for i, (b, row) in enumerate(rows):
             lanes = slice(b * per, (b + 1) * per)
-            xs = space.split_rows(_slices(hp[lanes]), row, dim=2)
-            ys = [t[:, 0] for t in
-                  space.split_rows(_slices(y[lanes]), row, dim=2)]
-            lo = space.reduce_min([x.amin(dim=(1, 2, 3)) for x in xs])
-            hi = space.reduce_max([x.amax(dim=(1, 2, 3)) for x in xs])
-            scale = torch.clamp(hi - lo, min=1e-6)
-            xs = [(x - space.to(lo, x.device)[:, None, None, None])
-                  / space.to(scale, x.device)[:, None, None, None]
-                  for x in xs]
-            ps = params[b * mesh.n_space:(b + 1) * mesh.n_space]
-            logits = _forward_slabs(ps, xs)
-            bce_sums += [F.binary_cross_entropy_with_logits(
-                lg, t, reduction="sum") for lg, t in zip(logits, ys)]
-            count += sum(t.numel() for t in ys)
-            prob = [torch.sigmoid(lg) for lg in logits]
-            inter = space.sum_in_order([(p * t).sum(dim=(1, 2))
-                                        for p, t in zip(prob, ys)])
-            psum = space.sum_in_order([p.sum(dim=(1, 2)) for p in prob])
-            ysum = space.sum_in_order([t.sum(dim=(1, 2)) for t in ys])
+            with on_row():
+                xs = space.split_rows(_slices(hp[lanes]), row, dim=2)
+                ys = [t[:, 0] for t in
+                      space.split_rows(_slices(y[lanes]), row, dim=2)]
+                lo = space.reduce_min([x.amin(dim=(1, 2, 3)) for x in xs])
+                hi = space.reduce_max([x.amax(dim=(1, 2, 3)) for x in xs])
+                scale = torch.clamp(hi - lo, min=1e-6)
+                xs = [(x - space.to(lo, x.device)[:, None, None, None])
+                      / space.to(scale, x.device)[:, None, None, None]
+                      for x in xs]
+                ps = params[i * len(row):(i + 1) * len(row)]
+                logits = _forward_slabs(ps, xs)
+                bce_sums += [F.binary_cross_entropy_with_logits(
+                    lg, t, reduction="sum") for lg, t in zip(logits, ys)]
+                prob = [torch.sigmoid(lg) for lg in logits]
+                inter = space.sum_in_order([(p * t).sum(dim=(1, 2))
+                                            for p, t in zip(prob, ys)])
+                psum = space.sum_in_order([p.sum(dim=(1, 2)) for p in prob])
+                ysum = space.sum_in_order([t.sum(dim=(1, 2)) for t in ys])
             dices.append((1.0 - (2 * inter + 1.0) / (psum + ysum + 1.0)
                           ).to(first))
-        loss = (space.sum_in_order(bce_sums).to(first) / count
-                + torch.cat(dices).mean())
+        with on_all():
+            bce = space.sum_in_order(bce_sums).to(first)
+        if ranked:
+            # each row's Dice from its first rank, this rank's own (live)
+            got = space.all_gather(dices[0], mesh.all_ranks)
+            dices = [got[mesh.rank if b == mesh.row else b * mesh.n_space]
+                     for b in range(mesh.n_batch)]
+        loss = bce / hp.numel() + torch.cat(dices).mean()
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         with torch.no_grad():
+            flat = [torch.cat([q[k].grad.reshape(-1) for k, _ in named])
+                    for q in params]
+            with on_all():
+                total = space.sum_in_order(flat).to(first)
+            off = 0
             for k, p in named:
-                p.grad = space.sum_in_order(
-                    [q[k].grad for q in params]).to(p.device)
+                p.grad = total[off:off + p.numel()].view_as(p)
+                off += p.numel()
         state.optimizer.step()
         state.step += 1
         return loss.detach()

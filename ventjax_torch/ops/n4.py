@@ -30,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ventjax_torch.ops.basic import sort_compact_masked
@@ -37,6 +38,7 @@ from ventjax_torch.ops.geometry import _next_pow2_padded
 from ventjax_torch.ops.n4_cuda import fit_delta_conv_field, fit_moment
 from ventjax_torch.ops.n4_field_cuda import n4_field
 from ventjax_torch.ops.n4_sharpen_cuda import sharpen_hist, sharpen_resid
+from ventjax_torch.oracle.n4_oracle import bspline_basis_1d
 
 LOG2 = math.log(2.0)
 # Device-to-host syncs made by the level loops since this was set to 0.
@@ -233,3 +235,48 @@ def n4_bias_correction(
         wv_mask_only = (ar[None, :] < n_mask[:, None]).to(torch.float32)
         out = out + ((idx, corrected_vals, wv_mask_only),)
     return out if len(out) > 1 else out[0]
+
+
+def n4_phi_sizes(fitting_levels: int = 4, control_points: int = 4):
+    """Per-level flat lattice sizes of the return_phi vector."""
+    return [((control_points - 3) * 2 ** level + 3) ** 3
+            for level in range(fitting_levels)]
+
+
+def n4_field_from_phi_np(
+    phi_flat: np.ndarray,
+    shape,
+    fitting_levels: int = 4,
+    control_points: int = 4,
+) -> np.ndarray:
+    """Host (numpy, float64) dense log-bias field from the return_phi vector.
+
+    The float64 counterpart of the card's dense field (``n4_field``): with
+    it ``hp * exp(-field)`` rebuilds the corrected volume from host inputs
+    and the lattice vector (~1.9k floats at the defaults).  It is not the
+    card's float32 field bit for bit (they agree to ~1e-6 relative), so the
+    cohort export overwrites every masked voxel with the shipped values and
+    takes this only for the out-of-mask background, which no metric reads.
+    """
+    H, W, D = shape
+    field = np.zeros((H, W, D), np.float64)
+    off = 0
+    for level in range(fitting_levels):
+        n_elements = (control_points - 3) * 2 ** level
+        ncp = n_elements + 3
+        k = ncp ** 3
+        phi = np.asarray(phi_flat[off:off + k], np.float64).reshape(
+            ncp, ncp, ncp)
+        off += k
+        br = bspline_basis_1d(H, n_elements)
+        bc = bspline_basis_1d(W, n_elements)
+        bs = bspline_basis_1d(D, n_elements)
+        # separable: one axis at a time
+        t = np.tensordot(br, phi, axes=(1, 0))      # [H, ncp, ncp]
+        t = np.tensordot(bc, t, axes=(1, 1))        # [W, H, ncp]
+        field += np.tensordot(t, bs, axes=(2, 1)).transpose(1, 0, 2)
+    if off != len(phi_flat):
+        raise ValueError(
+            f"phi vector has {len(phi_flat)} coefficients; levels="
+            f"{fitting_levels} control_points={control_points} expects {off}")
+    return field

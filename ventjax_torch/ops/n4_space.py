@@ -29,6 +29,15 @@ lies in a launch, so the slabs give the unsharded run's corrected image bit
 for bit; on the CPU the plain versions sum chunk by chunk where the
 unsharded plain versions sum the whole list at once, which agrees within
 float32 rounding.
+
+Over ranks (``dist.space.on_ranks``, one slab a rank of a batch row's
+group) the same program runs with each rank's one slab: the chunk tails
+travel once, before the first level; every iteration all_gathers K4's,
+K1's and K2's per-chunk partials in slab order and every rank reduces
+them in chunk order, so the histogram, phi, the statistics and ``done``
+are replicated bit for bit and every rank of the row takes the same
+branch at the convergence test.  Every collective uses the row's group
+only: rows converge in different numbers of iterations.
 """
 from __future__ import annotations
 
@@ -176,7 +185,8 @@ def n4_slabs(
     ncps = [(control_points - 3) * 2 ** level + 3
             for level in range(fitting_levels)]
     corrected: List[torch.Tensor] = []
-    for s, (x, d) in enumerate(zip(img, devs)):
+    for s, x in space.numbered(img):
+        d = x.device
         field = n4_field(space.to(phi_flat, d), (H, W, D), ncps,
                          rows=(s * h, (s + 1) * h))
         corrected.append(x.to(torch.float32) * torch.exp(-field))

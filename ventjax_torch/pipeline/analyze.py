@@ -41,7 +41,7 @@ from ventjax_torch.ops.vdp import vdp_linear_binning, vdp_mean_anchored
 from ventjax_torch.pipeline.result import (
     StudyMetrics, VentResult, map_leaves,
 )
-from ventjax_torch.utils.profiling import stage
+from ventjax_torch.utils.profiling import check_stage, stage
 
 
 Geometry = Union[CIPairwiseGeometry, CIGeometry]
@@ -78,6 +78,7 @@ def analyze_cohort(
 
     with stage("snr"):
         snr = calculate_snr(hp, safe_mask, c.snr_fov_buffer)
+    check_stage("snr", valid, snr)
 
     with stage("n4"):
         # One mask compaction, shared by N4 (which sub-masks img > 0
@@ -106,18 +107,22 @@ def analyze_cohort(
             n4, n4_overflow, n4_phi, n4_comp = n4_out
         else:
             n4, n4_overflow, n4_comp = n4_out
+    check_stage("n4", valid, n4, n4_comp[1])
 
     with stage("vdp_mean_anchored"):
         defect, vdp = vdp_mean_anchored(n4, safe_mask, c.vdp_thresh)
         defect_border = (gradient_border(defect) == 1).to(torch.float32)
+    check_stage("vdp_mean_anchored", valid, defect, vdp, defect_border)
     with stage("vdp_linear_binning"):
         defect_lb, vdp_lb = vdp_linear_binning(n4, safe_mask, c.lb_edges,
                                                c.lb_percentile)
+    check_stage("vdp_linear_binning", valid, defect_lb, vdp_lb)
     with stage("vdp_kmeans"):
         _, n4_vals_c, wv_c = n4_comp
         defect_km, vdp_km = vdp_kmeans(
             n4, safe_mask, c.kmeans_clusters, c.kmeans_iters,
             c.kmeans_defect_clusters, compacted=(n4_vals_c, wv_c))
+    check_stage("vdp_kmeans", valid, defect_km, vdp_km)
     with stage("ci"):
         if isinstance(geom, CIPairwiseGeometry):
             ci_map, n_saturated, ci_overflow = calculate_ci_pairwise(
@@ -126,6 +131,7 @@ def analyze_cohort(
             ci_map, n_saturated, ci_overflow, stage_ovf = calculate_ci_staged(
                 defect, geom, c.ci_max_defect_voxels)
             ci_overflow = ci_overflow | (stage_ovf > 0)
+    check_stage("ci", valid, ci_map)
 
     # Subject CI: the floor-index percentile of the CI map over defect
     # voxels; NaN when there are none.

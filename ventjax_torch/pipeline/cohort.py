@@ -22,9 +22,16 @@ several (``dist/mesh.py``):
   skips completed subjects;
 - a subject that does not decode, or has an empty mask, fails alone.
 
-The device-to-host pack is dense: the N4 image in float32, the defect map
-in uint8, and the CI values at the defect compaction with their count
-(``_densify_ci`` rebuilds the map).  ventjax's compact pack is not ported.
+The device-to-host pack is compact by default (``compact_export``, as
+ventjax's): N4's corrected values at the mask's compaction and the flat
+B-spline lattices, the defect map as the CI compaction's indices, and the
+CI values there with their count; the host rebuilds the dense channels
+(``_rebuild_compact_pack``, ``_densify_ci``).  The dense pack (the N4 image
+in float32, the defect map in uint8) is taken where the compact one cannot
+hold the batch: a mask larger than the N4 pad, or a CI overflow that
+outlives every budget (``ci_force_dense``).  ventjax ships the compact pack
+as one blob, which pays its TPU link's per-transfer latency once; here its
+leaves move as they are.
 
 Several processes: where ``torch.distributed`` is initialised with more
 than one rank (``dist.initialize_multihost``; the counterpart of
@@ -222,7 +229,7 @@ class _GeometryRunner:
 
     def __init__(self, shape, vox, config: VentConfig, batch_size: int,
                  adaptive_pad: bool = False, device="cuda",
-                 mesh=None):
+                 mesh=None, compact_export: bool = True):
         self.shape = tuple(shape)
         self.vox = tuple(vox)
         self.config = config
@@ -238,6 +245,10 @@ class _GeometryRunner:
         # size) instead of to bs, so a single subject moves 1 lane, not bs
         # zero lanes.  Offline cohort runs keep the fixed pad.
         self.adaptive = adaptive_pad
+        # The compact device-to-host pack (see the module docstring); a
+        # batch whose largest mask exceeds the N4 pad takes the dense one,
+        # since the rebuild needs every masked voxel shipped.
+        self.compact = compact_export
         self.items: List[Tuple[Dict, Tuple]] = []
         # Sticky buckets: start small, grow on overflow, never shrink
         # within a run.
@@ -247,6 +258,11 @@ class _GeometryRunner:
         # overflow of the pairwise engine, not a defect-count overflow):
         # the CI tail then runs at full width (tail_k = the pad).
         self.ci_tail_full = False
+        # Set when a CI overflow outlives every budget: the compact pack
+        # would export a truncated defect channel (only the first K
+        # indices travel), so such batches re-run with the dense pack,
+        # whose uint8 defect map is always complete.
+        self.ci_force_dense = False
         self._cfgs: Dict[Tuple[int, int, bool], Tuple] = {}
         self._bucket_lock = threading.Lock()
 
@@ -308,12 +324,16 @@ class _GeometryRunner:
                 max(self.n4_bucket, _pow2_at_least(max_mask, 8192)),
                 self._n4_cap)
             pads = (self.ci_bucket, self.n4_bucket, self.ci_tail_full)
+            compact = (self.compact and pads[1] >= max_mask
+                       and not self.ci_force_dense)
         cfg, geom = self._fn(*pads)
         if isinstance(self.mesh, dmesh.Mesh):
             # each shard moves its own lanes to its device
             res = dmesh.shard_cohort_fn(
-                lambda h, m: analyze_cohort(h, m, geom, cfg), self.mesh)(
-                    torch.from_numpy(hp_np), torch.from_numpy(mask_np))
+                lambda h, m: analyze_cohort(h, m, geom, cfg,
+                                            export_compact=compact),
+                self.mesh)(torch.from_numpy(hp_np),
+                           torch.from_numpy(mask_np))
         else:
             if self.mesh is not None:
                 # a RankMesh: every rank stacked the whole batch (the pads
@@ -322,21 +342,25 @@ class _GeometryRunner:
                 hp_np, mask_np = hp_np[own], mask_np[own]
             res = analyze_cohort(torch.from_numpy(hp_np).to(self.device),
                                  torch.from_numpy(mask_np).to(self.device),
-                                 geom, cfg)
+                                 geom, cfg, export_compact=compact)
         B = res.defect.shape[0]
         V = int(np.prod(self.shape))
         # The CI values at the engines' own ascending-flat defect
         # compaction: the host rebuilds the dense map bit-exactly from them
         # (_densify_ci), including an overflowed lane's first-K truncation.
+        # The compact pack carries those indices as its defect map.
         cidx, n_def = compact_mask_indices(
             res.defect.reshape(B, V) != 0, min(pads[0], V))
         pack = {
-            "n4": res.n4,
-            "defect": res.defect.to(torch.uint8),
             "ci_cv": res.ci_map.reshape(B, V).gather(1, cidx),
             "n_def": n_def,
             "mvec": _pack_metrics_vec(res.metrics),
         }
+        if compact:
+            pack.update(n4_cv=res.export["n4_cv"], phi=res.export["phi"],
+                        cidx=cidx)
+        else:
+            pack.update(n4=res.n4, defect=res.defect.to(torch.uint8))
         return pack, pads
 
     @property
@@ -346,7 +370,8 @@ class _GeometryRunner:
         return isinstance(build_geometry(self.vox, self.shape, self.config),
                           CIPairwiseGeometry)
 
-    def bump_for_retry(self, ci_ovf: bool, n4_ovf: bool, pads) -> bool:
+    def bump_for_retry(self, ci_ovf: bool, n4_ovf: bool, pads,
+                       compact_pack: bool = False) -> bool:
         """Grow the sticky buckets after an overflow observed at ``pads``.
 
         Returns True when a retry at larger budgets is warranted; False when
@@ -359,7 +384,9 @@ class _GeometryRunner:
         Pad doubling fixes both in most cases (the default tail scales as
         K // 8); when the flag still stands at the pad ceiling, one last
         retry runs the tail at full width, after which a standing flag is a
-        true defect-count overflow.
+        true defect-count overflow; a batch that came in the compact pack
+        (``compact_pack``) then re-runs once more with the dense pack
+        (``ci_force_dense``), so that its defect channel is complete.
         """
         ci_pad, n4_pad, tail_full = pads
         with self._bucket_lock:
@@ -370,8 +397,11 @@ class _GeometryRunner:
                         self.ci_bucket = min(ci_pad * 2, self._ci_cap)
                     elif not self.ci_tail_full and self._engine_pairwise:
                         self.ci_tail_full = True
+                    elif compact_pack and not self.ci_force_dense:
+                        self.ci_force_dense = True
                 retry = (self.ci_bucket > ci_pad
-                         or (self.ci_tail_full and not tail_full))
+                         or (self.ci_tail_full and not tail_full)
+                         or (self.ci_force_dense and compact_pack))
             if n4_ovf:
                 if self.n4_bucket <= n4_pad:
                     self.n4_bucket = min(n4_pad * 2, self._n4_cap)
@@ -394,6 +424,7 @@ def run_cohort(
     device="cuda",
     use_mesh: bool = False,
     shard_export: bool = False,
+    compact_export: bool = True,
 ) -> List[Dict]:
     """Analyse every subject of the manifest; returns per-subject metrics.
 
@@ -442,6 +473,15 @@ def run_cohort(
     overflow and retry decision is taken from the gathered metrics of the
     valid lanes, identically on every rank, and a retried batch re-runs on
     every rank.  No rank returns before every rank's exports are written.
+
+    ``compact_export`` (default True, as ventjax's): the device-to-host pack
+    carries N4's masked values and the B-spline lattices, and the defect
+    map as the CI compaction's indices; the host rebuilds the dense
+    channels.  The masked N4 voxels, the defect and CI channels and the
+    metrics are the dense pack's bits; the out-of-mask N4 background
+    (analysed by nothing) comes from the host's float64 lattice
+    evaluation, within ~1e-6 relative of the card's.  False ships the
+    dense volumes.
     """
     multiproc = _process_count() > 1
     rank_mesh = dmesh.make_rank_mesh(device) if multiproc else None
@@ -508,7 +548,7 @@ def run_cohort(
         if progress:
             progress("export", cnt, total)
 
-    def _requeued(runner, batch, m, pads) -> bool:
+    def _requeued(runner, batch, m, pads, compact_pack) -> bool:
         """Queue the batch for a re-run when a valid lane overflowed and
         the pads can still grow.  An empty-mask subject runs on a stand-in
         all-ones mask whose defects always overflow the CI pad; its flags
@@ -516,8 +556,8 @@ def run_cohort(
         n = len(batch)
         ci_ovf = bool((m.ci_overflow & m.valid)[:n].any())
         n4_ovf = bool((m.n4_overflow & m.valid)[:n].any())
-        if (ci_ovf or n4_ovf) and runner.bump_for_retry(ci_ovf, n4_ovf,
-                                                        pads):
+        if (ci_ovf or n4_ovf) and runner.bump_for_retry(
+                ci_ovf, n4_ovf, pads, compact_pack=compact_pack):
             log.info("geometry %s: overflow at ci=%d n4=%d tail_full=%s, "
                      "queueing batch for re-run", runner.shape, *pads)
             with retry_lock:
@@ -549,7 +589,8 @@ def run_cohort(
         sync), the overflow check and the files, in an export worker."""
         host = {k: v.cpu().numpy() for k, v in pack.items() if k != "mvec"}
         host["metrics"] = _metrics_from_vec(pack["mvec"].cpu().numpy())
-        if not _requeued(runner, batch, host["metrics"], pads):
+        if not _requeued(runner, batch, host["metrics"], pads,
+                         "n4_cv" in pack):
             _write_lanes([(e, d, _lane(host, i))
                           for i, (e, d) in enumerate(batch)])
 
@@ -566,7 +607,7 @@ def run_cohort(
         if sharded and shard_export:
             m = _metrics_from_vec(
                 dmesh.process_allgather(pack["mvec"], runner.mesh).numpy())
-            if _requeued(runner, batch, m, pads):
+            if _requeued(runner, batch, m, pads, "n4_cv" in pack):
                 return
             _record(batch, m)   # every rank records every lane
             own = runner.mesh.lanes(runner.mesh.size * pack["mvec"].shape[0])
@@ -583,7 +624,7 @@ def run_cohort(
         host = {k: (dmesh.process_allgather(v, runner.mesh) if sharded
                     else v.cpu()).numpy() for k, v in pack.items()}
         host["metrics"] = _metrics_from_vec(host.pop("mvec"))
-        if _requeued(runner, batch, host["metrics"], pads):
+        if _requeued(runner, batch, host["metrics"], pads, "n4_cv" in pack):
             return
         if rank_mesh.index == 0:
             _submit(_write_lanes, [(e, d, _lane(host, i))
@@ -635,7 +676,8 @@ def run_cohort(
         if geo not in runners:
             runners[geo] = _GeometryRunner(geo[0], geo[1], config, bs,
                                            adaptive_pad=adaptive_pad,
-                                           device=device, mesh=mesh)
+                                           device=device, mesh=mesh,
+                                           compact_export=compact_export)
         runner = runners[geo]
         if runner.add(entry, decoded):
             batch = runner.take_batch()
@@ -692,27 +734,75 @@ def run_cohort(
     return results
 
 
-def _densify_ci(pack: Dict) -> np.ndarray:
+def _densify_ci(pack: Dict, shape=None) -> np.ndarray:
     """Rebuild the dense CI map from the compacted transfer.
 
     The engines write CI values only at defect voxels, in ascending flat
     (C-order) position, the order ``ci_cv`` was gathered in; scattering the
     first n_def values back over the defect indices reproduces the device's
     map bit for bit, including the first-K truncation of an overflowed lane
-    (flagged by metrics.ci_overflow)."""
+    (flagged by metrics.ci_overflow).  A dense pack carries the defect map
+    (the host takes its flatnonzero); a compact one the device's own
+    compaction indices (``cidx``), with ``shape`` for the volume."""
     cv = np.asarray(pack["ci_cv"])
     n = min(int(pack["n_def"]), cv.shape[0])
-    defect = np.asarray(pack["defect"])
-    idx = np.flatnonzero(defect.reshape(-1))[:n]
-    ci = np.zeros(defect.size, np.float32)
+    if "defect" in pack:
+        defect = np.asarray(pack["defect"])
+        shape = defect.shape
+        idx = np.flatnonzero(defect.reshape(-1))[:n]
+    else:
+        idx = np.asarray(pack["cidx"][:n], np.int64)
+    ci = np.zeros(int(np.prod(shape)), np.float32)
     ci[idx] = cv[:len(idx)]
-    return ci.reshape(defect.shape)
+    return ci.reshape(shape)
+
+
+def _rebuild_compact_pack(pack: Dict, hp: np.ndarray, mask: np.ndarray,
+                          config: VentConfig) -> Dict:
+    """The dense N4 (float32) and defect (uint8) channels of ONE subject
+    from its compact pack.
+
+    - defect: 1 at the device's own ``cidx[:n_def]`` compaction indices,
+      bit-exact (truncated only where n_def exceeded the pad, which
+      metrics.ci_overflow flags);
+    - n4: ``hp * exp(-field)`` with the field from the shipped lattices
+      (float64, ``ops.n4.n4_field_from_phi_np``), then every masked voxel
+      overwritten with its shipped device value.  The masked voxels, the
+      only ones a metric reads, are the dense pack's bits; the background
+      agrees with the card to ~1e-6 relative.
+    A subject with an empty mask (invalid) has no masked voxel to
+    overwrite: its N4 channel is the host's alone, and its defect channel
+    the device's (flagged) first K of the stand-in mask's."""
+    from ventjax_torch.ops.n4 import n4_field_from_phi_np
+
+    shape = hp.shape
+    n4_cv = np.asarray(pack["n4_cv"])
+    midx = np.flatnonzero(np.asarray(mask).reshape(-1) > 0)[:n4_cv.shape[0]]
+    field = n4_field_from_phi_np(
+        np.asarray(pack["phi"]), shape,
+        fitting_levels=config.n4_fitting_levels,
+        control_points=config.n4_control_points)
+    # flat in C order whatever the operands' memory layout (a decoded
+    # volume is often a transposed view): reshape(-1) of a non-C-contiguous
+    # product is a copy, into which the overwrite would be lost
+    n4 = (np.asarray(hp, np.float64) * np.exp(-field)).astype(
+        np.float32).reshape(-1)
+    n4[midx] = n4_cv[:len(midx)]
+    defect = np.zeros(int(np.prod(shape)), np.uint8)
+    n = min(int(pack["n_def"]), np.asarray(pack["cidx"]).shape[0])
+    defect[np.asarray(pack["cidx"][:n], np.int64)] = 1
+    out = dict(pack)
+    out["n4"] = n4.reshape(shape)
+    out["defect"] = defect.reshape(shape)
+    return out
 
 
 def _write_subject(out_dir, entry, decoded, pack, results, lock, npz=False,
                    config=None, record=True, exporter=None) -> None:
-    """Write one subject's exports; ``pack`` is its host-side slice (n4
-    float32, defect uint8, ci_cv/n_def, metrics).  The ``.done`` marker is
+    """Write one subject's exports; ``pack`` is its host-side slice: the
+    dense flavour (n4 float32, defect uint8) or the compact one
+    (n4_cv/phi/cidx, ``_rebuild_compact_pack``), with ci_cv/n_def and the
+    metrics.  The ``.done`` marker is
     written last, so a marker implies a complete export.  ``record=False``
     skips the results entry (shard_export records on the dispatch thread);
     ``exporter`` stamps the rank that wrote the files into metrics.json
@@ -721,6 +811,9 @@ def _write_subject(out_dir, entry, decoded, pack, results, lock, npz=False,
     # exports keep the float32 convention of the reference's artifacts
     hp = np.asarray(hp, np.float32)
     mask = np.asarray(mask, np.float32)
+    if "n4_cv" in pack:
+        pack = _rebuild_compact_pack(pack, hp, mask,
+                                     config or DEFAULT_CONFIG)
     ci_map = _densify_ci(pack)
     sid = entry["id"]
     sdir = os.path.join(out_dir, sid)

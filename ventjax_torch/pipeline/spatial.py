@@ -29,6 +29,13 @@ written out (``dist/space.py``):
   rows are sent back.
 - Volumes and counts as exact integer sums.
 
+Over ranks (``dist.space.on_ranks``: one slab a rank of a batch row's
+group) every collective above all_gathers the row's parts and runs the
+same arithmetic, so each rank's values are the one-process form's bits;
+values computed once (the k-means centers, the CI engine's per-defect
+values, the ladder's map) are computed on the row's first rank and
+broadcast (``space.once``).
+
 On a card every value equals the unsharded run's bit for bit.  On the CPU
 N4's plain versions sum chunk by chunk (the unsharded plain versions sum
 the whole list at once), so the slabs' N4 agrees within float32 rounding
@@ -105,7 +112,7 @@ def noise_mask_slabs(masks, H: int, fov_buffer: int):
     return [noise_keep(rh, space.to(col_has, rh.device),
                        space.to(slc_has, rh.device),
                        space.to(all_rows, rh.device), s * h, H, fov_buffer)
-            for s, rh in enumerate(row_has)]
+            for s, rh in space.numbered(row_has)]
 
 
 def snr_slabs(a, masks, H: int, fov_buffer: int) -> torch.Tensor:
@@ -127,9 +134,10 @@ def border_slabs(xs):
     """``gradient_border`` per slab on 1-row halos: torch.gradient along H
     is one-sided only at the volume's global edges."""
     out = []
-    for s, p in enumerate(space.with_halo(xs, 1, edge="none")):
+    for (s, p), x in zip(space.numbered(space.with_halo(xs, 1, edge="none")),
+                         xs):
         lo = 1 if s > 0 else 0
-        out.append(gradient_border(p)[:, lo:lo + xs[s].shape[1]])
+        out.append(gradient_border(p)[:, lo:lo + x.shape[1]])
     return out
 
 
@@ -137,7 +145,7 @@ def _global_compact(xs, K: int, V: int):
     """Each slab's set entries (x != 0) as global flat indices [N, min(K,
     V_s)] and counts [N]; slab s's indices start at s * V_s."""
     runs, counts = [], []
-    for s, x in enumerate(xs):
+    for s, x in space.numbered(xs):
         N = x.shape[0]
         flat = (x != 0).reshape(N, -1)
         Vs = flat.shape[1]
@@ -157,18 +165,19 @@ def ci_slabs(defects, geom, config: VentConfig, shape):
     dev0 = defects[0].device
     if isinstance(geom, CIGeometry):
         full = space.gather_rows(defects)
-        ci_map, n_sat, ovf, stage_ovf = calculate_ci_staged(full, geom, K)
-        split = [ci_map[:, s * h:(s + 1) * h].to(d)
-                 for s, d in enumerate(x.device for x in defects)]
+        ci_map, n_sat, ovf, stage_ovf = space.once(calculate_ci_staged, full,
+                                                   geom, K)
+        split = [ci_map[:, s * h:(s + 1) * h].to(x.device)
+                 for s, x in space.numbered(defects)]
         return split, n_sat, ovf | (stage_ovf > 0)
     runs, counts = _global_compact(defects, K, V)
     n_def = space.sum_int(counts)
     cidx = space.gather_runs(runs, counts, K, fill=V - 1, device=dev0)
     coords, cidx, n_def, valid = coords_of(cidx, n_def, (H, W, D))
-    cv, n_sat, overflow = ci_pairwise_values(
-        coords, n_def, valid, geom, K, tail_k=config.ci_tail_k)
+    cv, n_sat, overflow = space.once(lambda: ci_pairwise_values(
+        coords, n_def, valid, geom, K, tail_k=config.ci_tail_k))
     maps = []
-    for s, x in enumerate(defects):
+    for s, x in space.numbered(defects):
         dev = x.device
         N = x.shape[0]
         ci, ok = space.to(cidx, dev) - s * Vs, space.to(valid, dev)
@@ -197,9 +206,13 @@ def analyze_spatial(
     geom,
     config: VentConfig,
     devices: Sequence[torch.device],
+    own_slab: bool = False,
 ) -> VentResult:
     """``analyze_cohort`` of a [N, H, W, D] batch over len(devices) H-slabs
-    (slab s on devices[s]); the result's leaves on devices[0]."""
+    (slab s on devices[s]); the result's leaves on devices[0].  Under
+    ``dist.space.on_ranks`` ``devices`` is this rank's one device, and
+    ``own_slab`` returns this rank's slab of each volume instead of the
+    row's gathered volumes (the metrics are the row's either way)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     c = config
@@ -210,9 +223,8 @@ def analyze_spatial(
         raise ValueError(f"analyze_spatial: geometry for {geom.shape}, "
                          f"volumes of {(H, W, D)}")
     V = H * W * D
-    S = len(devices)
-    h = space.slab_height((H, W, D), S)
     hps = space.split_rows(hp.to(torch.float32), devices)
+    h = hps[0].shape[1]
     ms = [m.to(torch.float32) for m in space.split_rows(mask, devices)]
     n_mask = _nsum([m > 0 for m in ms])
     valid = n_mask > 0
@@ -225,7 +237,7 @@ def analyze_spatial(
     with stage("n4"):
         P = V if c.n4_mask_pad is None else min(int(c.n4_mask_pad), V)
         runs = []
-        for s, (x, m) in enumerate(zip(hps, safe)):
+        for s, (x, m) in space.numbered(list(zip(hps, safe))):
             Vs = h * W * D
             idx, vals, n = sort_compact_masked(
                 x.reshape(N, -1), m.reshape(N, -1) > 0, min(P, Vs))
@@ -253,8 +265,8 @@ def analyze_spatial(
                                                  c.lb_percentile)
     with stage("vdp_kmeans"):
         _, vals_c, wv_c = n4_comp
-        centers = kmeans_centers(vals_c, wv_c, c.kmeans_clusters,
-                                 c.kmeans_iters)
+        centers = space.once(kmeans_centers, vals_c, wv_c,
+                             c.kmeans_clusters, c.kmeans_iters)
         defect_km = [kmeans_defect(x, m, space.to(centers, x.device),
                                    c.kmeans_defect_clusters)
                      for x, m in zip(n4, safe)]
@@ -286,7 +298,10 @@ def analyze_spatial(
         n4_overflow=n4_overflow,
         valid=valid,
     )
-    rows = lambda xs: space.gather_rows(xs, devices[0])
+    if own_slab:
+        rows = lambda xs: xs[0]
+    else:
+        rows = lambda xs: space.gather_rows(xs, devices[0])
     return VentResult(n4=rows(n4), defect=rows(defect),
                       defect_lb=rows(defect_lb), defect_km=rows(defect_km),
                       defect_border=rows(border), ci_map=rows(ci_map),

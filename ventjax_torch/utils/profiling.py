@@ -10,7 +10,10 @@ that the cohort and serve entry points use.
   PyTorch returns before the card finishes;
 - ``sync()`` waits for the card;
 - ``enable_deterministic()`` sets the flags the port's bit-reproducibility
-  rests on.
+  rests on;
+- ``enable_debug_checks()`` (JAX's ``jax_debug_nans``/``jax_debug_infs``
+  in ventjax) makes each stage of ``analyze_cohort`` check what it
+  produced (``check_stage``).
 
 The reference package's persistent XLA compile cache has no counterpart:
 the port's kernels are built once by nvcc into ``build/`` and reused.
@@ -39,6 +42,41 @@ def trace(profile_dir: Optional[str]) -> Iterator[None]:
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+_DEBUG_CHECKS = {"nans": False, "infs": False}
+
+
+def enable_debug_checks(nans: bool = True, infs: bool = True) -> None:
+    """While on, each stage of ``analyze_cohort`` checks the floating
+    outputs it produced, on the lanes whose mask is not empty (an invalid
+    lane's NaN metrics are by design), and raises FloatingPointError
+    naming the stage at the first NaN (``nans``) or infinity (``infs``).
+    ``enable_debug_checks(False, False)`` turns them off again; off, a
+    check costs no sync and no launch."""
+    _DEBUG_CHECKS.update(nans=bool(nans), infs=bool(infs))
+
+
+def check_stage(name: str, valid, *outputs) -> None:
+    """The debug check of one stage (see ``enable_debug_checks``):
+    ``outputs`` are tensors, or tuples of them, with lanes along dim 0;
+    ``valid`` [N] selects the lanes checked (None: all)."""
+    nans, infs = _DEBUG_CHECKS["nans"], _DEBUG_CHECKS["infs"]
+    if not (nans or infs):
+        return
+    flat = []
+    for x in outputs:
+        flat += list(x) if isinstance(x, (tuple, list)) else [x]
+    for i, x in enumerate(flat):
+        if not (isinstance(x, torch.Tensor) and x.is_floating_point()):
+            continue
+        lanes = x if valid is None else x[valid.to(x.device)]
+        for kind, on, bad in (("NaN", nans, torch.isnan),
+                              ("Inf", infs, torch.isinf)):
+            if on and bool(bad(lanes).any()):
+                raise FloatingPointError(
+                    f"debug checks: stage {name!r} produced {kind} in its "
+                    f"output {i} (shape {tuple(x.shape)})")
 
 
 def stage(name: str):
