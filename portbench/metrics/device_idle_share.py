@@ -1,0 +1,6 @@
+"""Percent of the traced window in which no activity ran on the device."""
+
+
+def read(ctx):
+    w = ctx.trace.window_s
+    return 100.0 * (1.0 - ctx.trace.busy_s() / w) if w > 0 else None

@@ -1,0 +1,6 @@
+"""Host ms a call spends in the pipeline's ``ci`` range (pipeline/analyze.py)."""
+from portbench.readers import stage_ms
+
+
+def read(ctx):
+    return stage_ms(ctx, "ci")
