@@ -1,0 +1,16 @@
+"""Host microseconds an N4 iteration waits for the card: the time inside
+the program's ``n4.sync`` spans over the ``n4.iter`` spans
+(``ventjax_torch/ops/n4.py``), in the traced calls."""
+
+
+def _spans(ctx, name):
+    a, b = ctx.trace.window
+    return [e - s for n, s, e in ctx.trace.host
+            if n == name and s >= a and e <= b]
+
+
+def read(ctx):
+    iters, waits = _spans(ctx, "n4.iter"), _spans(ctx, "n4.sync")
+    if not iters or not waits:
+        return None
+    return sum(waits) / len(iters)

@@ -30,7 +30,9 @@ space axis: K1's partial and reduce, K2's fold and K4's partial and finish
 bit-equal to their plain versions (K1's partial within 1e-5) and to the
 one-call entry points; a slab's field rows bit-equal to the full field's;
 the pipeline over a (2, 4) mesh of the card, and over two gloo ranks
-sharing it, bit-equal to analyze_cohort.
+sharing it, bit-equal to analyze_cohort.  The pipeline runs under the
+sync-debug mode "error" at both CI pads the benchmark's cells reach: every
+host wait on its path is a declared ``host_wait``.
 """
 import numpy as np
 import pytest
@@ -273,6 +275,28 @@ def test_head_counts_bit_equal(cuda, border, K, Kw):
     want = ci_cuda.head_counts_plain(centers, witnesses, r2, combos,
                                      geom.scale, geom.rmax)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pad, tail", [(512, None), (8192, 8192)])
+def test_every_sync_of_the_pipeline_is_declared(cuda, pad, tail):
+    """analyze_cohort at 16 x 128x128x16 runs to its end with the sync-debug
+    mode at "error", at the typical cohort's CI pad and at the ceiling
+    with the tail at full width: every point where the host waits for the
+    card is a declared ``host_wait``."""
+    shape, vox = (128, 128, 16), (1.5, 1.5, 10.0)
+    cfg = DEFAULT_CONFIG.replace(ci_max_defect_voxels=pad, ci_tail_k=tail,
+                                 n4_mask_pad=49152)
+    hp, mask, _ = make_cohort(16, shape, vox, seed=0)
+    hp, mask = torch.from_numpy(hp).to(cuda), torch.from_numpy(mask).to(cuda)
+    geom = build_geometry(vox, shape, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = analyze_cohort(hp, mask, geom, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(res.metrics.valid.all())
+    assert torch.isfinite(res.metrics.vdp).all()
 
 
 def test_cohort_on_card_matches_cpu(cuda):

@@ -25,8 +25,12 @@ from ventjax_torch.ops._launch import check, raise_on, route, stream
 MAX_NS = 128
 MAX_COMBOS = 9
 PLAIN_ROWS = 256   # centers per block of the plain version's [N, rows, Kw]
-# Kernel launches since the count was last set to 0.
-LAUNCHES = {"head_counts": 0}
+# The CI kernels' launches and the rows they ran, since each count was last
+# set to 0: K3's launches; the [N, K] centre rows the K3 wrapper was entered
+# with (either route); the [N, rows] centre rows of each ``alias_min_d2``
+# call (the tail's distance pass).  Python ints: counting reads nothing
+# from the device.
+LAUNCHES = {"head_counts": 0, "head_counts_rows": 0, "alias_min_d2_rows": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,7 +54,13 @@ def _lib():
 def alias_min_d2(centers, witnesses, combos, scale, rmax):
     """[N, rows, Kw] float32 min-over-alias squared distances (+inf where
     no combo puts the offset inside the rmax box).  centers/witnesses are
-    triples of [N, rows] / [N, Kw] int32 coordinates."""
+    triples of [N, rows] / [N, Kw] int32 coordinates.  Counts its N x rows
+    centre rows in ``LAUNCHES``."""
+    LAUNCHES["alias_min_d2_rows"] += centers[0].numel()
+    return _alias_min_d2(centers, witnesses, combos, scale, rmax)
+
+
+def _alias_min_d2(centers, witnesses, combos, scale, rmax):
     vi, vj, vk = (c[:, :, None] for c in centers)
     wi, wj, wk = (w[:, None, :] for w in witnesses)
     s0, s1, s2 = scale
@@ -76,7 +86,7 @@ def head_counts_plain(centers, witnesses, r2, combos, scale, rmax):
     out = torch.empty((N, K, ns), dtype=torch.int32, device=r2.device)
     for a in range(0, K, PLAIN_ROWS):
         cc = tuple(c[:, a:a + PLAIN_ROWS] for c in centers)
-        dmin2 = alias_min_d2(cc, witnesses, combos, scale, rmax)
+        dmin2 = _alias_min_d2(cc, witnesses, combos, scale, rmax)
         # first ball that holds each witness; ns = in none of the first ns
         first = torch.searchsorted(r2, dmin2.contiguous(), right=False)
         hist = torch.zeros((N, dmin2.shape[1], ns + 1), dtype=torch.int32,
@@ -121,6 +131,7 @@ def head_counts(
     if centers[0].device != dev:
         raise ValueError(f"head_counts: tensors on {centers[0].device} and "
                          f"{dev}")
+    LAUNCHES["head_counts_rows"] += N * K
     if not route("head_counts", r2):
         return head_counts_plain(centers, witnesses, r2, combos, scale, rmax)
     lib = _lib()

@@ -17,6 +17,13 @@ the sphere tables.  The resolve runs in two phases, as in ``ventjax``:
 
 The dense map is a scatter, or with ``pallas_densify=True`` the rank
 lookup of kernels K9 and K8 (``ops/ci_densify_cuda.py``).
+
+Spans (recorded only under a profiler): ``ci.coords``, ``ci.head`` (K3
+and the head test), ``ci.tail`` (the compaction and
+``ci_pairwise_balls``), ``ci.densify``; each upload of a numpy table is a
+pageable copy that waits for the stream, declared as ``ci.sync``.  The
+rows K3 and the tail's distance pass run are counted in
+``ci_cuda.LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from ventjax_torch.ops.basic import compact_mask_indices
 from ventjax_torch.ops.ci_cuda import alias_min_d2, head_counts
 from ventjax_torch.ops.ci_densify_cuda import densify_rank, rank
 from ventjax_torch.ops.geometry import shell_structure, sphere_pixels
+from ventjax_torch.utils.profiling import host_wait, stage
 
 SENT = 1 << 20   # far-away sentinel coordinate: fails every box check
 
@@ -134,6 +142,13 @@ def _alias_combos(geom: CIPairwiseGeometry):
     ]
 
 
+def _upload(table: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A numpy table on ``device``: a pageable copy, which waits for the
+    stream, so a declared host wait (``ci.sync``)."""
+    with host_wait("ci.sync"):
+        return torch.as_tensor(table, dtype=dtype, device=device)
+
+
 def _threshold_tables(geom: CIPairwiseGeometry, K: int):
     """Static (thr[t], j_lo[t], j_cap) numpy tables for the
     order-statistics test."""
@@ -170,8 +185,8 @@ def ci_pairwise_balls(centers, witnesses, geom: CIPairwiseGeometry,
     M = geom.n_balls
     dev = centers[0].device
     thr, j_lo, j_cap = _threshold_tables(geom, nw)
-    thr = torch.as_tensor(thr, device=dev)
-    j_lo = torch.as_tensor(j_lo, dtype=torch.int64, device=dev)
+    thr = _upload(thr, dev)
+    j_lo = _upload(j_lo, dev, torch.int64)
     out = torch.empty((N, K), dtype=torch.int64, device=dev)
     for a in range(0, K, row_chunk):
         cc = tuple(c[:, a:a + row_chunk] for c in centers)
@@ -204,27 +219,31 @@ def resolve_balls_two_phase(
     M = geom.n_balls
     dev = ii.device
     ns = min(int(head_balls), M - 1)
-    r2 = torch.as_tensor(geom.r2_32[:ns], device=dev)
-    t_head = torch.as_tensor(((geom.rows_ball + 1) // 2)[:ns], device=dev)
+    with stage("ci.head"):
+        r2 = _upload(geom.r2_32[:ns], dev)
+        t_head = _upload(((geom.rows_ball + 1) // 2)[:ns], dev)
 
-    counts = head_counts(centers, witnesses, r2, _alias_combos(geom),
-                         geom.scale, geom.rmax)
-    fail_head = counts < t_head
-    resolved = fail_head.any(2)
-    j_head = fail_head.to(torch.uint8).argmax(2)
-    jballs = torch.where(resolved, j_head, torch.full_like(j_head, M - 1))
+        counts = head_counts(centers, witnesses, r2, _alias_combos(geom),
+                             geom.scale, geom.rmax)
+        fail_head = counts < t_head
+        resolved = fail_head.any(2)
+        j_head = fail_head.to(torch.uint8).argmax(2)
+        jballs = torch.where(resolved, j_head, torch.full_like(j_head, M - 1))
 
     K2 = int(tail_k) if tail_k is not None else max(256, K // 8)
     K2 = min(K2, K)
-    sel = torch.argsort(resolved.to(torch.uint8), dim=1, stable=True)[:, :K2]
-    live = ~resolved.gather(1, sel)
-    tail = tuple(
-        torch.where(live, g, torch.full_like(g, SENT))
-        for g in (c.gather(1, sel) for c in (ii, jj, kk))
-    )
-    j_tail = ci_pairwise_balls(tail, witnesses, geom, row_chunk=min(K2, 512))
-    jballs = jballs.scatter(
-        1, sel, torch.where(live, j_tail, jballs.gather(1, sel)))
+    with stage("ci.tail"):
+        sel = torch.argsort(resolved.to(torch.uint8), dim=1,
+                            stable=True)[:, :K2]
+        live = ~resolved.gather(1, sel)
+        tail = tuple(
+            torch.where(live, g, torch.full_like(g, SENT))
+            for g in (c.gather(1, sel) for c in (ii, jj, kk))
+        )
+        j_tail = ci_pairwise_balls(tail, witnesses, geom,
+                                   row_chunk=min(K2, 512))
+        jballs = jballs.scatter(
+            1, sel, torch.where(live, j_tail, jballs.gather(1, sel)))
     unresolved = ~resolved if valid is None else (~resolved & valid)
     return jballs, unresolved.sum(1) > K2
 
@@ -278,17 +297,20 @@ def calculate_ci_pairwise(
     V = H * W * D
     K = max_defect_voxels
     dev = defect.device
-    coords, cidx, n_def, valid = defect_coords(defect, K)
+    with stage("ci.coords"):
+        coords, cidx, n_def, valid = defect_coords(defect, K)
     cv, n_sat, overflow = ci_pairwise_values(coords, n_def, valid, geom, K,
                                              head_balls, tail_k)
-    if pallas_densify:
-        d01 = (defect != 0).reshape(N, V)
-        ci_flat = densify_rank(rank(d01), d01, cv, K)
-    else:
-        ci_flat = torch.zeros((N, V + 1), dtype=torch.float32, device=dev)
-        ci_flat.scatter_(
-            1, torch.where(valid, cidx, torch.full_like(cidx, V)), cv)
-        ci_flat = ci_flat[:, :V]
+    with stage("ci.densify"):
+        if pallas_densify:
+            d01 = (defect != 0).reshape(N, V)
+            ci_flat = densify_rank(rank(d01), d01, cv, K)
+        else:
+            ci_flat = torch.zeros((N, V + 1), dtype=torch.float32,
+                                  device=dev)
+            ci_flat.scatter_(
+                1, torch.where(valid, cidx, torch.full_like(cidx, V)), cv)
+            ci_flat = ci_flat[:, :V]
     return ci_flat.reshape(N, H, W, D), n_sat, overflow
 
 
@@ -302,6 +324,5 @@ def ci_pairwise_values(coords, n_def, valid, geom: CIPairwiseGeometry,
         coords, coords, geom,
         head_balls=head_balls, tail_k=tail_k, valid=valid)
     saturated = (jballs >= geom.n_balls - 1) & valid
-    cv = torch.as_tensor(geom.radii32,
-                         device=n_def.device)[jballs] * geom.min_vox
+    cv = _upload(geom.radii32, n_def.device)[jballs] * geom.min_vox
     return cv, saturated.sum(1), (n_def > K) | tail_overflow

@@ -5,7 +5,12 @@ ties assignment, early stop once the centers are exactly unchanged.  Each
 lane of the batch iterates as if alone: a lane whose centers stopped moving
 is frozen while the others go on (the rule ``jax.vmap`` gives the JAX
 ``while_loop``).  The loop ends when every lane has stopped or after
-``iters`` iterations.
+``iters`` iterations; the check of every lane is one device-to-host sync
+per iteration.
+
+Spans (recorded only under a profiler): ``vdp_kmeans.init`` (the quantile
+start), one ``vdp_kmeans.iter`` per Lloyd iteration with its
+``vdp_kmeans.sync`` inside, and ``vdp_kmeans.assign`` (the defect map).
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ from typing import Tuple
 import torch
 
 from ventjax_torch.ops.basic import masked_kth_smallest_multi
+from ventjax_torch.utils.profiling import host_wait, stage
 
 
 def _masked_quantiles(vals: torch.Tensor, m: torch.Tensor,
@@ -50,21 +56,25 @@ def kmeans_centers(vals: torch.Tensor, wv: torch.Tensor, k: int = 4,
     N = vals.shape[0]
     vals = vals.to(torch.float32)
     wv = wv.to(torch.float32)
-    centers = _masked_quantiles(vals, wv, k)
+    with stage("vdp_kmeans.init"):
+        centers = _masked_quantiles(vals, wv, k)
     done = torch.zeros(N, dtype=torch.bool, device=vals.device)
     for _ in range(iters):
-        assign = _assign_first_min(vals, centers)
-        onehot = assign[:, :, None] == torch.arange(k, device=vals.device)
-        zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
-        sums = torch.where(onehot, (wv * vals)[:, :, None], zero).sum(1)
-        counts = torch.where(onehot, wv[:, :, None], zero).sum(1)
-        new = torch.where(counts > 0,
-                          sums / torch.where(counts > 0, counts, 1.0), centers)
-        unchanged = (new == centers).all(1)
-        centers = torch.where(done[:, None], centers, new)
-        done = done | unchanged
-        if bool(done.all()):
-            break
+        with stage("vdp_kmeans.iter"):
+            assign = _assign_first_min(vals, centers)
+            onehot = assign[:, :, None] == torch.arange(k, device=vals.device)
+            zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
+            sums = torch.where(onehot, (wv * vals)[:, :, None], zero).sum(1)
+            counts = torch.where(onehot, wv[:, :, None], zero).sum(1)
+            new = torch.where(counts > 0,
+                              sums / torch.where(counts > 0, counts, 1.0),
+                              centers)
+            unchanged = (new == centers).all(1)
+            centers = torch.where(done[:, None], centers, new)
+            done = done | unchanged
+            with host_wait("vdp_kmeans.sync"):
+                if bool(done.all()):
+                    break
     return centers
 
 
@@ -103,7 +113,8 @@ def vdp_kmeans(
     """
     N = n4.shape[0]
     centers = kmeans_centers(*compacted, k, iters)
-    defect = kmeans_defect(n4, mask, centers, defect_clusters)
+    with stage("vdp_kmeans.assign"):
+        defect = kmeans_defect(n4, mask, centers, defect_clusters)
     vdp_km = (100.0 * defect.reshape(N, -1).sum(1)
               / mask.reshape(N, -1).sum(1))
     return defect, vdp_km

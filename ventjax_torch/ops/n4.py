@@ -24,6 +24,13 @@ field, coefficients and residual stop changing) while the others go on.
 The Python loop stops when every lane is done or at ``max_iters``; checking
 ``done.all()`` is one device-to-host sync per iteration, counted in
 ``HOST_SYNCS``.
+
+Spans (``utils/profiling.stage``, recorded only under a profiler): one
+``n4.level`` a fitting level (its basis rows and K1's denominator), inside
+it one ``n4.iter`` an iteration holding ``n4.sharpen`` (K4, the
+expectation chain, K5), ``n4.fit`` (K1, K2, the CV arithmetic) and
+``n4.sync`` (the wait on ``done.all()``); then ``n4.field`` (the dense
+field and ``exp``).
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from ventjax_torch.ops.n4_cuda import fit_delta_conv_field, fit_moment
 from ventjax_torch.ops.n4_field_cuda import n4_field
 from ventjax_torch.ops.n4_sharpen_cuda import sharpen_hist, sharpen_resid
 from ventjax_torch.oracle.n4_oracle import bspline_basis_1d
+from ventjax_torch.utils.profiling import host_wait, stage
 
 LOG2 = math.log(2.0)
 # Device-to-host syncs made by the level loops since this was set to 0.
@@ -164,63 +172,74 @@ def n4_bias_correction(
     phi_totals = []
     level_iters = []
     for level in range(fitting_levels):
-        n_elements = (control_points - 3) * 2 ** level
-        ncp = n_elements + 3
-        brv = _bspline_rows(hc, H, n_elements)
-        bcv = _bspline_rows(wc, W, n_elements)
-        bsv = _bspline_rows(sc, D, n_elements)
-        sv = (brv ** 2).sum(2) * (bcv ** 2).sum(2) * (bsv ** 2).sum(2)
-        br1, bc1, bs1 = _rows(brv, 1), _rows(bcv, 1), _rows(bsv, 1)
-        br3, bc3, bs3 = _rows(brv, 3), _rows(bcv, 3), _rows(bsv, 3)
-        den = fit_moment(wv, _rows(brv, 2), _rows(bcv, 2), _rows(bsv, 2))
-        den_nz = den != 0.0
-        den_safe = torch.where(den_nz, den, torch.ones_like(den))
-        del brv, bcv, bsv
+        with stage("n4.level"):
+            n_elements = (control_points - 3) * 2 ** level
+            ncp = n_elements + 3
+            brv = _bspline_rows(hc, H, n_elements)
+            bcv = _bspline_rows(wc, W, n_elements)
+            bsv = _bspline_rows(sc, D, n_elements)
+            sv = (brv ** 2).sum(2) * (bcv ** 2).sum(2) * (bsv ** 2).sum(2)
+            br1, bc1, bs1 = _rows(brv, 1), _rows(bcv, 1), _rows(bsv, 1)
+            br3, bc3, bs3 = _rows(brv, 3), _rows(bcv, 3), _rows(bsv, 3)
+            den = fit_moment(wv, _rows(brv, 2), _rows(bcv, 2), _rows(bsv, 2))
+            den_nz = den != 0.0
+            den_safe = torch.where(den_nz, den, torch.ones_like(den))
+            del brv, bcv, bsv
 
-        phi_total = torch.zeros((N, ncp, ncp * ncp), dtype=torch.float32,
-                                device=dev)
-        done = torch.zeros(N, dtype=torch.bool, device=dev)
-        itc = torch.zeros(N, dtype=torch.int32, device=dev)
-        logu = (logv - field_v) * wv
-        bmn, bmx = _masked_range(logu, wv)
-        for _ in range(max_iters):
-            # one slope tensor bins every voxel for K4, the table and K5
-            slope = (bmx - bmn) / (bins - 1)
-            hist = sharpen_hist(logu, wv, bmn, slope, bins)
-            e_loc = _sharpen_expectation(hist, bmn, slope, bins, fwhm,
-                                         wiener_noise, padded, offset)
-            a = sharpen_resid(logu, wv, sv, e_loc, bmn, slope, bins)
-            num = fit_moment(a, br3, bc3, bs3)
-            phi = torch.where(den_nz, num / den_safe, torch.zeros_like(num))
-            field_v, logu, stats = fit_delta_conv_field(
-                phi, br1, bc1, bs1, wv, field_v, logv, done.to(torch.float32))
-            s1, s2 = stats[:, 0], stats[:, 1]
-            # K4 and K5 read bmn, so it must not be a strided view
-            bmn, bmx = stats[:, 2].contiguous(), stats[:, 3]
-            # ITK convergence: CV of exp(-delta) over the mask, from the
-            # cancellation-free (e^-delta - 1) moments.
-            mu = 1.0 + s1 / nmask
-            var = ((s2 - s1 * s1 / nmask) / nmask).clamp_min(0.0)
-            cv = torch.sqrt(var) / mu
-            phi_total = torch.where(done[:, None, None], phi_total,
-                                    phi_total + phi)
-            itc = itc + (~done).to(torch.int32)
-            done = done | (cv < convergence_threshold)
-            HOST_SYNCS["n4"] += 1
-            if bool(done.all()):
-                break
+            phi_total = torch.zeros((N, ncp, ncp * ncp), dtype=torch.float32,
+                                    device=dev)
+            done = torch.zeros(N, dtype=torch.bool, device=dev)
+            itc = torch.zeros(N, dtype=torch.int32, device=dev)
+            logu = (logv - field_v) * wv
+            bmn, bmx = _masked_range(logu, wv)
+            for _ in range(max_iters):
+                with stage("n4.iter"):
+                    with stage("n4.sharpen"):
+                        # one slope tensor bins every voxel for K4, the
+                        # table and K5
+                        slope = (bmx - bmn) / (bins - 1)
+                        hist = sharpen_hist(logu, wv, bmn, slope, bins)
+                        e_loc = _sharpen_expectation(
+                            hist, bmn, slope, bins, fwhm, wiener_noise,
+                            padded, offset)
+                        a = sharpen_resid(logu, wv, sv, e_loc, bmn, slope,
+                                          bins)
+                    with stage("n4.fit"):
+                        num = fit_moment(a, br3, bc3, bs3)
+                        phi = torch.where(den_nz, num / den_safe,
+                                          torch.zeros_like(num))
+                        field_v, logu, stats = fit_delta_conv_field(
+                            phi, br1, bc1, bs1, wv, field_v, logv,
+                            done.to(torch.float32))
+                        s1, s2 = stats[:, 0], stats[:, 1]
+                        # K4 and K5 read bmn, so it must not be a strided
+                        # view
+                        bmn, bmx = stats[:, 2].contiguous(), stats[:, 3]
+                        # ITK convergence: CV of exp(-delta) over the mask,
+                        # from the cancellation-free (e^-delta - 1) moments.
+                        mu = 1.0 + s1 / nmask
+                        var = ((s2 - s1 * s1 / nmask) / nmask).clamp_min(0.0)
+                        cv = torch.sqrt(var) / mu
+                        phi_total = torch.where(done[:, None, None],
+                                                phi_total, phi_total + phi)
+                        itc = itc + (~done).to(torch.int32)
+                        done = done | (cv < convergence_threshold)
+                    HOST_SYNCS["n4"] += 1
+                    with host_wait("n4.sync"):
+                        if bool(done.all()):
+                            break
         level_iters.append(itc)
         phi_totals.append(phi_total)
 
     # Dense field: every level's lattice on the full grid in one kernel
     # (ops/n4_field_cuda.py), each voxel summed in one written order, so a
     # lane's field has the same bits at any batch size.
-    phi_flat = torch.cat([p.reshape(N, -1) for p in phi_totals], 1)
-    ncps = [(control_points - 3) * 2 ** level + 3
-            for level in range(fitting_levels)]
-    total_field = n4_field(phi_flat, (H, W, D), ncps)
-
-    corrected = img * torch.exp(-total_field)
+    with stage("n4.field"):
+        phi_flat = torch.cat([p.reshape(N, -1) for p in phi_totals], 1)
+        ncps = [(control_points - 3) * 2 ** level + 3
+                for level in range(fitting_levels)]
+        total_field = n4_field(phi_flat, (H, W, D), ncps)
+        corrected = img * torch.exp(-total_field)
     out = (corrected,)
     if return_field:
         out = out + (total_field,)

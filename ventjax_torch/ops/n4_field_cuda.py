@@ -40,6 +40,7 @@ from ventjax_torch.ops._launch import check, raise_on, route, stream
 from ventjax_torch.ops.geometry import (
     bspline_basis_1d, bspline_span_weights,
 )
+from ventjax_torch.utils.profiling import host_wait
 
 MAX_LEVELS = 8   # the kernel's Levels table (csrc/n4_field.cu)
 MAX_NCP = 400    # its f columns in shared memory (csrc/n4_field.cu)
@@ -84,8 +85,9 @@ def field_tables(shape, ncps, device, rows=None):
                           for lv in parts]).astype(np.int32)
         weights = np.stack([np.concatenate([p[1] for p in lv])
                             for lv in parts]).astype(np.float32)
-        _TABLES[key] = (torch.from_numpy(spans).to(device),
-                        torch.from_numpy(weights).to(device))
+        with host_wait("n4.field.sync"):    # once a key: pageable copies
+            _TABLES[key] = (torch.from_numpy(spans).to(device),
+                            torch.from_numpy(weights).to(device))
     return _TABLES[key]
 
 

@@ -21,7 +21,8 @@ slab:
 - phi, replicated; K2 on the slab with its per-chunk statistics, folded
   across slabs by ``fit_fold_stats`` in chunk order;
 - the convergence test and ``done``, replicated: one host sync for the
-  whole mesh per iteration (``HOST_SYNCS``).
+  whole mesh per iteration (``HOST_SYNCS``), under ``ops/n4.py``'s span
+  names (``n4.level``, ``n4.iter``, ``n4.sync``).
 
 The dense field is evaluated per slab on its own rows (``n4_field`` with
 ``rows``).  On a card the kernels' bits do not depend on where a chunk
@@ -58,6 +59,7 @@ from ventjax_torch.ops.n4_field_cuda import n4_field
 from ventjax_torch.ops.n4_sharpen_cuda import (
     sharpen_hist_finish, sharpen_hist_partial, sharpen_resid,
 )
+from ventjax_torch.utils.profiling import host_wait, stage
 
 
 def _moment(a_bufs, rows):
@@ -121,62 +123,73 @@ def n4_slabs(
     field_v = [torch.zeros_like(w) for w in wv]
     phi_totals, level_iters = [], []
     for level in range(fitting_levels):
-        n_elements = (control_points - 3) * 2 ** level
-        ncp = n_elements + 3
-        r1, r2, r3, sv = [], [], [], []
-        for hc, wc, sc in coords:
-            b = (_bspline_rows(hc, H, n_elements),
-                 _bspline_rows(wc, W, n_elements),
-                 _bspline_rows(sc, D, n_elements))
-            sv.append((b[0] ** 2).sum(2) * (b[1] ** 2).sum(2)
-                      * (b[2] ** 2).sum(2))
-            r1.append(tuple(_rows(x, 1) for x in b))
-            r2.append(tuple(_rows(x, 2) for x in b))
-            r3.append(tuple(_rows(x, 3) for x in b))
-        den = _moment(wv, r2)
-        del r2
-        den_nz = den != 0.0
-        den_safe = torch.where(den_nz, den, torch.ones_like(den))
+        with stage("n4.level"):
+            n_elements = (control_points - 3) * 2 ** level
+            ncp = n_elements + 3
+            r1, r2, r3, sv = [], [], [], []
+            for hc, wc, sc in coords:
+                b = (_bspline_rows(hc, H, n_elements),
+                     _bspline_rows(wc, W, n_elements),
+                     _bspline_rows(sc, D, n_elements))
+                sv.append((b[0] ** 2).sum(2) * (b[1] ** 2).sum(2)
+                          * (b[2] ** 2).sum(2))
+                r1.append(tuple(_rows(x, 1) for x in b))
+                r2.append(tuple(_rows(x, 2) for x in b))
+                r3.append(tuple(_rows(x, 3) for x in b))
+            den = _moment(wv, r2)
+            del r2
+            den_nz = den != 0.0
+            den_safe = torch.where(den_nz, den, torch.ones_like(den))
 
-        phi_total = torch.zeros((N, ncp, ncp * ncp), dtype=torch.float32,
-                                device=dev0)
-        done = torch.zeros(N, dtype=torch.bool, device=dev0)
-        itc = torch.zeros(N, dtype=torch.int32, device=dev0)
-        logu = [(lv - f) * w for lv, f, w in zip(logv, field_v, wv)]
-        rng = [_masked_range(lu, w) for lu, w in zip(logu, wv)]
-        bmn = space.reduce_min([r[0] for r in rng])
-        bmx = space.reduce_max([r[1] for r in rng])
-        for _ in range(max_iters):
-            slope = (bmx - bmn) / (bins - 1)
-            rep = [(space.to(bmn, d), space.to(slope, d)) for d in devs]
-            hist = sharpen_hist_finish(space.cat_chunks([
-                sharpen_hist_partial(lu, w, mn, sl, bins)
-                for lu, w, (mn, sl) in zip(logu, wv, rep)]), bins)
-            e_loc = _sharpen_expectation(hist, bmn, slope, bins, fwhm,
-                                         wiener_noise, padded, offset)
-            a = [sharpen_resid(lu, w, v, space.to(e_loc, d), mn, sl, bins)
-                 for lu, w, v, d, (mn, sl) in zip(logu, wv, sv, devs, rep)]
-            num = _moment(a, r3)
-            phi = torch.where(den_nz, num / den_safe, torch.zeros_like(num))
-            donef = done.to(torch.float32)
-            outs = [fit_delta_conv_field(space.to(phi, d), *r, w, f, lv,
-                                         space.to(donef, d), return_part=True)
-                    for d, r, w, f, lv in zip(devs, r1, wv, field_v, logv)]
-            field_v = [o[0] for o in outs]
-            logu = [o[1] for o in outs]
-            stats = fit_fold_stats(space.cat_chunks([o[3] for o in outs]))
-            s1, s2 = stats[:, 0], stats[:, 1]
-            bmn, bmx = stats[:, 2].contiguous(), stats[:, 3]
-            mu = 1.0 + s1 / nmask
-            var = ((s2 - s1 * s1 / nmask) / nmask).clamp_min(0.0)
-            cv = torch.sqrt(var) / mu
-            phi_total = torch.where(done[:, None, None], phi_total,
-                                    phi_total + phi)
-            itc = itc + (~done).to(torch.int32)
-            done = done | (cv < convergence_threshold)
-            HOST_SYNCS["n4"] += 1
-            if bool(done.all()):
-                break
+            phi_total = torch.zeros((N, ncp, ncp * ncp),
+                                    dtype=torch.float32, device=dev0)
+            done = torch.zeros(N, dtype=torch.bool, device=dev0)
+            itc = torch.zeros(N, dtype=torch.int32, device=dev0)
+            logu = [(lv - f) * w for lv, f, w in zip(logv, field_v, wv)]
+            rng = [_masked_range(lu, w) for lu, w in zip(logu, wv)]
+            bmn = space.reduce_min([r[0] for r in rng])
+            bmx = space.reduce_max([r[1] for r in rng])
+            for _ in range(max_iters):
+                with stage("n4.iter"):
+                    slope = (bmx - bmn) / (bins - 1)
+                    rep = [(space.to(bmn, d), space.to(slope, d))
+                           for d in devs]
+                    hist = sharpen_hist_finish(space.cat_chunks([
+                        sharpen_hist_partial(lu, w, mn, sl, bins)
+                        for lu, w, (mn, sl) in zip(logu, wv, rep)]), bins)
+                    e_loc = _sharpen_expectation(hist, bmn, slope, bins,
+                                                 fwhm, wiener_noise, padded,
+                                                 offset)
+                    a = [sharpen_resid(lu, w, v, space.to(e_loc, d), mn, sl,
+                                       bins)
+                         for lu, w, v, d, (mn, sl)
+                         in zip(logu, wv, sv, devs, rep)]
+                    num = _moment(a, r3)
+                    phi = torch.where(den_nz, num / den_safe,
+                                      torch.zeros_like(num))
+                    donef = done.to(torch.float32)
+                    outs = [fit_delta_conv_field(space.to(phi, d), *r, w, f,
+                                                 lv, space.to(donef, d),
+                                                 return_part=True)
+                            for d, r, w, f, lv
+                            in zip(devs, r1, wv, field_v, logv)]
+                    field_v = [o[0] for o in outs]
+                    logu = [o[1] for o in outs]
+                    stats = fit_fold_stats(space.cat_chunks(
+                        [o[3] for o in outs]))
+                    s1, s2 = stats[:, 0], stats[:, 1]
+                    bmn, bmx = stats[:, 2].contiguous(), stats[:, 3]
+                    mu = 1.0 + s1 / nmask
+                    var = ((s2 - s1 * s1 / nmask) / nmask).clamp_min(0.0)
+                    cv = torch.sqrt(var) / mu
+                    phi_total = torch.where(done[:, None, None], phi_total,
+                                            phi_total + phi)
+                    itc = itc + (~done).to(torch.int32)
+                    done = done | (cv < convergence_threshold)
+                    HOST_SYNCS["n4"] += 1
+                    with host_wait("n4.sync"):
+                        if bool(done.all()):
+                            break
         level_iters.append(itc)
         phi_totals.append(phi_total)
         del r1, r3, sv

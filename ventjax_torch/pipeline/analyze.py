@@ -86,8 +86,9 @@ def analyze_cohort(
         # output).
         V = int(np.prod(hp.shape[1:]))
         P = V if c.n4_mask_pad is None else min(int(c.n4_mask_pad), V)
-        comp = sort_compact_masked(hp.reshape(N, -1),
-                                   safe_mask.reshape(N, -1) > 0, P)
+        with stage("n4.compact"):
+            comp = sort_compact_masked(hp.reshape(N, -1),
+                                       safe_mask.reshape(N, -1) > 0, P)
         n4_out = n4_bias_correction(
             hp, safe_mask,
             fitting_levels=c.n4_fitting_levels,

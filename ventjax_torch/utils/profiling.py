@@ -4,8 +4,14 @@ that the cohort and serve entry points use.
 - ``trace(profile_dir)`` wraps a block in ``torch.profiler`` (CPU and, where
   a card is present, CUDA activity) and writes a Chrome trace into the
   directory when one is given;
-- ``stage(name)`` is ``torch.profiler.record_function``, so the pipeline's
-  stages (snr, n4, the three VDPs, ci) show as named ranges in a trace;
+- ``stage(name)`` is ``torch.profiler.record_function`` while the calling
+  thread's profiler records, so the pipeline's stages (snr, n4, the three
+  VDPs, ci) and the spans inside them show as named ranges in a trace;
+  otherwise it is one shared null context, which costs one C call;
+- ``host_wait(name)`` is the one wrapper around every point where the host
+  waits for the card: a ``stage`` span, named ``<stage>.sync``, that also
+  lets the wait through while ``torch.cuda.set_sync_debug_mode`` is on, so
+  a run under mode "error" proves every sync on the path declared;
 - ``timed(name)`` measures wall time; put a ``sync`` inside the block, since
   PyTorch returns before the card finishes;
 - ``sync()`` waits for the card;
@@ -79,9 +85,42 @@ def check_stage(name: str, valid, *outputs) -> None:
                     f"output {i} (shape {tuple(x.shape)})")
 
 
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+# The sync-debug mode's getter and setter (absent from a build without CUDA,
+# where no sync can happen).
+_get_sync_mode = getattr(torch._C, "_cuda_get_sync_debug_mode", lambda: 0)
+_set_sync_mode = getattr(torch._C, "_cuda_set_sync_debug_mode", None)
+
+
 def stage(name: str):
-    """A named range in a torch.profiler trace."""
-    return torch.profiler.record_function(name)
+    """A named range in a torch.profiler trace while the calling thread's
+    profiler records (a range on a thread no session watches is not
+    recorded anyway); otherwise the shared null context."""
+    if _recording():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def host_wait(name: str):
+    """``stage(name)`` around a point where the host waits for the card
+    (a device-to-host read, a pageable host-to-device copy).  While the
+    sync-debug mode is on it is set to 0 inside and restored after, so
+    only undeclared syncs warn or raise.  Off, two C calls."""
+    mode = _get_sync_mode()
+    if mode:
+        return _declared_wait(name, mode)
+    return stage(name)
+
+
+@contextlib.contextmanager
+def _declared_wait(name: str, mode: int) -> Iterator[None]:
+    _set_sync_mode(0)
+    try:
+        with stage(name):
+            yield
+    finally:
+        _set_sync_mode(mode)
 
 
 @contextlib.contextmanager
