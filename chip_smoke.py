@@ -17,7 +17,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    relative 1e-5 of the largest bin against its plain version summed in
    float64, bit-equal to its exact fixed-point plain version and from
    launch to launch; K5 bit-equal (the same float32 operations in the same order);
-   K3 (on severe-load maps at K 1024, 2048, 4096), K9, K8 bit-equal
+   K3 (on severe-load maps at K 1024, 2048, 4096), K10 (on the CI
+   engine's tails of severe-load maps at both benchmark cells' tail
+   shapes, against its plain version, the sort path), K9, K8 bit-equal
    (integers, and copied values), K9 also at ragged V (4,112, 100,003), on
    rows whose flags lie only in their last tile, and on a relaunch right
    after a call of another shape (its workspace is left zero); N4's
@@ -29,8 +31,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    after it:
    a. the slice: 16 phantoms of 128x128x16 through ventjax_torch.pipeline.
       analyze_cohort (N4 pad and CI pad sized as bench.py sizes them),
-      launching K1, K2, K4, K5, K3 and the dense-field kernel, with clean
-      flags and finite metrics;
+      launching K1, K2, K4, K5, K3, K10 and the dense-field kernel, with
+      clean flags and finite metrics;
       a second run gives the same bits (N4, defect maps, CI map), and so
       do two N4 runs with their iteration counts; lanes 0 and 1 are held
       against the port's own CPU path;
@@ -379,6 +381,8 @@ def phase_kernels(hp, mask, n4_pad, dev):
             raise AssertionError(f"K3 counts differ from the plain version "
                                  f"at K={K}")
     errs["head_counts"] = [0.0]
+    check_tail(geom, dev)
+    errs["tail_balls"] = [0.0]
     errs.update(check_sharpen(hp, mask, n4_pad, dev))
     errs.update(check_densify(gen, dev))
     check_field(slice_lattices(hp, mask, n4_pad, dev))
@@ -726,6 +730,72 @@ def severe_coords(K, dev):
     return defect_coords(severe_map(K, dev), K)[0]
 
 
+def engine_tail(defect, geom, K, tail_k=None):
+    """The arguments the CI engine hands K10 (``tail_balls``) at pad K:
+    the head's unresolved rows compacted to the tail, then sentinels."""
+    from ventjax_torch.ops import ci_pairwise as tcp
+
+    seen, real = [], tcp.tail_balls
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+    tcp.tail_balls = spy
+    try:
+        tcp.calculate_ci_pairwise(defect, geom, K, tail_k=tail_k)
+    finally:
+        tcp.tail_balls = real
+    return seen[0]
+
+
+# K10's shapes in both benchmark cells: the cohort's tail (pad 512, 256
+# tail rows) and the severe cohort's (pad 8,192, the tail at full width).
+TAIL_SHAPES = ((512, None), (8192, 8192))
+
+
+def check_tail(geom, dev):
+    """K10 at both cells' tail shapes, on severe-load maps: one launch
+    each, bit-equal to its plain version (the sort path) and to a
+    relaunch."""
+    from ventjax_torch.ops import ci_cuda
+
+    for K, tail_k in TAIL_SHAPES:
+        args = engine_tail(severe_map(K, dev), geom, K, tail_k)
+        before = ci_cuda.LAUNCHES["tail_balls"]
+        got = ci_cuda.tail_balls(*args)
+        launched = ci_cuda.LAUNCHES["tail_balls"] - before
+        equal = bool(torch.equal(got, ci_cuda.tail_balls_plain(*args))) \
+            and bool(torch.equal(got, ci_cuda.tail_balls(*args)))
+        log(f"K10 tail_balls N={args[0][0].shape[0]} rows="
+            f"{args[0][0].shape[1]} Kw={args[1][0].shape[1]} "
+            f"nb={args[2].shape[0]}: bit_equal={equal} launches={launched}")
+        if not equal or launched != 1:
+            raise AssertionError(f"K10 differs from its plain version or "
+                                 f"did not launch at pad {K}")
+
+
+def tail_records(geom, dev):
+    """K10's device ms at both cells' tail shapes beside its plain
+    version's (by CUDA events: at the severe tail one call is ~8,000
+    launches and ~0.8 s, too many activities for a profiler session and
+    too long for launch gaps to matter) and its bound (K3's: 8 float32
+    operations a box distance)."""
+    from ventjax_torch.ops import ci_cuda
+
+    by_k = {}
+    for K, tail_k in TAIL_SHAPES:
+        args = engine_tail(severe_map(K, dev), geom, K, tail_k)
+        N, rows = args[0][0].shape
+        b = bound(N * (rows * 20 + args[1][0].shape[1] * 12),
+                  8 * k3_box_distances(*args[:2], None, *args[4:]))
+        by_k[f"K{K}"] = {
+            "ms": device_ms(lambda: ci_cuda.tail_balls(*args)),
+            "plain_ms": cuda_ms(lambda: ci_cuda.tail_balls_plain(*args),
+                                reps=3),
+            "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
+    return by_k
+
+
 def k3_args(coords, geom):
     """K3's arguments for centers = witnesses = coords on geom."""
     from ventjax_torch.ops import ci_pairwise as tcp
@@ -784,7 +854,7 @@ def phase_slice(hp, mask, n4_pad, dev):
     syncs = n4.HOST_SYNCS["n4"]
     log(f"slice launches: {json.dumps(launches)}; N4 host syncs: {syncs}")
     path = ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
-            "sharpen_resid", "head_counts", "n4_field")
+            "sharpen_resid", "head_counts", "tail_balls", "n4_field")
     if not all(launches[k] > 0 for k in path):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
@@ -3584,6 +3654,8 @@ def phase_timing(cfg, geom, hp_d, mask_d, res, hp, mask, n4_pad, dev):
                                   reps=5),
             "library_ms": None, "bound_ms": b3[0], "bound_by": b3[1]}
     rec["head_counts"] = {**by_k[f"K{K}"], "by_shape": by_k}
+    by_k = tail_records(geom, dev)
+    rec["tail_balls"] = {**by_k["K8192"], "by_shape": by_k}
     by_k = {f"K{k}": k9_record(m)
             for k, m in ((K, res.defect), (4096, severe_map(4096, dev)))}
     rec["rank"] = {**by_k[f"K{K}"], "by_shape": by_k}

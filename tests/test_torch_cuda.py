@@ -15,8 +15,9 @@ K2 bit-identical from launch to launch; K4 relative 1e-5 of the largest bin
 against its plain version, whose float32 atomics sum in another order (the
 kernel's fixed-point sum is nearer the exact one), bit-equal to its exact
 fixed-point plain version, and bit-identical from launch to launch; K5
-bit-equal, the same float32 operations in the same order; K3, K8, K9 and
-the CI maps of both engines bit-equal.  The Vent_Analysis facade on the
+bit-equal, the same float32 operations in the same order; K3, K10
+(against its plain version, the sort path), K8, K9 and the CI maps of both
+engines bit-equal.  The Vent_Analysis facade on the
 card against the CPU: defect arrays and CI map equal, VDPs within 0.1 pp;
 mask editing equal; the k-space recon within 1e-5 of max |image| (cuFFT
 against PyTorch's CPU FFT, both float32).  The segmentation U-Net (cuDNN
@@ -277,6 +278,127 @@ def test_head_counts_bit_equal(cuda, border, K, Kw):
     assert torch.equal(got, want)
 
 
+def _tail_args(geom, centers, witnesses):
+    """K10's arguments for these rows on ``geom``: the balls up to its
+    j_cap at this witness count."""
+    dev = centers[0].device
+    r2, T = tcp._tail_tables(geom, witnesses[0].shape[1])
+    return (centers, witnesses, torch.as_tensor(r2, device=dev),
+            torch.as_tensor(T, device=dev), tcp._alias_combos(geom),
+            geom.scale, geom.rmax)
+
+
+def _tail_bit_equal(args):
+    """K10 once (one launch counted), bit-equal to its plain version (the
+    sort path) and to a second launch."""
+    before = ci_cuda.LAUNCHES["tail_balls"]
+    got = ci_cuda.tail_balls(*args)
+    assert ci_cuda.LAUNCHES["tail_balls"] == before + 1
+    assert got.dtype == torch.int64 and got.device == args[2].device
+    assert torch.equal(got, ci_cuda.tail_balls_plain(*args))
+    assert torch.equal(got, ci_cuda.tail_balls(*args))
+    return got
+
+
+def _engine_tail(defect, geom, K):
+    """The arguments the engine hands K10 at pad K with its tail at full
+    width (the severe cohort's tail): rows unresolved by the head, then
+    sentinel rows."""
+    seen, real = [], tcp.tail_balls
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+    tcp.tail_balls = spy
+    try:
+        tcp.calculate_ci_pairwise(defect, geom, K, tail_k=K)
+    finally:
+        tcp.tail_balls = real
+    assert len(seen) == 1
+    return seen[0]
+
+
+@pytest.mark.parametrize("border", ["wrap", "pad"])
+@pytest.mark.parametrize("rows,Kw", [(256, 512), (1024, 8192), (1000, 1777)])
+def test_tail_balls_severe_maps(cuda, border, rows, Kw):
+    """K10 on severe-load maps, every one of the first ``rows`` defect
+    voxels a center (pad rows included), at the cohort's and the severe
+    cell's tail widths and at a Kw that is not a multiple of 32."""
+    gen = np.random.default_rng(rows + Kw)
+    geom = tcp.build_ci_pairwise_geometry((1.5, 1.5, 10.0), (128, 128, 16),
+                                          50, border)
+    defect = _severe_defects(max(rows, Kw), 3, gen, cuda)
+    args = _tail_args(geom, tcp.defect_coords(defect, rows)[0],
+                      tcp.defect_coords(defect, Kw)[0])
+    assert int(_tail_bit_equal(args).max()) > 0
+
+
+@pytest.mark.parametrize("border", ["wrap", "pad"])
+def test_tail_balls_on_the_severe_cohorts_tail(cuda, border):
+    """The engine's tail at pad 8,192 with 8,192 tail rows, as the severe
+    cohort runs it: K10 bit-equal to the sort path, its rows failing past
+    the head balls."""
+    gen = np.random.default_rng(8192)
+    geom = tcp.build_ci_pairwise_geometry((1.5, 1.5, 10.0), (128, 128, 16),
+                                          50, border)
+    args = _engine_tail(_severe_defects(8192, 2, gen, cuda), geom, 8192)
+    assert args[0][0].shape == (2, 8192) and args[1][0].shape == (2, 8192)
+    live = args[0][0] < tcp.SENT
+    got = _tail_bit_equal(args)
+    assert bool(live.any()) and int(got[live].max()) > 96
+
+
+def test_tail_balls_all_sentinels(cuda):
+    """Sentinel rows against real witnesses, real rows against sentinel
+    witnesses, sentinels against sentinels: no pair inside any ball."""
+    geom = tcp.build_ci_pairwise_geometry((1.5, 1.5, 10.0), (64, 64, 8), 50,
+                                          "wrap")
+    gen = np.random.default_rng(4)
+    real = lambda n: tuple(torch.from_numpy(gen.integers(
+        0, hi, size=(1, n)).astype(np.int32)).to(cuda) for hi in (64, 64, 8))
+    sent = lambda n, j: tuple(torch.full((1, n), v, dtype=torch.int32,
+                                         device=cuda)
+                              for v in (tcp.SENT, j * tcp.SENT, tcp.SENT))
+    cat = lambda a, b: tuple(torch.cat(p).contiguous() for p in zip(a, b))
+    centers = cat(cat(sent(100, 1), real(100)), sent(100, 1))
+    witnesses = cat(cat(real(300), sent(300, -1)), sent(300, -1))
+    got = _tail_bit_equal(_tail_args(geom, centers, witnesses))
+    assert not bool(got.any())
+
+
+def _dense_ball(dev):
+    """A 128x128x16 map holding one dense ellipsoid (~31,000 voxels) and a
+    2 % sprinkle: its rows fail anywhere up to ball ~2,100 of 2,513."""
+    H, W, D = 128, 128, 16
+    ii, jj, kk = np.meshgrid(np.arange(H), np.arange(W), np.arange(D),
+                             indexing="ij")
+    d = ((((ii - 64) / 36.0) ** 2 + ((jj - 64) / 36.0) ** 2
+          + ((kk - 8) / 5.4) ** 2) <= 1.0).astype(np.float32)
+    d[np.random.default_rng(0).random(d.shape) < 0.02] = 1.0
+    return torch.from_numpy(d)[None].to(dev)
+
+
+@pytest.mark.parametrize("border", ["wrap", "pad"])
+@pytest.mark.parametrize("Kw", [40000, 70000])
+def test_tail_balls_every_ball_and_windows(cuda, border, Kw):
+    """Witness counts where j_cap = M - 1, so every ball is tested: at Kw
+    40,000 in one window of 16-bit counts, and at a halo-sized Kw of
+    70,000 (32-bit counts) in two windows of balls, rows failing in
+    both."""
+    geom = tcp.build_ci_pairwise_geometry((1.5, 1.5, 10.0), (128, 128, 16),
+                                          50, border)
+    d = _dense_ball(cuda)
+    cidx = torch.nonzero(d.reshape(-1)).reshape(-1)
+    pick = cidx[torch.randperm(len(cidx), generator=torch.Generator()
+                               .manual_seed(Kw))[:512].to(cuda)]
+    centers = tuple((v[None]).to(torch.int32).contiguous() for v in
+                    (pick // (128 * 16), (pick // 16) % 128, pick % 16))
+    args = _tail_args(geom, centers, tcp.defect_coords(d, Kw)[0])
+    assert args[2].shape[0] == geom.n_balls - 1
+    got = _tail_bit_equal(args)
+    assert int(got.max()) > 1800 and int(got.min()) < 1000
+
+
 @pytest.mark.parametrize("pad, tail", [(512, None), (8192, 8192)])
 def test_every_sync_of_the_pipeline_is_declared(cuda, pad, tail):
     """analyze_cohort at 16 x 128x128x16 runs to its end with the sync-debug
@@ -315,7 +437,7 @@ def test_cohort_on_card_matches_cpu(cuda):
     launched = {k: v for d in counts for k, v in d.items()}
     # the pipeline's kernels (K6 and K7 belong to the unfused fit chain)
     for k in ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
-              "sharpen_resid", "head_counts"):
+              "sharpen_resid", "head_counts", "tail_balls"):
         assert launched[k] > 0, k
     for name in ("vdp", "vdp_lb", "vdp_km"):
         d = (getattr(gpu.metrics, name).cpu() - getattr(cpu.metrics, name))

@@ -151,7 +151,7 @@ def test_ci_row_counters_at_a_known_pad(K, tail_k, K2):
     calculate_ci_pairwise(defect, geom, K, tail_k=tail_k)
     got = {k: v - before[k] for k, v in ci_cuda.LAUNCHES.items()}
     assert got == {"head_counts": 0, "head_counts_rows": 3 * K,
-                   "alias_min_d2_rows": 3 * K2}
+                   "alias_min_d2_rows": 3 * K2, "tail_balls": 0}
 
 
 def test_outputs_bit_identical_with_the_profiler_on(runs):

@@ -1,4 +1,5 @@
-// CI pairwise head-phase counts (K3) for Hopper (sm_90a), plain C interface.
+// CI pairwise head-phase counts (K3) and the tail's first failing balls
+// (K10) for Hopper (sm_90a), plain C interface.
 //
 // Replaces ventjax/ops/ci_pallas.py:head_counts_pallas (_head_kernel).
 // counts[n, row, j] = #{ w : dmin2(center row, witness w) <= r2[j] }, j < ns,
@@ -36,6 +37,34 @@
 // - the combo count is a template argument (1 for "pad", 9 for "wrap",
 //   the only counts the geometry gives), so the combo loop is unrolled and
 //   its culling mask is uniform over the warp.
+//
+// K10 tail_balls replaces no Pallas kernel: ventjax's tail is jnp.sort over
+// [N, rows, Kw] distances (ventjax/ops/ci_pairwise.py), and K10's plain
+// version (ops/ci_cuda.py:tail_balls_plain) is that sort.  For each tail
+// row it returns the first ball j < nb with cumcount_j < T_j, where
+// cumcount_j = #{ w : dmin2 <= r2[j] }, or nb where there is none; the
+// caller passes nb = j_cap, so that is the sort path's clamped index.
+// cumcount_j < T_j is the sort test sorted[T_j - 1] > r2[j], so the two
+// are bit-equal.  K10 keeps K3's block layout, distances and per-warp
+// culling, with the last tested ball r2[nb - 1] as the cut: a pair beyond
+// it moves no tested count.  A pair inside adds 1 to its row's
+// shared-memory histogram at its first ball, searchsorted(r2[:nb], d2,
+// left), by integer atomics; warp 0 then runs each row's prefix sum up to
+// its first failing ball.
+//
+// What bounds K10.  As K3: the pairs it must look at, with coordinates in
+// and one int64 a row out.  Its shared memory is the histogram, nb bins of
+// 32 rows, and it sets how many blocks an SM holds.  Counts are 16 bits,
+// two to a word, wherever Kw < 65,536 (a count never exceeds Kw, so a half
+// never carries into its neighbour): at Kw 8,192 (nb 875) a block takes
+// 63 KB, three to an SM, where 32-bit counts (119 KB) leave one.  On an
+// H100 80GB HBM3 at 700 W the severe cohort's tail (16 x 8,192 rows, 1,411
+// of them live, against 8,192 witnesses) took 1.41 ms with 16-bit counts
+// and 2.50 ms with 32-bit ones.  At Kw >= 65,536 counts are 32 bits.  Where the bins do not fit a block's opt-in
+// shared memory (32-bit counts past ~1,700 balls: the halo engine's slab
+// plus halo witnesses), the kernel walks the balls in windows, all the
+// witnesses once a window, carrying each row's count below the window, and
+// stops when its 32 rows are resolved.
 //
 // Why float32: the distances must be the float32 values the exactness
 // proof checked; anything else may change the shell a pair falls in.
@@ -204,6 +233,201 @@ __global__ void __launch_bounds__(THREADS) head_counts_kernel(
   }
 }
 
+// K10: the histogram of one window of balls, nbw bins of CW rows; with
+// 16-bit counts ball b's count is the low half of word b / 2 when b is
+// even and the high half when it is odd.
+constexpr int NARROW_KW = 65536;       // Kw below which 16-bit counts hold
+constexpr int MAX_DEVICES = 64;        // cards whose K10 opt-in is remembered
+
+template <bool WIDE>
+__host__ __device__ __forceinline__ int hist_words(int bins) {
+  return WIDE ? bins : (bins + 1) / 2;
+}
+
+template <bool WIDE>
+__device__ __forceinline__ void hist_add(unsigned* h, int b, int l) {
+  if (WIDE)
+    atomicAdd(&h[b * CW + l], 1u);
+  else
+    atomicAdd(&h[(b >> 1) * CW + l], 1u << ((b & 1) << 4));
+}
+
+template <bool WIDE>
+__device__ __forceinline__ int hist_get(const unsigned* h, int b, int l) {
+  if (WIDE) return (int)h[b * CW + l];
+  return (int)((h[(b >> 1) * CW + l] >> ((b & 1) << 4)) & 0xffffu);
+}
+
+// Dynamic shared memory of a window of bins: the histogram, then its
+// r2 and T.
+template <bool WIDE>
+size_t tail_smem(int bins) {
+  return (size_t)hist_words<WIDE>(bins) * CW * sizeof(unsigned) +
+         (size_t)bins * (sizeof(float) + sizeof(int));
+}
+
+template <int NC, bool WIDE>
+__global__ void __launch_bounds__(THREADS) tail_balls_kernel(
+    const int* __restrict__ ci, const int* __restrict__ cj,
+    const int* __restrict__ ck, const int* __restrict__ wi,
+    const int* __restrict__ wj, const int* __restrict__ wk,
+    const float* __restrict__ r2, const int* __restrict__ T,
+    long long* __restrict__ out, int R, int Kw, int nb, int wbins,
+    Combos cb, float s0, float s1, float s2, int rmax) {
+  extern __shared__ unsigned tail_shared[];
+  unsigned* hist = tail_shared;
+  float* s_r2 = (float*)(hist + hist_words<WIDE>(wbins) * CW);
+  int* s_T = (int*)(s_r2 + wbins);
+  __shared__ int s_open;
+
+  const int n = blockIdx.y;
+  const int t = threadIdx.x;
+  const int l = t & 31;
+  const int w = t >> 5;
+  const int row = blockIdx.x * CW + l;
+  const bool has = row < R;
+  const size_t cbase = (size_t)n * R;
+  const size_t wbase = (size_t)n * Kw;
+  const int vi = has ? ci[cbase + row] : 0;
+  const int vj = has ? cj[cbase + row] : 0;
+  const int vk = has ? ck[cbase + row] : 0;
+  const Box cbox = warp_box(vi, vj, vk, has);
+
+  // Warp 0's lane l: its row's count below the window, and its result.
+  int below = 0;
+  long long res = nb;
+  bool open = has;
+
+  for (int b0 = 0; b0 < nb; b0 += wbins) {
+    const int nbw = min(wbins, nb - b0);
+    for (int i = t; i < hist_words<WIDE>(nbw) * CW; i += THREADS)
+      hist[i] = 0u;
+    for (int i = t; i < nbw; i += THREADS) {
+      s_r2[i] = r2[b0 + i];
+      s_T[i] = T[b0 + i];
+    }
+    __syncthreads();
+    // A pair counts in this window iff lo2 < dmin <= hi2.
+    const float lo2 = b0 > 0 ? r2[b0 - 1] : -INFINITY;
+    const float hi2 = s_r2[nbw - 1];
+    int top = 1;                      // the largest power of two <= nbw
+    while (2 * top <= nbw) top *= 2;
+
+    // K3's witness walk: warp w takes witnesses [w0, w0 + 32) for w0 =
+    // 32 w, 32 (w + WARPS), ...; the next slice loads while this one runs.
+    const int step = CW * WARPS;
+    int w0 = w * CW;
+    int a = 0, b = 0, c = 0;
+    if (w0 + l < Kw) {
+      a = wi[wbase + w0 + l];
+      b = wj[wbase + w0 + l];
+      c = wk[wbase + w0 + l];
+    }
+    for (; w0 < Kw; w0 += step) {
+      const int nw = min(CW, Kw - w0);
+      const int xa = a, xb = b, xc = c;
+      if (w0 + step + l < Kw) {
+        a = wi[wbase + w0 + step + l];
+        b = wj[wbase + w0 + step + l];
+        c = wk[wbase + w0 + step + l];
+      }
+      const Box wbox = warp_box(xa, xb, xc, l < nw);
+      unsigned live = 0u;
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const int sh[3] = {cb.p[k], cb.q[k], cb.s[k]};
+        int m[3];
+        bool in = true;
+#pragma unroll
+        for (int x = 0; x < 3; ++x) {
+          const int lo = wbox.lo[x] - cbox.hi[x] + sh[x];
+          const int hi = wbox.hi[x] - cbox.lo[x] + sh[x];
+          in = in && lo <= rmax && hi >= -rmax;
+          m[x] = least_abs(lo, hi);
+        }
+        if (in && dist2(m[0], m[1], m[2], s0, s1, s2) <= hi2)
+          live |= 1u << k;
+      }
+      if (live == 0u) continue;
+
+      for (int x = 0; x < nw; ++x) {
+        const int oi0 = __shfl_sync(FULL, xa, x) - vi;
+        const int oj0 = __shfl_sync(FULL, xb, x) - vj;
+        const int ok0 = __shfl_sync(FULL, xc, x) - vk;
+        float dmin = INFINITY;
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          if (!((live >> k) & 1u)) continue;
+          const int oi = oi0 + cb.p[k];
+          const int oj = oj0 + cb.q[k];
+          const int ok = ok0 + cb.s[k];
+          if (abs(oi) > rmax || abs(oj) > rmax || abs(ok) > rmax) continue;
+          dmin = fminf(dmin, dist2(oi, oj, ok, s0, s1, s2));
+        }
+        if (has && dmin > lo2 && dmin <= hi2) {
+          // the window's first ball j with dmin <= r2[j]
+          int j = 0;
+          for (int s = top; s > 0; s >>= 1)
+            if (j + s <= nbw && s_r2[j + s - 1] < dmin) j += s;
+          hist_add<WIDE>(hist, j, l);
+        }
+      }
+    }
+    __syncthreads();
+
+    // Warp 0: each open row's running count through the window, up to its
+    // first failing ball; then whether any row of the block is open.
+    if (w == 0) {
+      for (int j = 0; open && j < nbw; ++j) {
+        below += hist_get<WIDE>(hist, j, l);
+        if (below < s_T[j]) {
+          res = b0 + j;
+          open = false;
+        }
+      }
+      const bool any_open = __any_sync(FULL, open);
+      if (l == 0) s_open = any_open;
+    }
+    __syncthreads();
+    if (!s_open) break;
+  }
+  if (w == 0 && has) out[cbase + row] = res;
+}
+
+// Launch K10 with nb bins in windows of the most that fit the device's
+// opt-in shared memory, opting in once per card and instance.
+template <int NC, bool WIDE>
+int launch_tail(const int* ci, const int* cj, const int* ck, const int* wi,
+                const int* wj, const int* wk, const float* r2, const int* T,
+                long long* out, int N, int R, int Kw, int nb, Combos cb,
+                float s0, float s1, float s2, int rmax, cudaStream_t st) {
+  static int dyn_max[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int cap = dev < MAX_DEVICES ? dyn_max[dev] : 0;
+  if (cap == 0) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    cap = optin - 256;                // room for the static s_open
+    err = cudaFuncSetAttribute(tail_balls_kernel<NC, WIDE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               cap);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) dyn_max[dev] = cap;
+  }
+  int wbins = nb > 0 ? nb : 1;
+  while (tail_smem<WIDE>(wbins) > (size_t)cap) wbins = wbins * 7 / 8;
+  while (tail_smem<WIDE>(wbins + 1) <= (size_t)cap && wbins < nb) ++wbins;
+  const dim3 grid((R + CW - 1) / CW, N);
+  tail_balls_kernel<NC, WIDE><<<grid, THREADS, tail_smem<WIDE>(wbins), st>>>(
+      ci, cj, ck, wi, wj, wk, r2, T, out, R, Kw, nb, wbins, cb, s0, s1, s2,
+      rmax);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int vj_head_counts(const int* ci, const int* cj, const int* ck,
@@ -230,4 +454,35 @@ extern "C" int vj_head_counts(const int* ci, const int* cj, const int* ck,
     head_counts_kernel<MAXCOMBO><<<grid, THREADS, 0, st>>>(
         ci, cj, ck, wi, wj, wk, r2, counts, K, Kw, ns, cb, s0, s1, s2, rmax);
   return (int)cudaGetLastError();
+}
+
+extern "C" int vj_tail_balls(const int* ci, const int* cj, const int* ck,
+                             const int* wi, const int* wj, const int* wk,
+                             const float* r2, const int* T, long long* out,
+                             int N, int R, int Kw, int nb, const int* combos,
+                             int ncombo, float s0, float s1, float s2,
+                             int rmax, void* stream) {
+  if (N < 1 || N > 65535 || R < 1 || Kw < 1 || nb < 0 ||
+      (ncombo != 1 && ncombo != MAXCOMBO))
+    return (int)cudaErrorInvalidValue;
+  Combos cb = {};
+  for (int k = 0; k < ncombo; ++k) {
+    cb.p[k] = combos[3 * k];
+    cb.q[k] = combos[3 * k + 1];
+    cb.s[k] = combos[3 * k + 2];
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool wide = Kw >= NARROW_KW;
+  if (ncombo == 1)
+    return wide ? launch_tail<1, true>(ci, cj, ck, wi, wj, wk, r2, T, out, N,
+                                       R, Kw, nb, cb, s0, s1, s2, rmax, st)
+                : launch_tail<1, false>(ci, cj, ck, wi, wj, wk, r2, T, out,
+                                        N, R, Kw, nb, cb, s0, s1, s2, rmax,
+                                        st);
+  return wide ? launch_tail<MAXCOMBO, true>(ci, cj, ck, wi, wj, wk, r2, T,
+                                            out, N, R, Kw, nb, cb, s0, s1,
+                                            s2, rmax, st)
+              : launch_tail<MAXCOMBO, false>(ci, cj, ck, wi, wj, wk, r2, T,
+                                             out, N, R, Kw, nb, cb, s0, s1,
+                                             s2, rmax, st);
 }

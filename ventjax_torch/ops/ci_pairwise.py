@@ -2,9 +2,10 @@
 
 Counterpart of ``ventjax/ops/ci_pairwise.py``.  Ball hit counts are pairwise
 statements between defect voxels, and the reference's first-crossing rule
-("first ball whose defect fraction drops below 0.5") becomes an
-order-statistics test against static thresholds, so the CI map needs only
-integer coordinates, float32 distances, counts and one row sort.
+("first ball whose defect fraction drops below 0.5") becomes a test of
+counts against static thresholds, T_j = (rows_ball_j + 1) // 2: ball j
+fails when fewer than T_j witnesses lie inside it.  So the CI map needs
+only integer coordinates, float32 distances and integer counts.
 
 The geometry builder and its two exactness guards are numpy, copied from
 ``ventjax`` (whose module imports JAX); ``ventjax.oracle.ci_oracle`` supplies
@@ -13,7 +14,12 @@ the sphere tables.  The resolve runs in two phases, as in ``ventjax``:
 - head: per center, counts for the first ``head_balls`` balls through
   kernel K3 (``ops/ci_cuda.py``; its plain version on CPU);
 - tail: rows with no head crossing are compacted (stable order) to
-  ``tail_k`` lanes and finished by the full sorted-row order statistics.
+  ``tail_k`` lanes and finished, for every ball up to ``j_cap``, by kernel
+  K10 (``ops/ci_cuda.py:tail_balls``) on the card: per-row shell counts
+  whose prefix sums give the first failing ball, with no [N, rows, Kw]
+  tensor and no sort.  On the CPU its plain version is ventjax's sorted-row
+  order statistics (``sorted[T_j - 1] > r2_j``, the same test), so every
+  CPU test against ventjax keeps its operands and arithmetic.
 
 The dense map is a scatter, or with ``pallas_densify=True`` the rank
 lookup of kernels K9 and K8 (``ops/ci_densify_cuda.py``).
@@ -22,7 +28,7 @@ Spans (recorded only under a profiler): ``ci.coords``, ``ci.head`` (K3
 and the head test), ``ci.tail`` (the compaction and
 ``ci_pairwise_balls``), ``ci.densify``; each upload of a numpy table is a
 pageable copy that waits for the stream, declared as ``ci.sync``.  The
-rows K3 and the tail's distance pass run are counted in
+rows K3 and K10 run, and their launches, are counted in
 ``ci_cuda.LAUNCHES``.
 """
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from ventjax_torch.ops.basic import compact_mask_indices
-from ventjax_torch.ops.ci_cuda import alias_min_d2, head_counts
+from ventjax_torch.ops.ci_cuda import head_counts, tail_balls
 from ventjax_torch.ops.ci_densify_cuda import densify_rank, rank
 from ventjax_torch.ops.geometry import shell_structure, sphere_pixels
 from ventjax_torch.utils.profiling import host_wait, stage
@@ -142,61 +148,32 @@ def _alias_combos(geom: CIPairwiseGeometry):
     ]
 
 
-def _upload(table: np.ndarray, device, dtype=None) -> torch.Tensor:
+def _upload(table: np.ndarray, device) -> torch.Tensor:
     """A numpy table on ``device``: a pageable copy, which waits for the
     stream, so a declared host wait (``ci.sync``)."""
     with host_wait("ci.sync"):
-        return torch.as_tensor(table, dtype=dtype, device=device)
+        return torch.as_tensor(table, device=device)
 
 
-def _threshold_tables(geom: CIPairwiseGeometry, K: int):
-    """Static (thr[t], j_lo[t], j_cap) numpy tables for the
-    order-statistics test."""
-    M = geom.n_balls
+def _tail_tables(geom: CIPairwiseGeometry, nw: int):
+    """(r2[:nb], T[:nb]) numpy: the balls the tail tests against nw
+    witnesses.  nb = j_cap, the first ball j < M - 1 with T_j > nw (its
+    T_j - 1 lies past the row, so the order statistics cannot resolve
+    beyond it), else M - 1: the last ball is never tested."""
     T = (geom.rows_ball + 1) // 2          # fail_j <=> cumcount_j < T_j
-    tested = np.arange(M - 1)              # last ball never tested
-    t_idx = T[tested] - 1                  # sorted position probed by ball j
-    thr = np.full(K, np.inf, np.float32)
-    j_lo = np.full(K, M - 1, np.int32)
-    for j in tested[::-1]:
-        t = t_idx[j]
-        if t < K:
-            thr[t] = geom.r2_32[j]
-            j_lo[t] = j
-    over = tested[T[tested] > K]
-    j_cap = int(over[0]) if len(over) else M - 1
-    return thr, j_lo, j_cap
+    nb = int(np.searchsorted(T[:geom.n_balls - 1], nw, side="right"))
+    return geom.r2_32[:nb], T[:nb].astype(np.int32)
 
 
-def _min_d2(centers, witnesses, geom):
-    """alias_min_d2 with the last-shell cut: +inf beyond r2_last."""
-    d2 = alias_min_d2(centers, witnesses, _alias_combos(geom), geom.scale,
-                      geom.rmax)
-    return torch.where(d2 <= geom.r2_last, d2, torch.full_like(d2, np.inf))
-
-
-def ci_pairwise_balls(centers, witnesses, geom: CIPairwiseGeometry,
-                      row_chunk: int = 512) -> torch.Tensor:
-    """[N, K] first-failing-ball index per center (M-1 = saturated), by
-    full order statistics: a sorted row of distances against the static
-    thresholds."""
-    N, K = centers[0].shape
-    nw = witnesses[0].shape[1]
-    M = geom.n_balls
+def ci_pairwise_balls(centers, witnesses, geom: CIPairwiseGeometry
+                      ) -> torch.Tensor:
+    """[N, K] first-failing-ball index per center, clamped at j_cap (M-1 =
+    saturated): one K10 launch on the card, the sorted-row order
+    statistics on the CPU."""
     dev = centers[0].device
-    thr, j_lo, j_cap = _threshold_tables(geom, nw)
-    thr = _upload(thr, dev)
-    j_lo = _upload(j_lo, dev, torch.int64)
-    out = torch.empty((N, K), dtype=torch.int64, device=dev)
-    for a in range(0, K, row_chunk):
-        cc = tuple(c[:, a:a + row_chunk] for c in centers)
-        srt = torch.sort(_min_d2(cc, witnesses, geom), dim=2).values
-        failing = srt > thr
-        any_f = failing.any(2)
-        tstar = failing.to(torch.uint8).argmax(2)
-        j = torch.where(any_f, j_lo[tstar], torch.full_like(tstar, M - 1))
-        out[:, a:a + row_chunk] = j.clamp(max=j_cap)
-    return out
+    r2, T = _tail_tables(geom, witnesses[0].shape[1])
+    return tail_balls(centers, witnesses, _upload(r2, dev), _upload(T, dev),
+                      _alias_combos(geom), geom.scale, geom.rmax)
 
 
 def resolve_balls_two_phase(
@@ -240,8 +217,7 @@ def resolve_balls_two_phase(
             torch.where(live, g, torch.full_like(g, SENT))
             for g in (c.gather(1, sel) for c in (ii, jj, kk))
         )
-        j_tail = ci_pairwise_balls(tail, witnesses, geom,
-                                   row_chunk=min(K2, 512))
+        j_tail = ci_pairwise_balls(tail, witnesses, geom)
         jballs = jballs.scatter(
             1, sel, torch.where(live, j_tail, jballs.gather(1, sel)))
     unresolved = ~resolved if valid is None else (~resolved & valid)
