@@ -17,9 +17,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    relative 1e-5 of the largest bin against its plain version summed in
    float64, bit-equal to its exact fixed-point plain version and from
    launch to launch; K5 bit-equal (the same float32 operations in the same order);
-   K3 (on severe-load maps at K 1024, 2048, 4096), K10 (on the CI
-   engine's tails of severe-load maps at both benchmark cells' tail
-   shapes, against its plain version, the sort path), K9, K8 bit-equal
+   K3 (on severe-load maps at K 1024, 2048, 4096, and at the adult
+   cell's K = Kw = 32,768 on two lanes of 256x256x16), K10 (on the CI
+   engine's tails of severe-load maps at the three benchmark cells' tail
+   shapes, the adult's on two lanes, against its plain version, the sort
+   path), K9, K8 bit-equal
    (integers, and copied values), K9 also at ragged V (4,112, 100,003), on
    rows whose flags lie only in their last tile, and on a relaunch right
    after a call of another shape (its workspace is left zero); N4's
@@ -80,7 +82,7 @@ Phases, in order; any failure raises and the script exits non-zero:
       analyze must stop with exit 2 naming it); then, outside the counted
       run, for each study: K1 and K2 at every ncp and K4 and K5 on a first
       and a late residual against their plain versions on its N4 operands
-      (N 1, P config.n4_mask_pad; tolerances as in phase 3), K3 bit-equal
+      (N 1, P its lung's pad; tolerances as in phase 3), K3 bit-equal
       to its plain version on its defect coordinates at its CI pad
       (ci_module.defect_pad; whether the first pairwise call overflowed,
       so that the facade retried at tail_k = pad, is logged), and its
@@ -265,6 +267,8 @@ LIBS = ("n4_fit", "n4_sharpen", "ci_head", "ci_densify", "n4_field")
 # comes from this tree in both arms of a turn
 PARENT_LIBS = LIBS[:4]
 FIELD_NCPS = (4, 5, 7, 11)   # N4's levels at the defaults
+ADULT_SHAPE = (256, 256, 16)   # the adult cell's geometry, at VOX
+ADULT_LANES = 2
 
 
 def log(*args):
@@ -370,13 +374,14 @@ def phase_kernels(hp, mask, n4_pad, dev):
     gen = np.random.default_rng(SEED)
     errs = check_fit(hp, mask, n4_pad, dev, gen, freeze=True, k6_k7=True)
     geom = tcp.build_ci_pairwise_geometry(VOX, SHAPE, 50, "wrap")
-    for K in (1024, 2048, 4096):
-        args = k3_args(severe_coords(K, dev), geom)
+    for K, shape, lanes in HEAD_SHAPES:
+        args = k3_args(severe_coords(K, dev, shape, lanes),
+                       ci_geom(shape, geom))
         got = ci_cuda.head_counts(*args)
         want = ci_cuda.head_counts_plain(*args)
         equal = bool(torch.equal(got, want))
-        log(f"K3 head_counts K={K} N={BATCH} ns={args[2].shape[0]} wrap: "
-            f"bit_equal={equal} max_count={int(want.max())}")
+        log(f"K3 head_counts K={K} N={lanes} {shape} ns={args[2].shape[0]} "
+            f"wrap: bit_equal={equal} max_count={int(want.max())}")
         if not equal:
             raise AssertionError(f"K3 counts differ from the plain version "
                                  f"at K={K}")
@@ -693,41 +698,60 @@ def check_rank_shapes(gen, dev):
             raise AssertionError(f"K9 differs from its plain version: {tag}")
 
 
-def severe_defects(K, gen):
-    """[BATCH, H, W, D] defect maps of severe disease: clustered blobs
-    until each lane holds ~3/4 of K defect voxels."""
-    H, W, D = SHAPE
+def severe_defects(K, gen, shape=SHAPE, lanes=BATCH):
+    """[lanes, H, W, D] defect maps of severe disease: clustered blobs
+    until each lane holds ~3/4 of K defect voxels.  Blob radii scale with
+    the matrix (3-10 voxels in-plane at 128, 6-20 at the adult's 256)."""
+    H, W, D = shape
+    f = H / SHAPE[0]
     ii, jj, kk = np.meshgrid(np.arange(H), np.arange(W), np.arange(D),
                              indexing="ij")
-    out = np.zeros((BATCH,) + SHAPE, np.float32)
-    for n in range(BATCH):
+    out = np.zeros((lanes,) + shape, np.float32)
+    for n in range(lanes):
         while out[n].sum() < 0.75 * K:
-            c = gen.uniform([20, 20, 0], [H - 20, W - 20, D])
-            r = gen.uniform([3, 3, 1], [10, 10, 3])
+            c = gen.uniform([20 * f, 20 * f, 0], [H - 20 * f, W - 20 * f, D])
+            r = gen.uniform([3 * f, 3 * f, 1], [10 * f, 10 * f, 3])
             blob = (((ii - c[0]) / r[0]) ** 2 + ((jj - c[1]) / r[1]) ** 2
                     + ((kk - c[2]) / r[2]) ** 2) <= 1.0
-            out[n][blob & (gen.random(SHAPE) < 0.8)] = 1.0
+            out[n][blob & (gen.random(shape) < 0.8)] = 1.0
     return out
 
 
 _SEVERE = {}
 
 
-def severe_map(K, dev):
-    """A severe-load batch of defect maps for pad K (made once per K, from
-    SEED + K)."""
-    if K not in _SEVERE:
+def severe_map(K, dev, shape=SHAPE, lanes=BATCH):
+    """A severe-load batch of defect maps for pad K (made once per K, shape
+    and lane count, from SEED + K)."""
+    if (K, shape, lanes) not in _SEVERE:
         gen = np.random.default_rng(SEED + K)
-        _SEVERE[K] = torch.from_numpy(severe_defects(K, gen)).to(dev)
-    return _SEVERE[K]
+        _SEVERE[K, shape, lanes] = torch.from_numpy(
+            severe_defects(K, gen, shape, lanes)).to(dev)
+    return _SEVERE[K, shape, lanes]
 
 
-def severe_coords(K, dev):
+def severe_coords(K, dev, shape=SHAPE, lanes=BATCH):
     """Defect coordinates, as calculate_ci_pairwise builds them, of
-    severe_map(K)."""
+    severe_map(K, dev, shape, lanes)."""
     from ventjax_torch.ops.ci_pairwise import defect_coords
 
-    return defect_coords(severe_map(K, dev), K)[0]
+    return defect_coords(severe_map(K, dev, shape, lanes), K)[0]
+
+
+_GEOMS = {}
+
+
+def ci_geom(shape, geom):
+    """The CI pairwise geometry (VOX, rmax 50, wrap) of shape: geom itself
+    at SHAPE, else built once."""
+    from ventjax_torch.ops import ci_pairwise as tcp
+
+    if shape == SHAPE:
+        return geom
+    if shape not in _GEOMS:
+        _GEOMS[shape] = tcp.build_ci_pairwise_geometry(VOX, shape, 50,
+                                                       "wrap")
+    return _GEOMS[shape]
 
 
 def engine_tail(defect, geom, K, tail_k=None):
@@ -748,19 +772,28 @@ def engine_tail(defect, geom, K, tail_k=None):
     return seen[0]
 
 
-# K10's shapes in both benchmark cells: the cohort's tail (pad 512, 256
-# tail rows) and the severe cohort's (pad 8,192, the tail at full width).
-TAIL_SHAPES = ((512, None), (8192, 8192))
+# K10's shapes in the three benchmark cells, (pad, tail_k, shape, lanes):
+# the cohort's tail (pad 512, 256 tail rows), the severe cohort's (pad
+# 8,192, the tail at full width) and the adult cell's (pad 32,768 at
+# 256x256x16, the tail at full width; two lanes keep the plain sort path
+# under two seconds a call).
+TAIL_SHAPES = ((512, None, SHAPE, BATCH), (8192, 8192, SHAPE, BATCH),
+               (32768, 32768, ADULT_SHAPE, ADULT_LANES))
+# K3's shapes held bit-equal to its plain version, (pad = witnesses, shape,
+# lanes): severe-load maps at 128x128x16, and the adult cell's pad.
+HEAD_SHAPES = ((1024, SHAPE, BATCH), (2048, SHAPE, BATCH),
+               (4096, SHAPE, BATCH), (32768, ADULT_SHAPE, ADULT_LANES))
 
 
 def check_tail(geom, dev):
-    """K10 at both cells' tail shapes, on severe-load maps: one launch
+    """K10 at the three cells' tail shapes, on severe-load maps: one launch
     each, bit-equal to its plain version (the sort path) and to a
     relaunch."""
     from ventjax_torch.ops import ci_cuda
 
-    for K, tail_k in TAIL_SHAPES:
-        args = engine_tail(severe_map(K, dev), geom, K, tail_k)
+    for K, tail_k, shape, lanes in TAIL_SHAPES:
+        args = engine_tail(severe_map(K, dev, shape, lanes),
+                           ci_geom(shape, geom), K, tail_k)
         before = ci_cuda.LAUNCHES["tail_balls"]
         got = ci_cuda.tail_balls(*args)
         launched = ci_cuda.LAUNCHES["tail_balls"] - before
@@ -775,7 +808,7 @@ def check_tail(geom, dev):
 
 
 def tail_records(geom, dev):
-    """K10's device ms at both cells' tail shapes beside its plain
+    """K10's device ms at the three cells' tail shapes beside its plain
     version's (by CUDA events: at the severe tail one call is ~8,000
     launches and ~0.8 s, too many activities for a profiler session and
     too long for launch gaps to matter) and its bound (K3's: 8 float32
@@ -783,8 +816,9 @@ def tail_records(geom, dev):
     from ventjax_torch.ops import ci_cuda
 
     by_k = {}
-    for K, tail_k in TAIL_SHAPES:
-        args = engine_tail(severe_map(K, dev), geom, K, tail_k)
+    for K, tail_k, shape, lanes in TAIL_SHAPES:
+        args = engine_tail(severe_map(K, dev, shape, lanes),
+                           ci_geom(shape, geom), K, tail_k)
         N, rows = args[0][0].shape
         b = bound(N * (rows * 20 + args[1][0].shape[1] * 12),
                   8 * k3_box_distances(*args[:2], None, *args[4:]))
@@ -1651,19 +1685,20 @@ def phase_facade(dev):
 def check_facade_kernels(f, dev):
     """One facade study's kernels against their plain versions at the
     shapes the facade gives them: K1 and K2 at every ncp, K4 and K5 on the
-    first and a late residual, on its N4 operands (N 1, P
-    config.n4_mask_pad); K3 bit-equal on its defect coordinates at its CI
-    pad (the shape of both of the facade's pairwise calls).  Returns the
+    first and a late residual, on its N4 operands (N 1, P its lung's
+    pad, config.n4_pad_for); K3 bit-equal on its defect coordinates at its
+    CI pad (the shape of both of the facade's pairwise calls).  Returns the
     pad, whether the facade's first pairwise call overflowed (so that it
     retried at tail_k = pad), and the largest errors, as lists."""
     from ventjax_torch.compat import ci_module
+    from ventjax_torch.config import n4_pad_for
     from ventjax_torch.ops import ci_cuda
     from ventjax_torch.ops import ci_pairwise as tcp
     from ventjax_torch.pipeline import build_geometry
 
     hp = np.asarray(f.HPvent, np.float32)[None]
     mask = np.asarray(f.mask, np.float32)[None]
-    n4_pad = min(f.config.n4_mask_pad, hp[0].size)
+    n4_pad = n4_pad_for(f.config, int((mask > 0).sum()), hp[0].size)
     gen = np.random.default_rng(SEED + 302)
     errs = check_fit(hp, mask, n4_pad, dev, gen, freeze=False, k6_k7=False)
     errs.update(check_sharpen(hp, mask, n4_pad, dev))

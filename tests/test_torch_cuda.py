@@ -732,6 +732,112 @@ def test_run_cohort_on_card(cuda, tmp_path):
         assert (tmp_path / "gpu" / r["id"] / ".done").exists()
 
 
+def _bit_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and np.array_equal(a, b, equal_nan=True)
+
+
+def test_adult_studies_through_the_driver_and_the_facade_on_card(
+        cuda, tmp_path, capsys):
+    """Four adult studies (256x256x16 at 1.5x1.5x10 mm: a 188,304-voxel
+    lung, 10 defects of radius 12, 16, 20 voxels as in the benchmark's
+    adult mix, 18,000-23,600 defect voxels each) at the command line's
+    defaults plus --max-defect 32768.  run_cohort sizes N4's pad from the
+    lung (188,416) and grows the CI pad to 32,768, no flag standing, and
+    every study's N4 image over the lung, defect and CI maps and metrics
+    are bit-equal to analyze_cohort at the same pads.  The facade that
+    ``analyze`` runs takes the lung's N4 pad and its defect count's CI pad,
+    bit-equal to analyze_cohort there, and ``analyze`` prints its
+    metrics."""
+    import argparse
+    import json
+
+    from ventjax_torch import cli
+    from ventjax_torch.compat import Vent_Analysis, ci_module
+    from ventjax_torch.config import n4_pad_for
+    from ventjax_torch.io import nifti
+    from ventjax_torch.io.phantom import make_phantom
+    from ventjax_torch.io.synthetic import write_study
+    from ventjax_torch.pipeline import cohort as tc
+
+    shape, vox, lung_voxels = (256, 256, 16), (1.5, 1.5, 10.0), 188_304
+    manifest = []
+    for i in range(4):
+        root = tmp_path / f"s{i}"
+        write_study(str(root), phantom=make_phantom(
+            shape=shape, vox=vox, seed=90 + i, n_defects=10,
+            defect_radius_vox=(12.0, 16.0, 20.0)), with_proton=False)
+        manifest.append({"id": f"s{i}", "xenon": f"{root}/xenon.dcm",
+                         "mask": f"{root}/mask"})
+    decoded = [tc._decode_subject(e) for e in manifest]
+    hp = torch.from_numpy(np.stack([d[0] for d in decoded]).astype(
+        np.float32)).to(cuda)
+    mask_np = np.stack([d[1] for d in decoded]).astype(np.float32)
+    mask = torch.from_numpy(mask_np).to(cuda)
+    assert int((mask_np[0] > 0).sum()) == lung_voxels
+
+    cfg = cli._config(argparse.Namespace(deterministic=False,
+                                         max_defect=32768))
+    runners = {}
+    got = {r["id"]: r for r in tc.run_cohort(
+        manifest, str(tmp_path / "cohort"), config=cfg, batch_size=4,
+        resume=False, runners=runners, device=cuda)}
+    runner = next(iter(runners.values()))
+    assert (runner.ci_bucket, runner.n4_bucket) == (32768, 188_416)
+    pcfg = cfg.replace(ci_max_defect_voxels=runner.ci_bucket,
+                       n4_mask_pad=runner.n4_bucket,
+                       ci_tail_k=runner.ci_bucket if runner.ci_tail_full
+                       else cfg.ci_tail_k)
+    want = analyze_cohort(hp, mask, build_geometry(vox, shape, pcfg), pcfg)
+    for i, e in enumerate(manifest):
+        r = got[e["id"]]
+        assert r["valid"] and not r["CI_overflow"] and not r["N4_overflow"]
+        data = nifti.load(str(tmp_path / "cohort" / e["id"]
+                              / f"{e['id']}_dataArray.nii"))[0]
+        lung = mask_np[i] > 0
+        assert _bit_equal(data[..., 3][lung], want.n4[i].cpu().numpy()[lung])
+        assert _bit_equal(data[..., 4], want.defect[i].cpu().numpy())
+        assert _bit_equal(data[..., 5], want.ci_map[i].cpu().numpy())
+        for key, f in (("VDP", "vdp"), ("VDP_lb", "vdp_lb"),
+                       ("VDP_km", "vdp_km"), ("CI", "ci")):
+            assert _bit_equal(np.float32(r[key]), getattr(
+                want.metrics, f)[i].cpu().numpy()), (e["id"], key)
+
+    e = manifest[0]
+    v = Vent_Analysis(xenon_path=e["xenon"], mask_path=e["mask"],
+                      device=cuda)
+    v.calculate_VDP()
+    v.calculate_CI()
+    k = ci_module.defect_pad(v.defectArray)
+    assert int((v.defectArray != 0).sum()) <= k
+    fcfg = DEFAULT_CONFIG.replace(
+        ci_max_defect_voxels=k, ci_tail_k=k,
+        n4_mask_pad=n4_pad_for(DEFAULT_CONFIG, lung_voxels, mask_np[0].size))
+    assert fcfg.n4_mask_pad == 188_416
+    one = analyze_cohort(hp[:1], mask[:1], build_geometry(vox, shape, fcfg),
+                         fcfg)
+    assert not bool(one.metrics.ci_overflow[0] or one.metrics.n4_overflow[0])
+    lung = mask_np[0] > 0
+    assert _bit_equal(np.asarray(v.N4HPvent, np.float32)[lung],
+                      one.n4[0].cpu().numpy()[lung])
+    assert _bit_equal(v.defectArray,
+                      one.defect[0].cpu().numpy().astype(np.float64))
+    assert _bit_equal(np.asarray(v.CIarray, np.float32),
+                      one.ci_map[0].cpu().numpy())
+    for key, f in (("VDP", "vdp"), ("VDP_lb", "vdp_lb"), ("VDP_km", "vdp_km"),
+                   ("CI", "ci")):
+        assert _bit_equal(np.float32(v.metadata[key]),
+                          getattr(one.metrics, f)[0].cpu().numpy()), key
+
+    capsys.readouterr()
+    assert cli.main(["analyze", "--xenon", e["xenon"], "--mask", e["mask"],
+                     "--out", str(tmp_path / "analyze"), "--max-defect",
+                     "32768", "--device", "cuda"]) == 0
+    printed = json.loads(capsys.readouterr().out)
+    for key in ("VDP", "VDP_lb", "VDP_km", "CI"):
+        assert np.float32(printed[key]) == np.float32(v.metadata[key]), key
+
+
 def test_grouped_on_card_within_pipeline_tolerances(cuda):
     """Groups of 2 and of 1 against one batch of 4 on the card.  No float
     sum of the pipeline differs by batch size on the card any more

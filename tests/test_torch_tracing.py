@@ -151,6 +151,7 @@ def test_ci_row_counters_at_a_known_pad(K, tail_k, K2):
     calculate_ci_pairwise(defect, geom, K, tail_k=tail_k)
     got = {k: v - before[k] for k, v in ci_cuda.LAUNCHES.items()}
     assert got == {"head_counts": 0, "head_counts_rows": 3 * K,
+                   "head_counts_triples": 3 * K * K * 9,
                    "alias_min_d2_rows": 3 * K2, "tail_balls": 0}
 
 

@@ -792,7 +792,13 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ventjax_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    a = sub.add_parser("analyze", help="analyze one study and export reports")
+    a = sub.add_parser(
+        "analyze", help="analyze one study and export reports",
+        description="Analyze one study and export its reports.  N4's pad "
+        "and the CI pad are sized from the study itself (its lung, in "
+        "steps of 8192 voxels up to the volume; its defect count), so an "
+        "adult study (e.g. 256x256x16 at 1.5x1.5x10 mm, ~188,000 lung "
+        "voxels) runs whole at the defaults.")
     a.add_argument("--xenon", required=True)
     a.add_argument("--mask", default=None)
     a.add_argument("--proton", default=None)
@@ -917,7 +923,14 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(t)
     t.set_defaults(fn=_cmd_twix)
 
-    c = sub.add_parser("cohort", help="batched cohort run from a manifest")
+    c = sub.add_parser(
+        "cohort", help="batched cohort run from a manifest",
+        description="Batched cohort run from a manifest.  N4's pad is sized "
+        "from each batch's largest lung (steps of 8192 voxels up to the "
+        "volume) and the CI pad grows from 512 up to --max-defect.  An "
+        "adult cohort at the reference's voxels (256x256x16 at "
+        "1.5x1.5x10 mm, 9-14 % VDP: up to ~26,000 defect voxels a study) "
+        "takes --max-defect 32768.")
     c.add_argument("--manifest", required=True)
     c.add_argument("--out", required=True)
     c.add_argument("--batch", type=int, default=None)
@@ -949,7 +962,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "worst-case gap incl. the first kernel build; 0 "
                    "disables")
     c.add_argument("--max-defect", type=int, default=None,
-                   help="static bound on defect voxels for CI (default 8192)")
+                   help="ceiling of the CI pad, in defect voxels a study "
+                   "(default 8192; 32768 for an adult study at 256x256x16 "
+                   "and 1.5 mm in-plane); more is flagged CI_overflow")
     c.add_argument("--deterministic", action="store_true",
                    help="TF32 off and deterministic cuDNN")
     _add_device(c)

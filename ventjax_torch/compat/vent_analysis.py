@@ -29,7 +29,8 @@ import sys
 import numpy as np
 import torch
 
-from ventjax_torch.config import DEFAULT_CONFIG, REFERENCE_VERSION, VentConfig
+from ventjax_torch.config import (DEFAULT_CONFIG, REFERENCE_VERSION,
+                                  VentConfig, n4_pad_for)
 from ventjax_torch.io import dicom as dcm
 from ventjax_torch.ops.basic import gradient_border, sort_compact_masked
 from ventjax_torch.ops.kmeans import vdp_kmeans
@@ -250,14 +251,17 @@ class Vent_Analysis:
         """SNR -> N4 -> mean-anchored + linear-binning (+ k-means) VDP
         (Vent_Analysis.py:239-263, k-means stub made real), on the device.
 
-        N4's masked-voxel pad is ``config.n4_mask_pad``; k-means runs on
-        the dense N4 image compacted over the whole mask, as the
-        reference package's facade runs it."""
+        N4's masked-voxel pad is sized from the lung as the cohort driver
+        sizes it (``config.n4_pad_for``: steps of 8,192 up to the volume,
+        ``n4_mask_pad`` a cap only where the caller set it), so an adult
+        lung runs whole; k-means runs on the dense N4 image compacted over
+        the whole mask, as the reference package's facade runs it."""
         hp = self._on_device(self.HPvent)
         mask = self._on_device(self.mask)
         c = self.config
         self.metadata["SNR"] = float(_snr_op(hp, mask, c.snr_fov_buffer)[0])
-        n4 = self._n4(hp, mask, mask_pad=c.n4_mask_pad)
+        n4 = self._n4(hp, mask, mask_pad=n4_pad_for(
+            c, np.count_nonzero(np.asarray(self.mask) > 0), mask.numel()))
         self.N4HPvent = n4[0].cpu().numpy()
         defect, vdp = vdp_mean_anchored(n4, mask, thresh)
         self.defectArray = defect[0].cpu().numpy().astype(np.float64)

@@ -87,8 +87,12 @@ class VentConfig:
     n4_spline_order: int = 3
     # Control points per dimension at the coarsest level.
     n4_control_points: int = 4
-    # Bound on the masked voxels per lane in the compacted N4 iteration;
-    # more is flagged in StudyMetrics.n4_overflow.
+    # Masked voxels per lane in the compacted N4 iteration.  To
+    # analyze_cohort and analyze_study it is the pad: more is flagged in
+    # StudyMetrics.n4_overflow.  The cohort driver and the facade size the
+    # pad from the lung (n4_pad_for) and read this field as a cap only where
+    # it differs from this default, the reference package's value, which an
+    # adult lung exceeds: 65,536, given or not, caps nothing there.
     n4_mask_pad: int = 65536
     # B-spline fit route of the reference package (its Pallas kernels).
     n4_use_pallas: "bool | None" = None
@@ -111,6 +115,27 @@ class VentConfig:
 
 
 DEFAULT_CONFIG = VentConfig()
+
+#: The cohort driver and the facade size N4's pad in steps of this many
+#: voxels.
+N4_PAD_STEP = 8192
+
+
+def n4_pad_for(config: VentConfig, n_mask: int, volume: int) -> int:
+    """N4's masked-voxel pad for a lung of ``n_mask`` voxels in a volume of
+    ``volume`` voxels, as the cohort driver and the facade size it: the
+    next multiple of ``N4_PAD_STEP``, at most the volume.  ``n4_mask_pad``
+    caps it where it differs from its default; the default (65,536, the
+    reference package's: 1.47 L at 1.5x1.5x10 mm, less than an adult
+    lung) caps nothing here, whether a caller passed it or not.
+    ``analyze_cohort`` takes ``n4_mask_pad`` as the pad itself: the driver
+    hands it this size."""
+    cap = volume
+    if config.n4_mask_pad is not None \
+            and config.n4_mask_pad != DEFAULT_CONFIG.n4_mask_pad:
+        cap = min(cap, int(config.n4_mask_pad))
+    return min(cap, max(N4_PAD_STEP, -(-int(n_mask) // N4_PAD_STEP)
+                        * N4_PAD_STEP))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -35,13 +35,15 @@ MAX_COMBOS = 9
 PLAIN_ROWS = 256   # centers per block of the plain versions' [N, rows, Kw]
 # The CI kernels' launches and the rows they ran, since each count was last
 # set to 0: K3's launches; the [N, K] centre rows the K3 wrapper was entered
-# with (either route); K10's launches; the [N, rows] tail rows the K10
-# wrapper was entered with (either route).  That last count keeps the name
-# of the distance pass that ran the tail before K10 (``alias_min_d2``),
-# because the benchmark's ``ci_row_use`` reads it by that name.  Python
-# ints: counting reads nothing from the device.
-LAUNCHES = {"head_counts": 0, "head_counts_rows": 0, "alias_min_d2_rows": 0,
-            "tail_balls": 0}
+# with (either route), and its (centre, witness, alias combo) triples,
+# N x K x Kw x combos, the quadratic work it was handed; K10's launches; the
+# [N, rows] tail rows the K10 wrapper was entered with (either route).
+# That last count keeps the name of the distance pass that ran the tail
+# before K10 (``alias_min_d2``), because the benchmark's ``ci_row_use``
+# reads it by that name.  Python ints: counting reads nothing from the
+# device.
+LAUNCHES = {"head_counts": 0, "head_counts_rows": 0, "head_counts_triples": 0,
+            "alias_min_d2_rows": 0, "tail_balls": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -137,6 +139,7 @@ def head_counts(
         raise ValueError(f"head_counts: tensors on {centers[0].device} and "
                          f"{dev}")
     LAUNCHES["head_counts_rows"] += N * K
+    LAUNCHES["head_counts_triples"] += N * K * Kw * len(combos)
     if not route("head_counts", r2):
         return head_counts_plain(centers, witnesses, r2, combos, scale, rmax)
     lib = _lib()

@@ -12,10 +12,14 @@ several (``dist/mesh.py``):
 - subjects are grouped by geometry (shape, voxel size) and analysed in
   per-geometry batches by ``analyze_cohort`` (mixed-geometry manifests
   work, and each geometry gets its own CI engine from ``build_geometry``);
-- the CI defect pad and the N4 mask pad start small and grow (powers of
-  two, sticky per geometry) when a batch overflows; the batch is then
-  re-run, so results are never silently truncated.  The configured values
-  are the ceilings, beyond which the overflow flags stand;
+- the CI defect pad starts small and grows (powers of two, sticky per
+  geometry) when a batch overflows; the batch is then re-run, so results
+  are never silently truncated.  ``ci_max_defect_voxels`` is its ceiling,
+  beyond which the overflow flag stands.  The N4 mask pad is sized from
+  each batch's largest lung before it runs (``config.n4_pad_for``: steps
+  of 8,192 up to the volume, sticky per geometry), capped by
+  ``n4_mask_pad`` only where the caller set it, so an adult lung (188,304
+  voxels at 256x256x16 and 1.5x1.5x10 mm) runs whole at the defaults;
 - per-subject outputs (6-channel NIfTI, metrics JSON, DICOM header JSON,
   optional NPZ) are written by a small thread pool, at most two batches
   behind the device, with a ``.done`` marker written last, so a rerun
@@ -63,7 +67,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ventjax_torch.config import DEFAULT_CONFIG, VentConfig
+from ventjax_torch.config import (DEFAULT_CONFIG, N4_PAD_STEP, VentConfig,
+                                  n4_pad_for)
 from ventjax_torch.dist import mesh as dmesh
 from ventjax_torch.io import dicom as dcm
 from ventjax_torch.ops.basic import compact_mask_indices
@@ -253,7 +258,7 @@ class _GeometryRunner:
         # Sticky buckets: start small, grow on overflow, never shrink
         # within a run.
         self.ci_bucket = min(512, config.ci_max_defect_voxels)
-        self.n4_bucket = min(8192, config.n4_mask_pad)
+        self.n4_bucket = min(N4_PAD_STEP, self._n4_cap)
         # Set when a CI overflow persists at the pad ceiling (a tail-budget
         # overflow of the pairwise engine, not a defect-count overflow):
         # the CI tail then runs at full width (tail_k = the pad).
@@ -286,7 +291,8 @@ class _GeometryRunner:
 
     @property
     def _n4_cap(self) -> int:
-        return min(int(np.prod(self.shape)), self.config.n4_mask_pad)
+        V = int(np.prod(self.shape))
+        return n4_pad_for(self.config, V, V)
 
     @property
     def _ci_cap(self) -> int:
@@ -320,9 +326,8 @@ class _GeometryRunner:
                            + [np.zeros(self.shape, mdt)] * pad)
         max_mask = int((mask_np > 0).sum(axis=(1, 2, 3)).max())
         with self._bucket_lock:
-            self.n4_bucket = min(
-                max(self.n4_bucket, _pow2_at_least(max_mask, 8192)),
-                self._n4_cap)
+            self.n4_bucket = max(self.n4_bucket, n4_pad_for(
+                self.config, max_mask, int(np.prod(self.shape))))
             pads = (self.ci_bucket, self.n4_bucket, self.ci_tail_full)
             compact = (self.compact and pads[1] >= max_mask
                        and not self.ci_force_dense)
