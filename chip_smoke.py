@@ -854,8 +854,23 @@ def reset_counts():
             d[k] = 0
 
 
+# N4's captures and replays of an iteration's graph (ops/n4.py), which sit
+# in n4_cuda.LAUNCHES beside the launches but are none
+GRAPH_COUNTERS = ("n4_iter_graph_captures", "n4_iter_graph_replays")
+
+
 def launch_counts():
-    return {k: v for d in counters()[:-1] for k, v in d.items()}
+    return {k: v for d in counters()[:-1] for k, v in d.items()
+            if k not in GRAPH_COUNTERS}
+
+
+def graph_counts():
+    return {k: counters()[0][k] for k in GRAPH_COUNTERS}
+
+
+def graph_deltas(before):
+    """N4's captures and replays since ``before`` (a ``graph_counts``)."""
+    return {k: v - before[k] for k, v in graph_counts().items()}
 
 
 def phase_slice(hp, mask, n4_pad, dev):
@@ -886,7 +901,8 @@ def phase_slice(hp, mask, n4_pad, dev):
     torch.cuda.synchronize()
     launches = launch_counts()
     syncs = n4.HOST_SYNCS["n4"]
-    log(f"slice launches: {json.dumps(launches)}; N4 host syncs: {syncs}")
+    log(f"slice launches: {json.dumps(launches)}; N4 host syncs: {syncs}; "
+        f"N4 graphs: {json.dumps(graph_counts())}")
     path = ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
             "sharpen_resid", "head_counts", "tail_balls", "n4_field")
     if not all(launches[k] > 0 for k in path):
@@ -1153,13 +1169,15 @@ def phase_cohort(dev):
         out = os.path.join(root, "out")
         runners = {}
         analysis_s = []
+        graphs = []         # N4's captures and replays, one entry a batch
         dispatch = tc._GeometryRunner.dispatch
 
         def timed_dispatch(self, batch):
-            t = time.perf_counter()
+            t, g = time.perf_counter(), graph_counts()
             pack = dispatch(self, batch)
             torch.cuda.synchronize()
             analysis_s.append(time.perf_counter() - t)
+            graphs.append(graph_deltas(g))
             return pack
 
         tc._GeometryRunner.dispatch = timed_dispatch
@@ -1194,6 +1212,8 @@ def phase_cohort(dev):
         log(f"cohort launches: {json.dumps(launches)}; final pads ci "
             f"{runner.ci_bucket} n4 {runner.n4_bucket}; batches run "
             f"{len(analysis_s)}")
+        log("cohort N4 graphs (captures, replays) a batch: " + json.dumps(
+            [[g[k] for k in GRAPH_COUNTERS] for g in graphs]))
 
         # the first 16 against analyze_cohort on the same decoded volumes
         first = ids[:COHORT_BATCH]
@@ -1341,11 +1361,15 @@ def phase_serve(dev):
         warm_s = svc.prewarm([(SHAPE, VOX)])
         (runner,) = svc.runners.values()
         batches = []
+        graphs = []         # N4's captures and replays, one entry a batch
         dispatch = tc._GeometryRunner.dispatch
 
         def counted_dispatch(self, batch):
             batches.append(len(batch))
-            return dispatch(self, batch)
+            g = graph_counts()
+            pack = dispatch(self, batch)
+            graphs.append(graph_deltas(g))
+            return pack
 
         tc._GeometryRunner.dispatch = counted_dispatch
         try:
@@ -1403,10 +1427,14 @@ def phase_serve(dev):
         r3 = svc.scan_once()
         checks["fresh_arrival_pending"] = (r3.pending, r3.analyzed) == (1, 0)
         back_date(late, 60.0)
-        t_scan = time.time()
+        t_scan, g = time.time(), graph_counts()
         r4 = svc.scan_once()
         arrival_s = os.path.getmtime(os.path.join(out, "late", ".done")) \
             - t_scan
+        log("serve N4 graphs (captures, replays): scan 1 a batch "
+            + json.dumps([[b[k] for k in GRAPH_COUNTERS] for b in graphs])
+            + ", the late arrival " + json.dumps(
+                [graph_deltas(g)[k] for k in GRAPH_COUNTERS]))
         checks["arrival_analyzed_warm"] = (r4.analyzed == 1
                                            and len(svc.runners) == 1
                                            and svc.runners[runner.shape,
@@ -1643,7 +1671,8 @@ def phase_facade(dev):
         launches = launch_counts()
         checks["kernels_launched"] = all(launches[k] > 0 for k in n4_path) \
             and launches["head_counts"] >= 2
-        log(f"facade launches: {json.dumps(launches)}")
+        log(f"facade launches: {json.dumps(launches)}; N4 graphs: "
+            f"{json.dumps(graph_counts())}")
 
         # outside the counted run: the kernels at path g's shapes, and the
         # facade against analyze_study on the same arrays, on the card

@@ -33,7 +33,9 @@ one-call entry points; a slab's field rows bit-equal to the full field's;
 the pipeline over a (2, 4) mesh of the card, and over two gloo ranks
 sharing it, bit-equal to analyze_cohort.  The pipeline runs under the
 sync-debug mode "error" at both CI pads the benchmark's cells reach: every
-host wait on its path is a declared ``host_wait``.
+host wait on its path is a declared ``host_wait``, N4's graph captures
+included.  N4's level loop as CUDA graphs bit-equal to its eager loop, a
+later call replaying without a capture.
 """
 import numpy as np
 import pytest
@@ -411,6 +413,7 @@ def test_every_sync_of_the_pipeline_is_declared(cuda, pad, tail):
     hp, mask, _ = make_cohort(16, shape, vox, seed=0)
     hp, mask = torch.from_numpy(hp).to(cuda), torch.from_numpy(mask).to(cuda)
     geom = build_geometry(vox, shape, cfg)
+    tn4.clear_graphs()      # so N4 captures its graphs under the mode too
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -666,6 +669,116 @@ def test_n4_deterministic_on_card(cuda):
     assert sc.LAUNCHES["sharpen_resid"] == sc.LAUNCHES["sharpen_hist"]
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+def _n4_counted(run):
+    """(run(), launch and graph counter deltas, N4 syncs) on the card."""
+    counts = (n4_cuda.LAUNCHES, sc.LAUNCHES)
+    before, syncs = [dict(d) for d in counts], tn4.HOST_SYNCS["n4"]
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: v - was[k] for d, was in zip(counts, before)
+                 for k, v in d.items()}, tn4.HOST_SYNCS["n4"] - syncs
+
+
+@pytest.mark.parametrize("N, shape, pad", [(16, (128, 128, 16), 49152),
+                                           (3, (64, 64, 8), 8192)])
+def test_n4_graph_route_bit_equal_to_eager(cuda, monkeypatch, N, shape, pad):
+    """N4's level loop as one CUDA graph a level against the eager loop on
+    the card: the corrected image, the iteration counts (lanes frozen at
+    different iterations), the lattices and the compacted values
+    bit-equal, in the call that captures and in later ones; once the
+    allocator is warm a call only replays (one replay an iteration) and
+    allocates no more above what it holds between calls than the eager
+    loop does, its iterations' scratch held in the graphs' pool instead;
+    each call counts the eager loop's launches."""
+    hp, mask, _ = make_cohort(N, shape, (1.5, 1.5, 10.0), seed=4)
+    hp, mask = torch.from_numpy(hp).to(cuda), torch.from_numpy(mask).to(cuda)
+    tn4.clear_graphs()
+
+    def run():
+        """The outputs on the host: a call's peak holds no earlier call's."""
+        out = tn4.n4_bias_correction(hp, mask, mask_pad=pad,
+                                     return_iters=True, return_phi=True,
+                                     return_compacted=True)
+        return [t.cpu() for t in out[:3] + out[3]]
+
+    with monkeypatch.context() as m:
+        m.setattr(tn4, "_graphs_engage", lambda dev: False)
+        run()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        eager_held = torch.cuda.memory_allocated(cuda)
+        want, eager, syncs = _n4_counted(run)
+        eager_peak = torch.cuda.max_memory_allocated(cuda)
+    iters = want[1]
+    assert bool((iters != iters[:1]).any())
+    assert syncs == int(iters.max(0).values.sum())
+    kernels = ("fit_moment", "fit_delta_conv_field", "sharpen_hist",
+               "sharpen_resid")
+    assert eager["n4_iter_graph_captures"] == 0
+    assert eager["n4_iter_graph_replays"] == 0
+    for calls in range(4):
+        torch.cuda.reset_peak_memory_stats(cuda)
+        held = torch.cuda.memory_allocated(cuda)
+        got, counts, s = _n4_counted(run)
+        assert s == syncs
+        assert {k: counts[k] for k in kernels} == {k: eager[k]
+                                                   for k in kernels}
+        assert counts["n4_iter_graph_replays"] == syncs - counts[
+            "n4_iter_graph_captures"]
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        if calls == 0:
+            assert counts["n4_iter_graph_captures"] == 4
+        elif counts["n4_iter_graph_captures"] == 0:
+            break
+    # once the allocator is warm, a call finds its slots where the graphs
+    # were captured: it replays every iteration, and allocates no more
+    # than the eager loop above what each holds between calls (the graph
+    # route's standing state, such as the capture stream's tickets, is in
+    # the latter).  Its iterations' scratch is the graphs' pool, which the
+    # allocated peak leaves out: the route holds that pool beside what the
+    # eager loop holds
+    assert counts["n4_iter_graph_captures"] == 0
+    assert counts["n4_iter_graph_replays"] == syncs
+    assert torch.cuda.max_memory_allocated(cuda) - held \
+        <= eager_peak - eager_held
+    assert tn4.graph_pool_bytes() > 0
+
+
+def test_n4_graphs_keep_their_tickets_past_a_larger_batch(cuda, monkeypatch):
+    """K2's ticket buffer on the capture stream is replaced when a batch of
+    more lanes than it holds comes; the graphs captured on the old buffer
+    keep it.  Graphs captured at N 16, then graphs at N 96 on the same
+    stream, then N 16 again: the last calls replay and stay bit-equal to
+    the eager loop."""
+    shape, vox = (64, 64, 8), (1.5, 1.5, 10.0)
+    small, big = (tuple(torch.from_numpy(a).to(cuda) for a in make_cohort(
+        n, shape, vox, seed=n)[:2]) for n in (16, 96))
+
+    def run(hp, mask):
+        return tn4.n4_bias_correction(hp, mask, mask_pad=4096,
+                                      return_iters=True, return_phi=True)
+
+    with monkeypatch.context() as m:
+        m.setattr(tn4, "_graphs_engage", lambda dev: False)
+        want = run(*small)
+    tn4.clear_graphs()
+    for batch, captures in ((small, 4), (big, 4)):
+        _, counts, _ = _n4_counted(lambda: run(*batch))
+        assert counts["n4_iter_graph_captures"] == captures
+    # the larger batch replaced the capture stream's tickets
+    stream = tn4._STREAMS[tn4._place(cuda)].cuda_stream
+    assert n4_cuda._TICKETS[cuda.index, stream].numel() >= 96
+    for _ in range(3):
+        got, counts, _ = _n4_counted(lambda: run(*small))
+        if counts["n4_iter_graph_captures"] == 0:
+            break
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert counts["n4_iter_graph_captures"] == 0
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("vox,shape,rmax", [
