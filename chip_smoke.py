@@ -2663,18 +2663,23 @@ def capture_space(fn):
     """(fn(), the arguments of the first call of each of path l's kernel
     wrappers in it): the slab-shaped operands, for the plain checks."""
     from ventjax_torch.ops import ci_pairwise as tcp
-    from ventjax_torch.ops import n4_space
+    from ventjax_torch.ops import n4, n4_space
 
+    # the slab combiner's kernels in n4_space, K5 in the level loop's
+    # module (n4), the dense field on a slab's rows in n4_space; operands
+    # are copied, since the level loop writes its slots in place
     seen, undo = {}, []
     for mod, name in ((n4_space, "fit_moment_partial"),
                       (n4_space, "fit_delta_conv_field"),
                       (n4_space, "sharpen_hist_partial"),
-                      (n4_space, "sharpen_resid"), (n4_space, "n4_field"),
+                      (n4, "sharpen_resid"), (n4_space, "n4_field"),
                       (tcp, "head_counts")):
         real = getattr(mod, name)
 
         def spy(*a, _real=real, _name=name, **kw):
-            seen.setdefault(_name, (a, kw))
+            if _name not in seen:
+                seen[_name] = (tuple(t.clone() if isinstance(t, torch.Tensor)
+                                     else t for t in a), kw)
             return _real(*a, **kw)
 
         setattr(mod, name, spy)

@@ -269,14 +269,16 @@ def test_snr_over_slabs_bit_equal(fov):
                                equal_nan=True)
 
 
-def test_n4_slabs_close_to_unsharded_with_small_chunks(monkeypatch):
-    """N4 over slabs with chunks of 64 voxels (many owned chunks a slab,
-    tails across slabs) against n4_bias_correction."""
+@pytest.mark.parametrize("S", [1, 4])
+def test_n4_slabs_close_to_unsharded_with_small_chunks(monkeypatch, S):
+    """N4 over S slabs with chunks of 64 voxels (many owned chunks a slab,
+    tails across slabs) against n4_bias_correction: the slab combiner,
+    on one slab too, meets the one-list route."""
     monkeypatch.setattr(n4_cuda, "CHUNK", 64)
     monkeypatch.setattr(n4_space, "CHUNK", 64)
     hp, mask, _ = make_cohort(2, (32, 32, 8), VOX, seed=4)
     hp, mask = torch.from_numpy(hp), torch.from_numpy(mask)
-    N, V, S, P = 2, 32 * 32 * 8, 4, 1000
+    N, V, P = 2, 32 * 32 * 8, 1000
     comp = sort_compact_masked(hp.reshape(N, -1), mask.reshape(N, -1) > 0, P)
     kw = dict(fitting_levels=2, max_iters=6)
     want, ovf, iters, (_, cv_u, wv_u) = n4_bias_correction(

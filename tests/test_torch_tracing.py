@@ -195,8 +195,8 @@ def test_space_axis_n4_spans():
     spans = _spans(prof)
     counts = collections.Counter(s[0] for s in spans)
     assert counts["n4.level"] == 2
-    assert counts["n4.sync"] == counts["n4.iter"] == (
-        n4.HOST_SYNCS["n4"] - syncs) > 0
-    for child in ("n4.iter", "n4.sync", "n4.level"):
+    assert counts["n4.sync"] == counts["n4.iter"] == counts["n4.sharpen"] \
+        == counts["n4.fit"] == (n4.HOST_SYNCS["n4"] - syncs) > 0
+    for child in ("n4.iter", "n4.sharpen", "n4.fit", "n4.sync", "n4.level"):
         assert {_holder(spans, s) for s in spans if s[0] == child} == {
             PARENT[child]}, child

@@ -1,6 +1,7 @@
 // N4's B-spline fit kernels for Hopper (sm_90a), with a plain C interface.
 //
-// K1  vj_fit_moment            replaces ventjax/ops/n4_pallas.py:fit_moment_pallas
+// K1  vj_fit_moment_partial    replaces ventjax/ops/n4_pallas.py:fit_moment_pallas
+//     + vj_fit_moment_reduce
 //     mom[n, c, d*ncp+e] = sum_p a[n,p] br[n,c,p] bc[n,d,p] bs[n,e,p]
 //     (the Lee-BA fit numerator with cubed rows, denominator with squared).
 // K2  vj_fit_delta_conv_field  replaces n4_pallas.py:fit_delta_conv_field_pallas
@@ -18,12 +19,11 @@
 // fixed-order reductions are shared code, so K7's d and (s1, s2) equal
 // K2's with done = 0 bit for bit, and flush(K6) * wv equals K7's d.
 //
-// Split entry points, for a compacted list held in slabs (one launch per
-// slab, each over whole chunks of the list): vj_fit_moment_partial writes
-// K1's per-chunk partials and vj_fit_moment_reduce adds any concatenation
-// of them in chunk order; vj_fit_fold_stats folds K2's per-chunk
-// statistics (its part) as K2's last block does.  vj_fit_moment is the
-// first two in turn.
+// K1 is two launches: vj_fit_moment_partial writes its per-chunk partials
+// and vj_fit_moment_reduce adds any concatenation of them in chunk order,
+// so the slabs of a compacted list (one launch a slab, each over whole
+// chunks of the list) give one moment; vj_fit_fold_stats folds K2's
+// per-chunk statistics (its part) as K2's last block does.
 //
 // Layout: basis rows are [N, ncp, P] float32 (voxel index fastest, so a
 // warp reads 32 consecutive voxels of one row); vectors are [N, P]; the
@@ -776,15 +776,6 @@ extern "C" int vj_fit_moment_reduce(const float* part, float* out, int N,
   reduce_chunks<<<dim3((n3 + 255) / 256, N), 256, 0, (cudaStream_t)stream>>>(
       part, out, nchunk, n3);
   return (int)cudaGetLastError();
-}
-
-extern "C" int vj_fit_moment(const float* a, const float* br, const float* bc,
-                             const float* bs, float* part, float* out, int N,
-                             int P, int ncp, int nchunk, void* stream) {
-  const int err = vj_fit_moment_partial(a, br, bc, bs, part, N, P, ncp,
-                                        nchunk, stream);
-  if (err != 0) return err;
-  return vj_fit_moment_reduce(part, out, N, ncp, nchunk, stream);
 }
 
 // part: [N, nchunk, 4] chunk statistics of K2 (s1, s2, min, max), from one

@@ -1,6 +1,7 @@
 // N4's histogram-sharpen kernels for Hopper (sm_90a), with a plain C interface.
 //
-// K4  vj_sharpen_hist   replaces ventjax/ops/n4_pallas.py:sharpen_hist_pallas
+// K4  vj_sharpen_hist_partial + vj_sharpen_hist_finish
+//     replace ventjax/ops/n4_pallas.py:sharpen_hist_pallas
 //     hist[n, b] = sum_p wv (1 - f) [b = floor(t)] + wv f [b = floor(t) + 1],
 //     t = clip((logu - binmin) / slope, 0, bins - 1) * wv, f = t - floor(t);
 //     the fractional (triangle-kernel) histogram of each lane's masked
@@ -9,10 +10,10 @@
 //     a = flush((logu - interp(e_loc, t + 1) * wv) * wv) / max(sv, 1e-30),
 //     and 0 where wv = 0: the B-spline fit target from the expectation table
 //     e_loc [N, bins + 2] that the FFT chain between the two computes.
-// K4 is two launches, also callable one at a time: vj_sharpen_hist_partial
-// (the per-chunk fixed-point partials) and vj_sharpen_hist_finish (their
-// sum, over any concatenation of partials along the chunk axis, to
-// float32), so slabs of one lane give one histogram.
+// K4 is two launches: vj_sharpen_hist_partial (the per-chunk fixed-point
+// partials) and vj_sharpen_hist_finish (their sum, over any concatenation
+// of partials along the chunk axis, to float32), so slabs of one lane give
+// one histogram.
 //
 // Index guard.  A lane whose weights are all 0 has the range (+inf, -inf),
 // and a constant lane has slope 0; either way (logu - binmin) / slope can be
@@ -318,16 +319,6 @@ extern "C" int vj_sharpen_hist_finish(const void* part, float* hist, int N,
   hist_finish<<<dim3((bins + 31) / 32, N), THREADS, 0,
                 (cudaStream_t)stream>>>((const u64*)part, hist, bins, nchunk);
   return (int)cudaGetLastError();
-}
-
-extern "C" int vj_sharpen_hist(const float* logu, const float* wv,
-                               const float* binmin, const float* slope,
-                               void* part, float* hist, int N, int P, int bins,
-                               int nchunk, void* stream) {
-  const int err = vj_sharpen_hist_partial(logu, wv, binmin, slope, part, N,
-                                          P, bins, nchunk, stream);
-  if (err != 0) return err;
-  return vj_sharpen_hist_finish(part, hist, N, bins, nchunk, stream);
 }
 
 extern "C" int vj_sharpen_resid(const float* logu, const float* wv,

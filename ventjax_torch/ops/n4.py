@@ -25,13 +25,21 @@ The Python loop stops when every lane is done or at ``max_iters``; checking
 ``done.all()`` is one device-to-host sync per iteration, counted in
 ``HOST_SYNCS``.
 
+The level loop (``level_loop``) is written once, over a compacted list held
+in slabs: this module's call is a list of one, and ``ops/n4_space.py``'s
+``n4_slabs`` runs it over H-slabs.  The two differ only in how the slabs'
+per-chunk statistics become a lane's values, which a combiner holds:
+``_OneList`` calls the fused wrappers, ``n4_space._Slabs`` the kernels'
+split phases with one reduce across slabs.
+
 An iteration reads and writes only its level's slots, all views into one
-allocation of the call, laid out for the finest level (each of the six
-basis-row tensors a prefix of its slot at coarser levels) and freed when
-the loop ends.  On a card an iteration is one CUDA graph replay, not ~50
-launches.  A level whose signature (device, stream, N, P, ncp, the finest
-ncp, bins, the loop's float parameters and the address of the call's
-slots) has a graph kept replays it for every iteration.  Otherwise its
+allocation a slab (the per-lane state in the first slab's), laid out for
+the finest level (each of the six basis-row tensors a prefix of its slot
+at coarser levels) and freed when the loop ends.  On a card an iteration
+of one list is one CUDA graph replay, not ~50 launches.  A level whose
+signature (device, stream, N, P, ncp, the finest ncp, bins, the loop's
+float parameters and the address of the call's slots) has a graph kept
+replays it for every iteration.  Otherwise its
 first iteration runs eagerly on a capture stream and is captured there
 (``torch.cuda.CUDAGraph``), and the level's other iterations replay it.
 Once the caching allocator is warm a call of the same shapes gets its
@@ -43,10 +51,10 @@ longest ago dropped first.  A graph keeps alive K2's ticket buffer it was
 captured on (``n4_cuda._tickets``, replaced when a larger batch comes).
 The graphs of a device and stream share one memory pool, which holds the
 iterations' scratch; the caching allocator counts it as reserved, not as
-allocated (``graph_pool_bytes``).  CPU tensors, and a call made while a
-capture is under way, run every iteration eagerly.  ``n4_cuda.LAUNCHES``
-counts captures and replays (``n4_iter_graph_captures``,
-``n4_iter_graph_replays``).
+allocated (``graph_pool_bytes``).  CPU tensors, slabs, and a call made
+while a capture is under way run every iteration eagerly.
+``n4_cuda.LAUNCHES`` counts captures and replays
+(``n4_iter_graph_captures``, ``n4_iter_graph_replays``).
 
 Spans (``utils/profiling.stage``, recorded only under a profiler): one
 ``n4.level`` a fitting level (its basis rows and K1's denominator), inside
@@ -79,7 +87,7 @@ from ventjax_torch.oracle.n4_oracle import bspline_basis_1d
 from ventjax_torch.utils.profiling import host_wait, stage
 
 LOG2 = math.log(2.0)
-# Device-to-host syncs made by the level loops since this was set to 0.
+# Device-to-host syncs made by the level loop since this was set to 0.
 HOST_SYNCS = {"n4": 0}
 # Captured iterations kept (one a signature, the slots' address included:
 # four levels of four shapes).
@@ -324,38 +332,173 @@ def _capture(key, dev, step):
     return it
 
 
-def _iterate(s, lv, bins, fwhm, wiener_noise, padded, offset, threshold):
-    """One N4 iteration for every lane, in place on the level's state ``s``
-    (field, logu, bmn, bmx, phi, itc, done) from its inputs ``lv``: every
-    tensor it reads or writes across iterations is one of their slots, so
-    a captured iteration replays on what the slots hold."""
+class _OneList:
+    """The level loop's combiner for one list: the fused wrappers.  Each
+    operation takes one entry a slab, here the one."""
+
+    @staticmethod
+    def total(parts):
+        (x,) = parts
+        return x
+
+    low = high = total    # the lanes' sum, min and max over the slabs
+
+    @staticmethod
+    def hist(args, bins):
+        return sharpen_hist(*args[0], bins)
+
+    @staticmethod
+    def moment(args):
+        return fit_moment(*args[0])
+
+    @staticmethod
+    def fit(args):
+        field, logu, stats = fit_delta_conv_field(*args[0])
+        return [field], [logu], stats
+
+
+def _iterate(comb, lane, slabs, bins, fwhm, wiener_noise, padded, offset,
+             threshold):
+    """One N4 iteration for every lane, in place on the per-lane state
+    ``lane`` (phi, done, itc, bmn, bmx) and each slab's field and logu;
+    ``comb`` gives each lane its values from the slabs'.  Every tensor it
+    reads or writes across iterations is a slot, so a captured iteration
+    replays on what the slots hold."""
     with stage("n4.sharpen"):
         # one slope tensor bins every voxel for K4, the table and K5
-        slope = (s.bmx - s.bmn) / (bins - 1)
-        hist = sharpen_hist(s.logu, lv.wv, s.bmn, slope, bins)
-        e_loc = _sharpen_expectation(hist, s.bmn, slope, bins, fwhm,
+        slope = (lane.bmx - lane.bmn) / (bins - 1)
+        rep = [(lane.bmn.to(x.dev), slope.to(x.dev)) for x in slabs]
+        hist = comb.hist([(x.logu, x.wv, *r) for x, r in zip(slabs, rep)],
+                         bins)
+        e_loc = _sharpen_expectation(hist, lane.bmn, slope, bins, fwhm,
                                      wiener_noise, padded, offset)
-        a = sharpen_resid(s.logu, lv.wv, lv.sv, e_loc, s.bmn, slope, bins)
+        a = [sharpen_resid(x.logu, x.wv, x.sv, e_loc.to(x.dev), *r, bins)
+             for x, r in zip(slabs, rep)]
     with stage("n4.fit"):
-        num = fit_moment(a, lv.br3, lv.bc3, lv.bs3)
-        phi = torch.where(lv.den_nz, num / lv.den_safe, torch.zeros_like(num))
-        field, logu, stats = fit_delta_conv_field(
-            phi, lv.br1, lv.bc1, lv.bs1, lv.wv, s.field, lv.logv,
-            s.done.to(torch.float32))
-        s.field.copy_(field)
-        s.logu.copy_(logu)
+        num = comb.moment([(ax, *x.r3) for ax, x in zip(a, slabs)])
+        phi = torch.where(lane.den_nz, num / lane.den_safe,
+                          torch.zeros_like(num))
+        done = lane.done.to(torch.float32)
+        field, logu, stats = comb.fit([
+            (phi.to(x.dev), *x.r1, x.wv, x.field, x.logv, done.to(x.dev))
+            for x in slabs])
+        for x, f, lu in zip(slabs, field, logu):
+            x.field.copy_(f)
+            x.logu.copy_(lu)
         # K4 and K5 read bmn, so it is a slot of its own, not a strided view
-        s.bmn.copy_(stats[:, 2])
-        s.bmx.copy_(stats[:, 3])
+        lane.bmn.copy_(stats[:, 2])
+        lane.bmx.copy_(stats[:, 3])
         s1, s2 = stats[:, 0], stats[:, 1]
         # ITK convergence: CV of exp(-delta) over the mask, from the
         # cancellation-free (e^-delta - 1) moments.
-        mu = 1.0 + s1 / lv.nmask
-        var = ((s2 - s1 * s1 / lv.nmask) / lv.nmask).clamp_min(0.0)
+        mu = 1.0 + s1 / lane.nmask
+        var = ((s2 - s1 * s1 / lane.nmask) / lane.nmask).clamp_min(0.0)
         cv = torch.sqrt(var) / mu
-        torch.where(s.done[:, None, None], s.phi, s.phi + phi, out=s.phi)
-        s.itc += (~s.done).to(torch.int32)
-        s.done |= cv < threshold
+        torch.where(lane.done[:, None, None], lane.phi, lane.phi + phi,
+                    out=lane.phi)
+        lane.itc += (~lane.done).to(torch.int32)
+        lane.done |= cv < threshold
+
+
+def n4_ncps(fitting_levels: int = 4, control_points: int = 4):
+    """The control points per axis of each fitting level."""
+    return [(control_points - 3) * 2 ** level + 3
+            for level in range(fitting_levels)]
+
+
+def level_loop(comb, runs, shape, ncps, max_iters, threshold, bins, fwhm,
+               wiener_noise, place=None, corrected=False):
+    """N4's fitting levels over a compacted list held in slabs.
+
+    ``runs[s] = (idx, raw, valid)`` [N, P_s]: slab s's global flat indices,
+    raw float32 values and the slots that hold a list entry, on its device
+    (one slab: the whole list, ``comb`` ``_OneList``).  ``place`` (one list
+    on a card, its lock held) takes the graph route.  Returns (each level's
+    phi total, each level's iteration counts [N], and with ``corrected``
+    each slab's raw values times exp(-field)); the slots go on return."""
+    H, W, D = shape
+    N = runs[0][1].shape[0]
+    padded = _next_pow2_padded(bins)
+    offset = (padded - bins) // 2
+    slabs = []
+    for idx, raw, valid in runs:
+        x = SimpleNamespace(dev=raw.device, P=raw.shape[1], raw=raw)
+        x.slots = _Slots(x.dev, _layout(N, x.P, max(ncps)))
+        x.wv = x.slots.put("wv", (valid & (raw > 0)).to(torch.float32))
+        x.logv = x.slots.put("logv", torch.log(torch.where(
+            x.wv > 0, raw.clamp_min(1.0e-30), torch.ones_like(raw))) * x.wv)
+        x.coords = (idx // (W * D), (idx // D) % W, idx % D)
+        x.field = x.slots.zeros("field", (N, x.P))
+        slabs.append(x)
+    s0 = slabs[0].slots
+    lane = SimpleNamespace(nmask=s0.put("nmask", comb.total(
+        [x.wv.sum(1) for x in slabs])))
+    phi_totals, level_iters = [], []
+    for ncp in ncps:
+        with stage("n4.level"):
+            # the level's inputs and state in namespaces of its own: an
+            # iteration (and a graph captured from it) reads and writes
+            # their tensors only
+            slabs = [SimpleNamespace(**vars(x)) for x in slabs]
+            lane = SimpleNamespace(nmask=lane.nmask)
+            # each voxel's basis rows gathered from its axes' tables: the
+            # same values, with no [N, P, ncp] temporaries of the basis'
+            # arithmetic
+            bases = [[_bspline_rows(torch.arange(n, device=x.dev), n,
+                                    ncp - 3)[c]
+                      for c, n in zip(x.coords, (H, W, D))] for x in slabs]
+            for x, b in zip(slabs, bases):
+                x.sv = x.slots.put("sv", (b[0] ** 2).sum(2)
+                                   * (b[1] ** 2).sum(2) * (b[2] ** 2).sum(2))
+                x.r1, x.r3 = ([x.slots.empty(f"{a}{k}", (N, ncp, x.P))
+                               for a in ("br", "bc", "bs")] for k in (1, 3))
+            # K1's denominator from the squared rows, written where the
+            # cubed rows go next (each slab's stream orders the two)
+            den = comb.moment([
+                (x.wv, *(_rows(bv, 2, out=r) for bv, r in zip(b, x.r3)))
+                for x, b in zip(slabs, bases)])
+            for x, b in zip(slabs, bases):
+                for bv, r1, r3 in zip(b, x.r1, x.r3):
+                    _rows(bv, 1, out=r1)
+                    _rows(bv, 3, out=r3)
+            lane.den_nz = s0.put("den_nz", den != 0.0)
+            lane.den_safe = s0.put("den_safe", torch.where(
+                lane.den_nz, den, torch.ones_like(den)))
+            del bases, den
+
+            lane.phi = s0.zeros("phi", (N, ncp, ncp * ncp))
+            lane.done = s0.zeros("done", (N,), torch.bool)
+            lane.itc = s0.zeros("itc", (N,), torch.int32)
+            for x in slabs:
+                x.logu = x.slots.put("logu", (x.logv - x.field) * x.wv)
+            rng = [_masked_range(x.logu, x.wv) for x in slabs]
+            lane.bmn = s0.put("bmn", comb.low([r[0] for r in rng]))
+            lane.bmx = s0.put("bmx", comb.high([r[1] for r in rng]))
+            step = functools.partial(
+                _iterate, comb, lane, slabs, bins, fwhm, wiener_noise, padded,
+                offset, threshold)
+
+            key = place and place + (
+                N, slabs[0].P, ncp, max(ncps), bins, float(fwhm),
+                float(wiener_noise), float(threshold), s0.base)
+            graph = key and _lookup(key)
+            for _ in range(max_iters):
+                with stage("n4.iter"):
+                    if graph is not None:
+                        graph.replay()
+                    elif key:
+                        graph = _capture(key, runs[0][1].device, step)
+                    else:
+                        step()
+                    HOST_SYNCS["n4"] += 1
+                    with host_wait("n4.sync"):
+                        if bool(lane.done.all()):
+                            break
+        level_iters.append(lane.itc.clone())
+        phi_totals.append(lane.phi.clone())
+    vals = ([x.raw * torch.exp(-x.field) for x in slabs] if corrected
+            else None)
+    return phi_totals, level_iters, vals
 
 
 def n4_bias_correction(
@@ -395,102 +538,24 @@ def n4_bias_correction(
     P = V if mask_pad is None else min(int(mask_pad), V)
     img = image.to(torch.float32)
     dev = img.device
-    ar = torch.arange(P, device=dev)
 
     if compacted is None:
         m = (mask > 0) & (img > 0)
         idx, raw_vals, n_mask = sort_compact_masked(
             img.reshape(N, -1), m.reshape(N, -1), P)
-        wv = (ar[None, :] < n_mask[:, None]).to(torch.float32)
     else:
         idx, raw_vals, n_mask = compacted
         raw_vals = raw_vals.to(torch.float32)
-        wv = ((ar[None, :] < n_mask[:, None]) & (raw_vals > 0)).to(
-            torch.float32)
+    valid = torch.arange(P, device=dev)[None, :] < n_mask[:, None]
     overflow = n_mask > P
 
-    ncps = [(control_points - 3) * 2 ** level + 3
-            for level in range(fitting_levels)]
-    padded = _next_pow2_padded(bins)
-    offset = (padded - bins) // 2
+    ncps = n4_ncps(fitting_levels, control_points)
     place = _place(dev) if _graphs_engage(dev) else None
-    phi_totals = []
-    level_iters = []
     with _held(place, dev) if place else contextlib.nullcontext():
-        slots = _Slots(dev, _layout(N, P, max(ncps)))
-        wv = slots.put("wv", wv)
-        vals = raw_vals.clamp_min(1.0e-30)
-        logv = slots.put("logv", torch.log(
-            torch.where(wv > 0, vals, torch.ones_like(vals))) * wv)
-        nmask = slots.put("nmask", wv.sum(1))
-        hc = idx // (W * D)
-        wc = (idx // D) % W
-        sc = idx % D
-        field = slots.zeros("field", (N, P))
-        for ncp in ncps:
-            with stage("n4.level"):
-                # each voxel's basis rows gathered from its axes' tables:
-                # the same values, with no [N, P, ncp] temporaries of the
-                # basis' arithmetic
-                brv, bcv, bsv = (
-                    _bspline_rows(torch.arange(n, device=dev), n,
-                                  ncp - 3)[c]
-                    for c, n in ((hc, H), (wc, W), (sc, D)))
-                # the level's inputs and state: an iteration (and a graph
-                # captured from it) reads and writes these tensors only
-                lv = SimpleNamespace(wv=wv, logv=logv, nmask=nmask)
-                lv.sv = slots.put("sv", (brv ** 2).sum(2) * (bcv ** 2).sum(2)
-                                  * (bsv ** 2).sum(2))
-                axes = (("br", brv), ("bc", bcv), ("bs", bsv))
-                for name, _ in axes:
-                    for k in (1, 3):
-                        setattr(lv, f"{name}{k}", slots.empty(
-                            f"{name}{k}", (N, ncp, P)))
-                # K1's denominator from the squared rows, written where the
-                # cubed rows go next (the same stream orders the two)
-                den = fit_moment(wv, *(_rows(bv, 2, out=getattr(
-                    lv, f"{name}3")) for name, bv in axes))
-                for name, bv in axes:
-                    for k in (1, 3):
-                        _rows(bv, k, out=getattr(lv, f"{name}{k}"))
-                lv.den_nz = slots.put("den_nz", den != 0.0)
-                lv.den_safe = slots.put("den_safe", torch.where(
-                    lv.den_nz, den, torch.ones_like(den)))
-                del brv, bcv, bsv, axes, den
-
-                st = SimpleNamespace(
-                    field=field, phi=slots.zeros("phi", (N, ncp, ncp * ncp)),
-                    done=slots.zeros("done", (N,), torch.bool),
-                    itc=slots.zeros("itc", (N,), torch.int32),
-                    logu=slots.put("logu", (logv - field) * wv))
-                bmn, bmx = _masked_range(st.logu, wv)
-                st.bmn, st.bmx = slots.put("bmn", bmn), slots.put("bmx", bmx)
-                step = functools.partial(
-                    _iterate, st, lv, bins, fwhm, wiener_noise, padded,
-                    offset, convergence_threshold)
-
-                key = place and place + (
-                    N, P, ncp, max(ncps), bins, float(fwhm),
-                    float(wiener_noise), float(convergence_threshold),
-                    slots.base)
-                graph = key and _lookup(key)
-                for _ in range(max_iters):
-                    with stage("n4.iter"):
-                        if graph is not None:
-                            graph.replay()
-                        elif key:
-                            graph = _capture(key, dev, step)
-                        else:
-                            step()
-                        HOST_SYNCS["n4"] += 1
-                        with host_wait("n4.sync"):
-                            if bool(st.done.all()):
-                                break
-            level_iters.append(st.itc.clone())
-            phi_totals.append(st.phi.clone())
-        if return_compacted:
-            corrected_vals = raw_vals * torch.exp(-field)
-        del st, lv, step, wv, logv, nmask, field, slots
+        phi_totals, level_iters, vals = level_loop(
+            _OneList, [(idx, raw_vals, valid)], (H, W, D), ncps, max_iters,
+            convergence_threshold, bins, fwhm, wiener_noise, place=place,
+            corrected=return_compacted)
 
     # Dense field: every level's lattice on the full grid in one kernel
     # (ops/n4_field_cuda.py), each voxel summed in one written order, so a
@@ -509,15 +574,13 @@ def n4_bias_correction(
     if return_phi:
         out = out + (phi_flat,)
     if return_compacted:
-        wv_mask_only = (ar[None, :] < n_mask[:, None]).to(torch.float32)
-        out = out + ((idx, corrected_vals, wv_mask_only),)
+        out = out + ((idx, vals[0], valid.to(torch.float32)),)
     return out if len(out) > 1 else out[0]
 
 
 def n4_phi_sizes(fitting_levels: int = 4, control_points: int = 4):
     """Per-level flat lattice sizes of the return_phi vector."""
-    return [((control_points - 3) * 2 ** level + 3) ** 3
-            for level in range(fitting_levels)]
+    return [ncp ** 3 for ncp in n4_ncps(fitting_levels, control_points)]
 
 
 def n4_field_from_phi_np(
@@ -538,9 +601,8 @@ def n4_field_from_phi_np(
     H, W, D = shape
     field = np.zeros((H, W, D), np.float64)
     off = 0
-    for level in range(fitting_levels):
-        n_elements = (control_points - 3) * 2 ** level
-        ncp = n_elements + 3
+    for ncp in n4_ncps(fitting_levels, control_points):
+        n_elements = ncp - 3
         k = ncp ** 3
         phi = np.asarray(phi_flat[off:off + k], np.float64).reshape(
             ncp, ncp, ncp)

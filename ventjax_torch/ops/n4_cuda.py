@@ -67,8 +67,6 @@ def _typed(lib):
     if not getattr(lib, "_vj_typed", False):
         lib.vj_n4_chunk.argtypes = []
         lib.vj_n4_chunk.restype = _I
-        lib.vj_fit_moment.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-        lib.vj_fit_moment.restype = _I
         lib.vj_fit_moment_partial.argtypes = [_P] * 5 + [_I] * 4 + [_P]
         lib.vj_fit_moment_partial.restype = _I
         lib.vj_fit_moment_reduce.argtypes = [_P] * 2 + [_I] * 3 + [_P]
@@ -145,10 +143,13 @@ def fit_moment(a, br, bc, bs):
     out = torch.empty((N, ncp, ncp * ncp), device=a.device,
                       dtype=torch.float32)
     with torch.cuda.device(a.device):
-        rc = lib.vj_fit_moment(
+        # the two phases in turn, counted as one call
+        rc = lib.vj_fit_moment_partial(
             a.data_ptr(), br.data_ptr(), bc.data_ptr(), bs.data_ptr(),
-            part.data_ptr(), out.data_ptr(), N, P, ncp, nchunk,
-            stream(a.device))
+            part.data_ptr(), N, P, ncp, nchunk, stream(a.device))
+        if rc == 0:
+            rc = lib.vj_fit_moment_reduce(part.data_ptr(), out.data_ptr(), N,
+                                          ncp, nchunk, stream(a.device))
     raise_on(rc, "fit_moment")
     LAUNCHES["fit_moment"] += 1
     return out

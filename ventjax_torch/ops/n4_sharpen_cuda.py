@@ -56,8 +56,6 @@ def _typed(lib):
         lib.vj_sharpen_chunk.restype = _I
         lib.vj_sharpen_max_slots.argtypes = []
         lib.vj_sharpen_max_slots.restype = _I
-        lib.vj_sharpen_hist.argtypes = [_P] * 6 + [_I] * 4 + [_P]
-        lib.vj_sharpen_hist.restype = _I
         lib.vj_sharpen_hist_partial.argtypes = [_P] * 5 + [_I] * 4 + [_P]
         lib.vj_sharpen_hist_partial.restype = _I
         lib.vj_sharpen_hist_finish.argtypes = [_P] * 2 + [_I] * 3 + [_P]
@@ -158,10 +156,15 @@ def sharpen_hist(logu, wv, binmin, slope, bins):
                        device=logu.device)
     hist = torch.empty((N, bins), dtype=torch.float32, device=logu.device)
     with torch.cuda.device(logu.device):
-        rc = lib.vj_sharpen_hist(
+        # the two phases in turn, counted as one call
+        rc = lib.vj_sharpen_hist_partial(
             logu.data_ptr(), wv.data_ptr(), binmin.data_ptr(),
-            slope.data_ptr(), part.data_ptr(), hist.data_ptr(), N, P, bins,
-            nchunk, stream(logu.device))
+            slope.data_ptr(), part.data_ptr(), N, P, bins, nchunk,
+            stream(logu.device))
+        if rc == 0:
+            rc = lib.vj_sharpen_hist_finish(part.data_ptr(), hist.data_ptr(),
+                                            N, bins, nchunk,
+                                            stream(logu.device))
     raise_on(rc, "sharpen_hist")
     LAUNCHES["sharpen_hist"] += 1
     return hist
