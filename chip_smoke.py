@@ -20,8 +20,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    K3 (on severe-load maps at K 1024, 2048, 4096, and at the adult
    cell's K = Kw = 32,768 on two lanes of 256x256x16), K10 (on the CI
    engine's tails of severe-load maps at the three benchmark cells' tail
-   shapes, the adult's on two lanes, against its plain version, the sort
-   path), K9, K8 bit-equal
+   shapes, the adult's on two lanes, and on the adult cell's batch of 16
+   moderate studies, against its plain version, the sort path, with its
+   window and resident blocks an SM logged), K9, K8 bit-equal
    (integers, and copied values), K9 also at ragged V (4,112, 100,003), on
    rows whose flags lie only in their last tile, and on a relaunch right
    after a call of another shape (its workspace is left zero); N4's
@@ -214,7 +215,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    run;
 6. with --parent DIR: DIR/n4_fit.cu, DIR/n4_sharpen.cu, DIR/ci_head.cu and
    DIR/ci_densify.cu (an older version of those sources, with the same C
-   interfaces; the dense-field kernel is this tree's in both arms) built
+   interfaces: a ci_head.cu whose K10 already takes its window of balls;
+   the dense-field kernel is this tree's in both arms) built
    under their own names and timed against this tree in turns (older,
    this, this, older): K1 and K2 at every ncp, K6 and K7 at ncp 11, K4 and K5 on both residuals, K3 at K 512, 2048 and 4096, K9 and
    K8 at K 512 and 4096.  Required bit-equal to them: K4, K5, K3, K9, K8,
@@ -247,6 +249,7 @@ nothing else.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -776,57 +779,117 @@ def engine_tail(defect, geom, K, tail_k=None):
 # the cohort's tail (pad 512, 256 tail rows), the severe cohort's (pad
 # 8,192, the tail at full width) and the adult cell's (pad 32,768 at
 # 256x256x16, the tail at full width; two lanes keep the plain sort path
-# under two seconds a call).
+# under two seconds a call).  Beside them K10 runs at the adult cell's
+# whole batch (``adult_tail``).
 TAIL_SHAPES = ((512, None, SHAPE, BATCH), (8192, 8192, SHAPE, BATCH),
                (32768, 32768, ADULT_SHAPE, ADULT_LANES))
+ADULT_CELL = "adult.moderate16"
 # K3's shapes held bit-equal to its plain version, (pad = witnesses, shape,
 # lanes): severe-load maps at 128x128x16, and the adult cell's pad.
 HEAD_SHAPES = ((1024, SHAPE, BATCH), (2048, SHAPE, BATCH),
                (4096, SHAPE, BATCH), (32768, ADULT_SHAPE, ADULT_LANES))
 
 
-def check_tail(geom, dev):
-    """K10 at the three cells' tail shapes, on severe-load maps: one launch
-    each, bit-equal to its plain version (the sort path) and to a
-    relaunch."""
+@functools.lru_cache(maxsize=1)
+def adult_tail(dev):
+    """K10's arguments in the adult cell (ADULT_CELL): one call batch of
+    its mix (portbench's generator at seed SEED) through analyze_cohort at
+    its configuration, the CI tail at full width, as the benchmark grows
+    it.  Made once (~40 s of N4 and CI on the card)."""
+    from portbench.generate import make_studies
+    from portbench.harness import N4_PAD_STEP, ROOT, load_cell
+    from ventjax_torch.config import DEFAULT_CONFIG
+    from ventjax_torch.ops import ci_pairwise as tcp
+    from ventjax_torch.pipeline import analyze_cohort, build_geometry
+
+    spec = load_cell(ROOT, ADULT_CELL)
+    shape, vox = tuple(spec.config["shape"]), tuple(spec.config["vox"])
+    n = int(spec.traffic["studies_per_call"])
+    hp, mask = make_studies(n, shape, vox, SEED, dev,
+                            **spec.traffic["phantom"])
+    fields = {k: (tuple(v) if isinstance(v, list) else v)
+              for k, v in spec.config["pipeline"].items()}
+    most = int((mask > 0).reshape(n, -1).sum(1).max())
+    cfg = DEFAULT_CONFIG.replace(
+        n4_mask_pad=min(int(np.prod(shape)),
+                        -(-most // N4_PAD_STEP) * N4_PAD_STEP), **fields)
+    cfg = cfg.replace(ci_tail_k=cfg.ci_max_defect_voxels)
+    seen, real = [], tcp.tail_balls
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+    tcp.tail_balls = spy
+    try:
+        analyze_cohort(hp, mask, build_geometry(vox, shape, cfg), cfg)
+    finally:
+        tcp.tail_balls = real
+    return seen[0]
+
+
+def tail_cases(geom, dev):
+    """(name, K10's arguments) at TAIL_SHAPES (by pad) and the adult
+    cell's batch."""
+    for K, tail_k, shape, lanes in TAIL_SHAPES:
+        yield f"K{K}", engine_tail(severe_map(K, dev, shape, lanes),
+                                   ci_geom(shape, geom), K, tail_k)
+    yield "adult16", adult_tail(dev)
+
+
+def tail_window_of(args):
+    """(balls a window, resident blocks an SM) of K10 at these arguments."""
     from ventjax_torch.ops import ci_cuda
 
-    for K, tail_k, shape, lanes in TAIL_SHAPES:
-        args = engine_tail(severe_map(K, dev, shape, lanes),
-                           ci_geom(shape, geom), K, tail_k)
+    return ci_cuda.tail_launch(args[2].device, args[2].shape[0],
+                               args[1][0].shape[1], len(args[4]))
+
+
+def check_tail(geom, dev):
+    """K10 at the three cells' tail shapes and the adult cell's batch: one
+    launch each, bit-equal to its plain version (the sort path) and to a
+    relaunch, with at least TAIL_BLOCKS blocks resident an SM."""
+    from ventjax_torch.ops import ci_cuda
+
+    for name, args in tail_cases(geom, dev):
         before = ci_cuda.LAUNCHES["tail_balls"]
         got = ci_cuda.tail_balls(*args)
         launched = ci_cuda.LAUNCHES["tail_balls"] - before
         equal = bool(torch.equal(got, ci_cuda.tail_balls_plain(*args))) \
             and bool(torch.equal(got, ci_cuda.tail_balls(*args)))
-        log(f"K10 tail_balls N={args[0][0].shape[0]} rows="
+        bins, blocks = tail_window_of(args)
+        log(f"K10 tail_balls {name} N={args[0][0].shape[0]} rows="
             f"{args[0][0].shape[1]} Kw={args[1][0].shape[1]} "
-            f"nb={args[2].shape[0]}: bit_equal={equal} launches={launched}")
+            f"nb={args[2].shape[0]} bins={bins} resident_blocks={blocks}: "
+            f"bit_equal={equal} launches={launched}")
         if not equal or launched != 1:
             raise AssertionError(f"K10 differs from its plain version or "
-                                 f"did not launch at pad {K}")
+                                 f"did not launch ({name})")
+        if blocks < ci_cuda.TAIL_BLOCKS:
+            raise AssertionError(f"K10 holds {blocks} blocks an SM, not "
+                                 f"{ci_cuda.TAIL_BLOCKS} ({name})")
 
 
 def tail_records(geom, dev):
-    """K10's device ms at the three cells' tail shapes beside its plain
-    version's (by CUDA events: at the severe tail one call is ~8,000
-    launches and ~0.8 s, too many activities for a profiler session and
-    too long for launch gaps to matter) and its bound (K3's: 8 float32
-    operations a box distance)."""
+    """K10's device ms at the three cells' tail shapes and the adult cell's
+    batch, beside its plain version's (by CUDA events: at the severe tail
+    one call is ~8,000 launches and ~0.8 s, too many activities for a
+    profiler session and too long for launch gaps to matter; not at the
+    adult batch, ~13 s a call), its bound (K3's: 8 float32 operations a
+    box distance), balls a window and resident blocks an SM."""
     from ventjax_torch.ops import ci_cuda
 
     by_k = {}
-    for K, tail_k, shape, lanes in TAIL_SHAPES:
-        args = engine_tail(severe_map(K, dev, shape, lanes),
-                           ci_geom(shape, geom), K, tail_k)
+    for name, args in tail_cases(geom, dev):
         N, rows = args[0][0].shape
         b = bound(N * (rows * 20 + args[1][0].shape[1] * 12),
                   8 * k3_box_distances(*args[:2], None, *args[4:]))
-        by_k[f"K{K}"] = {
+        bins, blocks = tail_window_of(args)
+        by_k[name] = {
             "ms": device_ms(lambda: ci_cuda.tail_balls(*args)),
-            "plain_ms": cuda_ms(lambda: ci_cuda.tail_balls_plain(*args),
-                                reps=3),
-            "library_ms": None, "bound_ms": b[0], "bound_by": b[1]}
+            "plain_ms": None if name == "adult16" else cuda_ms(
+                lambda: ci_cuda.tail_balls_plain(*args), reps=3),
+            "library_ms": None, "bound_ms": b[0], "bound_by": b[1],
+            "bins": bins, "resident_blocks": blocks}
     return by_k
 
 

@@ -401,6 +401,70 @@ def test_tail_balls_every_ball_and_windows(cuda, border, Kw):
     assert int(got.max()) > 1800 and int(got.min()) < 1000
 
 
+def _sentinels(n, dev):
+    return tuple(torch.full((1, n), tcp.SENT, dtype=torch.int32, device=dev)
+                 for _ in range(3))
+
+
+def _cat(*parts):
+    return tuple(torch.cat(p, 1).contiguous() for p in zip(*parts))
+
+
+@pytest.mark.parametrize("border", ["wrap", "pad"])
+@pytest.mark.parametrize("Kw", [40000, 70000])
+def test_tail_balls_late_rows_and_sentinel_blocks(cuda, border, Kw):
+    """Two blocks of sentinel rows ahead of rows failing up to ball ~2,100,
+    a block of padding rows (they meet the padding witnesses, slices of
+    one repeated point, at distance 0), then a block that mixes padding
+    rows and sentinels: K10 in windows of ~770 balls (16-bit counts) or
+    ~400 (32-bit, Kw >= 65,536), rows failing in the third window or
+    later, bit-equal to the sort path; the sentinel blocks' rows fail at
+    the first ball, as a row with no witness."""
+    geom = tcp.build_ci_pairwise_geometry((1.5, 1.5, 10.0), (128, 128, 16),
+                                          50, border)
+    d = _dense_ball(cuda)
+    cidx = torch.nonzero(d.reshape(-1)).reshape(-1)
+    pick = cidx[torch.randperm(len(cidx), generator=torch.Generator()
+                               .manual_seed(Kw + 1))[:400].to(cuda)]
+    rows = tuple((v[None]).to(torch.int32) for v in
+                 (pick // (128 * 16), (pick // 16) % 128, pick % 16))
+    padding = tuple(torch.full((1, 40), v, dtype=torch.int32, device=cuda)
+                    for v in (tcp.SENT, -tcp.SENT, tcp.SENT))
+    centers = _cat(_sentinels(64, cuda), rows, padding, _sentinels(40, cuda))
+    args = _tail_args(geom, centers, tcp.defect_coords(d, Kw)[0])
+    bins, blocks = ci_cuda.tail_launch(cuda, args[2].shape[0], Kw,
+                                       len(args[4]))
+    assert blocks >= ci_cuda.TAIL_BLOCKS and 3 * bins < args[2].shape[0]
+    got = _tail_bit_equal(args)
+    assert not bool(got[:, :64].any()) and not bool(got[:, -40:].any())
+    assert int(got[:, 64:464].max()) >= 2 * bins
+    assert bool((got[:, 464:504] > 0).all())
+
+
+@pytest.mark.parametrize("border", ["wrap", "pad"])
+def test_tail_balls_rows_that_never_fail(cuda, border):
+    """A volume all defect (72x72x12, 62,208 witnesses, 16-bit counts):
+    rows with the whole rmax ball inside never fail and take nb, after
+    every window; rows at the corners fail (some, where "wrap" aliases the
+    far side in); bit-equal to the sort path."""
+    H, W, D = 72, 72, 12
+    geom = tcp.build_ci_pairwise_geometry((1.5, 1.5, 10.0), (H, W, D), 50,
+                                          border)
+    d = torch.ones((1, H, W, D), device=cuda)
+    gen = torch.Generator().manual_seed(12)
+    inner = tuple(torch.randint(lo, hi, (1, 64), generator=gen,
+                                dtype=torch.int32).to(cuda)
+                  for lo, hi in ((34, 38), (34, 38), (5, 7)))
+    corner = tuple(torch.randint(0, 3, (1, 64), generator=gen,
+                                 dtype=torch.int32).to(cuda)
+                   for _ in range(3))
+    args = _tail_args(geom, _cat(inner, corner),
+                      tcp.defect_coords(d, H * W * D)[0])
+    nb = args[2].shape[0]
+    got = _tail_bit_equal(args)
+    assert bool((got[:, :64] == nb).all()) and int(got[:, 64:].min()) < nb
+
+
 @pytest.mark.parametrize("pad, tail", [(512, None), (8192, 8192)])
 def test_every_sync_of_the_pipeline_is_declared(cuda, pad, tail):
     """analyze_cohort at 16 x 128x128x16 runs to its end with the sync-debug

@@ -45,26 +45,49 @@
 // cumcount_j = #{ w : dmin2 <= r2[j] }, or nb where there is none; the
 // caller passes nb = j_cap, so that is the sort path's clamped index.
 // cumcount_j < T_j is the sort test sorted[T_j - 1] > r2[j], so the two
-// are bit-equal.  K10 keeps K3's block layout, distances and per-warp
-// culling, with the last tested ball r2[nb - 1] as the cut: a pair beyond
-// it moves no tested count.  A pair inside adds 1 to its row's
-// shared-memory histogram at its first ball, searchsorted(r2[:nb], d2,
-// left), by integer atomics; warp 0 then runs each row's prefix sum up to
-// its first failing ball.
+// are bit-equal.  K10 keeps K3's block layout (32 rows, one a lane, and 8
+// warps splitting the witnesses) and distances.  It walks the balls in
+// windows from ball 0 outward, all the witnesses once a window; a pair
+// whose distance lies in the window adds 1 to its row's shared-memory
+// histogram at its first ball by integer atomics; warp 0 then carries each
+// row's count through the window up to its first failing ball, and the
+// block leaves after the window in which its last open row fails.
+// - Culling, per warp and slice of 32 witnesses, one alias combo a lane: a
+//   combo is dropped where the offsets of the rows' and witnesses' boxes
+//   cannot meet the rmax box or the least distance they allow is past the
+//   window's last ball, and the slice is skipped where one combo holds
+//   every pair in the rmax box at or below the window's lower edge
+//   (those pairs were counted in an earlier window).  The box distances
+//   use the pair's rounded operations, and rounding is monotone, so no
+//   count moves.
+// - The first ball inside the window: a 1,024-bucket index over its r2
+//   (bucket(d) monotone in d) gives a start at or below it, and a short
+//   forward scan of r2 finds it.
+// - A slice of one witness repeated (the engine's padding witnesses,
+//   which its padding rows meet at distance 0) takes one pair a row,
+//   counted for all of them.
+// - Sentinel rows (at 2^20 or beyond on every axis; no witness reaches
+//   them) stay out of the boxes, and a block of sentinels only writes the
+//   first ball with T > 0 and returns.
 //
-// What bounds K10.  As K3: the pairs it must look at, with coordinates in
-// and one int64 a row out.  Its shared memory is the histogram, nb bins of
-// 32 rows, and it sets how many blocks an SM holds.  Counts are 16 bits,
-// two to a word, wherever Kw < 65,536 (a count never exceeds Kw, so a half
-// never carries into its neighbour): at Kw 8,192 (nb 875) a block takes
-// 63 KB, three to an SM, where 32-bit counts (119 KB) leave one.  On an
-// H100 80GB HBM3 at 700 W the severe cohort's tail (16 x 8,192 rows, 1,411
-// of them live, against 8,192 witnesses) took 1.41 ms with 16-bit counts
-// and 2.50 ms with 32-bit ones.  At Kw >= 65,536 counts are 32 bits.  Where the bins do not fit a block's opt-in
-// shared memory (32-bit counts past ~1,700 balls: the halo engine's slab
-// plus halo witnesses), the kernel walks the balls in windows, all the
-// witnesses once a window, carrying each row's count below the window, and
-// stops when its 32 rows are resolved.
+// What bounds K10.  Device memory traffic is small (coordinates in, an
+// int64 a row out); the work is the pairs inside each window's cut: a
+// distance over the live combos, the search and an atomic, a chain of
+// dependent shared-memory loads and integer work.  Latency is hidden by
+// resident warps, so the window is sized for residency, not for the
+// histogram (ops/ci_cuda.py:tail_window): the widest window at which 4
+// blocks (32 warps) share an SM, ~766 balls with 16-bit counts (~57 KB a
+// block) and ~406 with 32-bit ones, where one window of every ball (161
+// KB at the adult cell's 2,243 balls) held one block of 8 warps.  The
+// launch bound holds the registers at 64 for that residency.  Counts are
+// 16 bits, two to a word, wherever Kw < 65,536 (a count never exceeds Kw,
+// so a half never carries into its neighbour), else 32 bits.  On an H100
+// 80GB HBM3 at 700 W the adult cell's batch (16 x 32,768 rows against
+// 32,768 witnesses, 2,243 balls) took 136 ms in one window of 8 warps an
+// SM, 42 ms in windows of 766 at 32, 24 ms with the index, 20 ms with a
+// combo a lane and 11.7 ms with the one-point slices; before those last
+// two, timing variants put the pairs at ~90 % and the walk with its culls
+// at ~10 % (no hardware counters are readable there).
 //
 // Why float32: the distances must be the float32 values the exactness
 // proof checked; anything else may change the shell a pair falls in.
@@ -104,8 +127,9 @@ __device__ __forceinline__ int least_abs(int lo, int hi) {
   return lo > 0 ? lo : (hi < 0 ? -hi : 0);
 }
 
-// The box (min, max per axis) of the warp's values where ok.  Lane 0 of a
-// warp always holds a center and a witness, so no box is empty.
+// The box (min, max per axis) of the warp's values where ok.  Some lane of
+// the warp is always ok (lane 0 holds a center and a witness; K10 boxes
+// only blocks with a real row), so no box is empty.
 struct Box {
   int lo[3], hi[3];
 };
@@ -237,6 +261,10 @@ __global__ void __launch_bounds__(THREADS) head_counts_kernel(
 // 16-bit counts ball b's count is the low half of word b / 2 when b is
 // even and the high half when it is odd.
 constexpr int NARROW_KW = 65536;       // Kw below which 16-bit counts hold
+constexpr int TAIL_BLOCKS = 4;         // blocks an SM K10's window is sized for
+constexpr int BUCKETS = 1024;          // the first-ball search's index
+constexpr int SENT_MIN = 1 << 20;      // a center at or past this on every
+                                       // axis is a sentinel
 constexpr int MAX_DEVICES = 64;        // cards whose K10 opt-in is remembered
 
 template <bool WIDE>
@@ -245,11 +273,12 @@ __host__ __device__ __forceinline__ int hist_words(int bins) {
 }
 
 template <bool WIDE>
-__device__ __forceinline__ void hist_add(unsigned* h, int b, int l) {
+__device__ __forceinline__ void hist_add(unsigned* h, int b, int l,
+                                         unsigned n) {
   if (WIDE)
-    atomicAdd(&h[b * CW + l], 1u);
+    atomicAdd(&h[b * CW + l], n);
   else
-    atomicAdd(&h[(b >> 1) * CW + l], 1u << ((b & 1) << 4));
+    atomicAdd(&h[(b >> 1) * CW + l], n << ((b & 1) << 4));
 }
 
 template <bool WIDE>
@@ -258,16 +287,16 @@ __device__ __forceinline__ int hist_get(const unsigned* h, int b, int l) {
   return (int)((h[(b >> 1) * CW + l] >> ((b & 1) << 4)) & 0xffffu);
 }
 
-// Dynamic shared memory of a window of bins: the histogram, then its
-// r2 and T.
-template <bool WIDE>
-size_t tail_smem(int bins) {
-  return (size_t)hist_words<WIDE>(bins) * CW * sizeof(unsigned) +
-         (size_t)bins * (sizeof(float) + sizeof(int));
+// The bucket of a squared distance d >= base in the first-ball search's
+// index: rounding and truncation are monotone, so it never falls as d
+// grows.
+__device__ __forceinline__ int bucket(float d, float base, float inv) {
+  return min(BUCKETS - 1,
+             max(0, __float2int_rz(__fmul_rn(__fsub_rn(d, base), inv))));
 }
 
 template <int NC, bool WIDE>
-__global__ void __launch_bounds__(THREADS) tail_balls_kernel(
+__global__ void __launch_bounds__(THREADS, TAIL_BLOCKS) tail_balls_kernel(
     const int* __restrict__ ci, const int* __restrict__ cj,
     const int* __restrict__ ck, const int* __restrict__ wi,
     const int* __restrict__ wj, const int* __restrict__ wk,
@@ -278,6 +307,7 @@ __global__ void __launch_bounds__(THREADS) tail_balls_kernel(
   unsigned* hist = tail_shared;
   float* s_r2 = (float*)(hist + hist_words<WIDE>(wbins) * CW);
   int* s_T = (int*)(s_r2 + wbins);
+  unsigned short* s_start = (unsigned short*)(s_T + wbins);
   __shared__ int s_open;
 
   const int n = blockIdx.y;
@@ -291,12 +321,36 @@ __global__ void __launch_bounds__(THREADS) tail_balls_kernel(
   const int vi = has ? ci[cbase + row] : 0;
   const int vj = has ? cj[cbase + row] : 0;
   const int vk = has ? ck[cbase + row] : 0;
-  const Box cbox = warp_box(vi, vj, vk, has);
+  // Every warp holds the same 32 rows, so `real` and the block's exit
+  // below agree in every warp.
+  const bool real = has && !(vi >= SENT_MIN && vj >= SENT_MIN &&
+                             vk >= SENT_MIN);
 
   // Warp 0's lane l: its row's count below the window, and its result.
   int below = 0;
   long long res = nb;
   bool open = has;
+
+  if (!__any_sync(FULL, real)) {
+    // Sentinels only: every count is 0, so each row fails at the first
+    // ball with T > 0.
+    if (w == 0 && has) {
+      int j = 0;
+      while (j < nb && T[j] <= 0) ++j;
+      out[cbase + row] = j;
+    }
+    return;
+  }
+  const Box cbox = warp_box(vi, vj, vk, real);
+  // Lane k < NC holds the shift of alias combo k for the slices' tests.
+  int sh[3] = {0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < NC; ++k)
+    if (l == k) {
+      sh[0] = cb.p[k];
+      sh[1] = cb.q[k];
+      sh[2] = cb.s[k];
+    }
 
   for (int b0 = 0; b0 < nb; b0 += wbins) {
     const int nbw = min(wbins, nb - b0);
@@ -310,8 +364,23 @@ __global__ void __launch_bounds__(THREADS) tail_balls_kernel(
     // A pair counts in this window iff lo2 < dmin <= hi2.
     const float lo2 = b0 > 0 ? r2[b0 - 1] : -INFINITY;
     const float hi2 = s_r2[nbw - 1];
-    int top = 1;                      // the largest power of two <= nbw
-    while (2 * top <= nbw) top *= 2;
+    // The first-ball search's index: d falls in bucket
+    // bucket(d) = min(BUCKETS - 1, (int)((d - base) * inv)), monotone in d,
+    // and s_start[b] counts the window's balls in buckets below b, all of
+    // them below any d in bucket b: a search starts there.
+    const float base = b0 > 0 ? lo2 : 0.f;
+    const float span = __fsub_rn(hi2, base);
+    const float inv = span > 0.f ? __fdiv_rn((float)BUCKETS, span) : 0.f;
+    for (int b = t; b < BUCKETS; b += THREADS) {
+      int lo = 0, hi = nbw;           // the first ball of bucket >= b
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (bucket(s_r2[mid], base, inv) < b) lo = mid + 1;
+        else hi = mid;
+      }
+      s_start[b] = (unsigned short)lo;
+    }
+    __syncthreads();
 
     // K3's witness walk: warp w takes witnesses [w0, w0 + 32) for w0 =
     // 32 w, 32 (w + WARPS), ...; the next slice loads while this one runs.
@@ -332,25 +401,37 @@ __global__ void __launch_bounds__(THREADS) tail_balls_kernel(
         c = wk[wbase + w0 + step + l];
       }
       const Box wbox = warp_box(xa, xb, xc, l < nw);
-      unsigned live = 0u;
-#pragma unroll
-      for (int k = 0; k < NC; ++k) {
-        const int sh[3] = {cb.p[k], cb.q[k], cb.s[k]};
-        int m[3];
-        bool in = true;
+      // Lane k < NC tests combo k: it is live where some pair of the boxes
+      // may lie in the window (its offsets meet the rmax box and the least
+      // distance is within hi2).  The slice adds nothing where one combo
+      // holds every pair inside the rmax box at most lo2 away (dmin is
+      // then <= lo2).
+      bool lane_live = false, lane_inner = false;
+      if (l < NC) {
+        int m[3], f[3];
+        bool in = true, all_in = true;
 #pragma unroll
         for (int x = 0; x < 3; ++x) {
           const int lo = wbox.lo[x] - cbox.hi[x] + sh[x];
           const int hi = wbox.hi[x] - cbox.lo[x] + sh[x];
           in = in && lo <= rmax && hi >= -rmax;
+          all_in = all_in && lo >= -rmax && hi <= rmax;
           m[x] = least_abs(lo, hi);
+          f[x] = max(-lo, hi);
         }
-        if (in && dist2(m[0], m[1], m[2], s0, s1, s2) <= hi2)
-          live |= 1u << k;
+        lane_live = in && dist2(m[0], m[1], m[2], s0, s1, s2) <= hi2;
+        lane_inner = all_in && dist2(f[0], f[1], f[2], s0, s1, s2) <= lo2;
       }
-      if (live == 0u) continue;
+      const unsigned live = __ballot_sync(FULL, lane_live);
+      if (live == 0u || __any_sync(FULL, lane_inner)) continue;
 
-      for (int x = 0; x < nw; ++x) {
+      // A slice of one witness repeated (the engine's padding witnesses)
+      // puts a row's every pair at one distance: its first pair counts nw.
+      const bool point = wbox.lo[0] == wbox.hi[0] &&
+                         wbox.lo[1] == wbox.hi[1] && wbox.lo[2] == wbox.hi[2];
+      const int pairs = point ? 1 : nw;
+      const unsigned weight = point ? (unsigned)nw : 1u;
+      for (int x = 0; x < pairs; ++x) {
         const int oi0 = __shfl_sync(FULL, xa, x) - vi;
         const int oj0 = __shfl_sync(FULL, xb, x) - vj;
         const int ok0 = __shfl_sync(FULL, xc, x) - vk;
@@ -364,12 +445,12 @@ __global__ void __launch_bounds__(THREADS) tail_balls_kernel(
           if (abs(oi) > rmax || abs(oj) > rmax || abs(ok) > rmax) continue;
           dmin = fminf(dmin, dist2(oi, oj, ok, s0, s1, s2));
         }
-        if (has && dmin > lo2 && dmin <= hi2) {
-          // the window's first ball j with dmin <= r2[j]
-          int j = 0;
-          for (int s = top; s > 0; s >>= 1)
-            if (j + s <= nbw && s_r2[j + s - 1] < dmin) j += s;
-          hist_add<WIDE>(hist, j, l);
+        if (real && dmin > lo2 && dmin <= hi2) {
+          // the window's first ball j with dmin <= r2[j]; dmin <= hi2
+          // ends the scan by nbw - 1
+          int j = s_start[bucket(dmin, base, inv)];
+          while (s_r2[j] < dmin) ++j;
+          hist_add<WIDE>(hist, j, l, weight);
         }
       }
     }
@@ -394,38 +475,43 @@ __global__ void __launch_bounds__(THREADS) tail_balls_kernel(
   if (w == 0 && has) out[cbase + row] = res;
 }
 
-// Launch K10 with nb bins in windows of the most that fit the device's
-// opt-in shared memory, opting in once per card and instance.
+// The K10 instance for (ncombo, wide), opted in once per card to the most
+// dynamic shared memory a block may take; null on an error.
 template <int NC, bool WIDE>
-int launch_tail(const int* ci, const int* cj, const int* ck, const int* wi,
-                const int* wj, const int* wk, const float* r2, const int* T,
-                long long* out, int N, int R, int Kw, int nb, Combos cb,
-                float s0, float s1, float s2, int rmax, cudaStream_t st) {
-  static int dyn_max[MAX_DEVICES] = {};
+const void* opted_in(cudaError_t* err) {
+  static int done[MAX_DEVICES] = {};
   int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  int cap = dev < MAX_DEVICES ? dyn_max[dev] : 0;
-  if (cap == 0) {
-    int optin = 0;
-    err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return (int)err;
-    cap = optin - 256;                // room for the static s_open
-    err = cudaFuncSetAttribute(tail_balls_kernel<NC, WIDE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               cap);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < MAX_DEVICES) dyn_max[dev] = cap;
-  }
-  int wbins = nb > 0 ? nb : 1;
-  while (tail_smem<WIDE>(wbins) > (size_t)cap) wbins = wbins * 7 / 8;
-  while (tail_smem<WIDE>(wbins + 1) <= (size_t)cap && wbins < nb) ++wbins;
-  const dim3 grid((R + CW - 1) / CW, N);
-  tail_balls_kernel<NC, WIDE><<<grid, THREADS, tail_smem<WIDE>(wbins), st>>>(
-      ci, cj, ck, wi, wj, wk, r2, T, out, R, Kw, nb, wbins, cb, s0, s1, s2,
-      rmax);
-  return (int)cudaGetLastError();
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return nullptr;
+  const void* fn = (const void*)tail_balls_kernel<NC, WIDE>;
+  if (dev < MAX_DEVICES && done[dev]) return fn;
+  int optin = 0;
+  cudaFuncAttributes attr;
+  *err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                dev);
+  if (*err == cudaSuccess) *err = cudaFuncGetAttributes(&attr, fn);
+  if (*err == cudaSuccess)
+    *err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                optin - (int)attr.sharedSizeBytes);
+  if (*err != cudaSuccess) return nullptr;
+  if (dev < MAX_DEVICES) done[dev] = 1;
+  return fn;
+}
+
+// (ncombo, wide) -> the opted-in instance, or null with *err set.
+const void* tail_instance(int ncombo, bool wide, cudaError_t* err) {
+  if (ncombo == 1)
+    return wide ? opted_in<1, true>(err) : opted_in<1, false>(err);
+  return wide ? opted_in<MAXCOMBO, true>(err) : opted_in<MAXCOMBO, false>(err);
+}
+
+// Dynamic shared memory of a window of bins: the histogram, then its
+// r2 and T, then the search's index.
+size_t tail_smem(int bins, bool wide) {
+  const int words = wide ? hist_words<true>(bins) : hist_words<false>(bins);
+  return (size_t)words * CW * sizeof(unsigned) +
+         (size_t)bins * (sizeof(float) + sizeof(int)) +
+         BUCKETS * sizeof(unsigned short);
 }
 
 }  // namespace
@@ -459,10 +545,10 @@ extern "C" int vj_head_counts(const int* ci, const int* cj, const int* ck,
 extern "C" int vj_tail_balls(const int* ci, const int* cj, const int* ck,
                              const int* wi, const int* wj, const int* wk,
                              const float* r2, const int* T, long long* out,
-                             int N, int R, int Kw, int nb, const int* combos,
-                             int ncombo, float s0, float s1, float s2,
-                             int rmax, void* stream) {
-  if (N < 1 || N > 65535 || R < 1 || Kw < 1 || nb < 0 ||
+                             int N, int R, int Kw, int nb, int wbins,
+                             const int* combos, int ncombo, float s0,
+                             float s1, float s2, int rmax, void* stream) {
+  if (N < 1 || N > 65535 || R < 1 || Kw < 1 || nb < 0 || wbins < 1 ||
       (ncombo != 1 && ncombo != MAXCOMBO))
     return (int)cudaErrorInvalidValue;
   Combos cb = {};
@@ -471,18 +557,51 @@ extern "C" int vj_tail_balls(const int* ci, const int* cj, const int* ck,
     cb.q[k] = combos[3 * k + 1];
     cb.s[k] = combos[3 * k + 2];
   }
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool wide = Kw >= NARROW_KW;
-  if (ncombo == 1)
-    return wide ? launch_tail<1, true>(ci, cj, ck, wi, wj, wk, r2, T, out, N,
-                                       R, Kw, nb, cb, s0, s1, s2, rmax, st)
-                : launch_tail<1, false>(ci, cj, ck, wi, wj, wk, r2, T, out,
-                                        N, R, Kw, nb, cb, s0, s1, s2, rmax,
-                                        st);
-  return wide ? launch_tail<MAXCOMBO, true>(ci, cj, ck, wi, wj, wk, r2, T,
-                                            out, N, R, Kw, nb, cb, s0, s1,
-                                            s2, rmax, st)
-              : launch_tail<MAXCOMBO, false>(ci, cj, ck, wi, wj, wk, r2, T,
-                                             out, N, R, Kw, nb, cb, s0, s1,
-                                             s2, rmax, st);
+  cudaError_t err;
+  const void* fn = tail_instance(ncombo, Kw >= NARROW_KW, &err);
+  if (!fn) return (int)err;
+  void* args[] = {&ci, &cj, &ck, &wi, &wj, &wk, &r2, &T, &out, &R, &Kw,
+                  &nb, &wbins, &cb, &s0, &s1, &s2, &rmax};
+  err = cudaLaunchKernel(fn, dim3((R + CW - 1) / CW, N), dim3(THREADS), args,
+                         tail_smem(wbins, Kw >= NARROW_KW),
+                         (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// What K10's window is sized from, for the card in use and the instance of
+// (ncombo, wide): out[0..6] = shared memory an SM, opt-in shared memory a
+// block, shared memory reserved a block, registers an SM, threads an SM,
+// the kernel's registers a thread and its static shared memory.
+extern "C" int vj_tail_limits(int ncombo, int wide, int* out) {
+  if (ncombo != 1 && ncombo != MAXCOMBO) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  const void* fn = tail_instance(ncombo, wide != 0, &err);
+  if (!fn) return (int)err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  const cudaDeviceAttr attrs[5] = {
+      cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+      cudaDevAttrMaxSharedMemoryPerBlockOptin,
+      cudaDevAttrReservedSharedMemoryPerBlock,
+      cudaDevAttrMaxRegistersPerMultiprocessor,
+      cudaDevAttrMaxThreadsPerMultiProcessor};
+  for (int i = 0; i < 5 && err == cudaSuccess; ++i)
+    err = cudaDeviceGetAttribute(&out[i], attrs[i], dev);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, fn);
+  if (err != cudaSuccess) return (int)err;
+  out[5] = fa.numRegs;
+  out[6] = (int)fa.sharedSizeBytes;
+  return 0;
+}
+
+// The occupancy API's resident blocks an SM for K10 at a window of bins.
+extern "C" int vj_tail_resident(int ncombo, int wide, int bins, int* blocks) {
+  if ((ncombo != 1 && ncombo != MAXCOMBO) || bins < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  const void* fn = tail_instance(ncombo, wide != 0, &err);
+  if (!fn) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fn, THREADS, tail_smem(bins, wide != 0));
 }

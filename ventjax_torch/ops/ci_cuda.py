@@ -22,7 +22,7 @@ Counts and ball indices are exact integers: the kernels
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +33,16 @@ from ventjax_torch.ops._launch import check, raise_on, route, stream
 MAX_NS = 128
 MAX_COMBOS = 9
 PLAIN_ROWS = 256   # centers per block of the plain versions' [N, rows, Kw]
+# K10's block (csrc/ci_head.cu): 32 rows, one a lane, over 8 warps; the
+# blocks an SM its window of balls is sized for; the witness count from
+# which its counts take 32 bits, not 16; the buckets of its first-ball
+# search's index; the unit shared memory is allocated in.
+TAIL_WARPS = 8
+TAIL_THREADS = 32 * TAIL_WARPS
+TAIL_BLOCKS = 4
+NARROW_KW = 65536
+TAIL_BUCKETS = 1024
+SMEM_UNIT = 128
 # The CI kernels' launches and the rows they ran, since each count was last
 # set to 0: K3's launches; the [N, K] centre rows the K3 wrapper was entered
 # with (either route), and its (centre, witness, alias combo) triples,
@@ -40,10 +50,12 @@ PLAIN_ROWS = 256   # centers per block of the plain versions' [N, rows, Kw]
 # [N, rows] tail rows the K10 wrapper was entered with (either route).
 # That last count keeps the name of the distance pass that ran the tail
 # before K10 (``alias_min_d2``), because the benchmark's ``ci_row_use``
-# reads it by that name.  Python ints: counting reads nothing from the
-# device.
+# reads it by that name.  Last, each K10 launch's resident warps an SM (the
+# occupancy API's blocks at its shared memory, x TAIL_WARPS), summed.
+# Python ints: counting reads nothing from the device.
 LAUNCHES = {"head_counts": 0, "head_counts_rows": 0, "head_counts_triples": 0,
-            "alias_min_d2_rows": 0, "tail_balls": 0}
+            "alias_min_d2_rows": 0, "tail_balls": 0,
+            "tail_balls_resident_warps": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,8 +69,12 @@ def _typed(lib):
             [_P] * 8 + [_I] * 4 + [_P, _I] + [_F] * 3 + [_I, _P])
         lib.vj_head_counts.restype = _I
         lib.vj_tail_balls.argtypes = (
-            [_P] * 9 + [_I] * 4 + [_P, _I] + [_F] * 3 + [_I, _P])
+            [_P] * 9 + [_I] * 5 + [_P, _I] + [_F] * 3 + [_I, _P])
         lib.vj_tail_balls.restype = _I
+        lib.vj_tail_limits.argtypes = [_I, _I, _P]
+        lib.vj_tail_limits.restype = _I
+        lib.vj_tail_resident.argtypes = [_I, _I, _I, _P]
+        lib.vj_tail_resident.restype = _I
         lib._vj_typed = True
     return lib
 
@@ -199,6 +215,69 @@ def tail_balls_plain(centers, witnesses, r2, T, combos, scale, rmax):
     return out
 
 
+class TailLimits(NamedTuple):
+    """What K10's window is sized from: the card's shared memory (bytes an
+    SM, the most a block may opt in to, reserved a block), its registers
+    and threads an SM, and the kernel's registers a thread and static
+    shared memory (``vj_tail_limits``)."""
+    smem_sm: int
+    smem_block: int
+    smem_reserved: int
+    regs_sm: int
+    threads_sm: int
+    regs: int
+    smem_static: int
+
+
+def tail_smem(bins: int, wide: bool) -> int:
+    """K10's dynamic shared memory at a window of ``bins`` balls: 32 rows'
+    counts (16 bits, two to a word, unless ``wide``), the window's r2 and
+    T, and the search's index (16 bits a bucket)."""
+    words = bins if wide else (bins + 1) // 2
+    return words * 32 * 4 + bins * 8 + TAIL_BUCKETS * 2
+
+
+def tail_window(nb: int, wide: bool, lim: TailLimits) -> Tuple[int, int]:
+    """(balls a window, blocks an SM) for K10 over ``nb`` balls: the widest
+    window at which TAIL_BLOCKS blocks share an SM, or as many as the
+    registers and threads let share one where that is fewer; all nb balls
+    where they fit in it.  Each block takes its shared memory rounded up to
+    SMEM_UNIT plus the card's reserve."""
+    warp_regs = -(-lim.regs * 32 // 256) * 256
+    blocks = max(1, min(TAIL_BLOCKS,
+                        lim.regs_sm // (warp_regs * TAIL_WARPS),
+                        lim.threads_sm // TAIL_THREADS))
+    share = (lim.smem_sm // blocks - lim.smem_reserved) // SMEM_UNIT
+    room = min(share * SMEM_UNIT, lim.smem_block) - lim.smem_static
+    bins = 1
+    while bins < nb and tail_smem(bins + 1, wide) <= room:
+        bins += 1
+    return bins, blocks
+
+
+_TAIL_WINDOWS = {}
+
+
+def tail_launch(dev, nb: int, Kw: int, ncombo: int) -> Tuple[int, int]:
+    """(balls a window, the occupancy API's resident blocks an SM) of K10
+    on card ``dev`` over nb balls and Kw witnesses, worked out once per
+    (card, nb, counts, combos)."""
+    wide = Kw >= NARROW_KW
+    key = (dev.index, nb, wide, ncombo)
+    if key not in _TAIL_WINDOWS:
+        lib = _lib()
+        lim = (ctypes.c_int * len(TailLimits._fields))()
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            raise_on(lib.vj_tail_limits(ncombo, int(wide), lim),
+                     "tail_balls")
+            bins, _ = tail_window(nb, wide, TailLimits(*lim))
+            raise_on(lib.vj_tail_resident(ncombo, int(wide), bins,
+                                          ctypes.byref(blocks)), "tail_balls")
+        _TAIL_WINDOWS[key] = (bins, blocks.value)
+    return _TAIL_WINDOWS[key]
+
+
 def tail_balls(
     centers: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
     witnesses: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
@@ -213,7 +292,12 @@ def tail_balls(
 
     centers: three [N, rows] int32 coordinate tensors; witnesses: three
     [N, Kw] int32; r2 [nb] float32 ascending, T [nb] int32 nondecreasing
-    (the geometry's tables up to its j_cap).  Sentinel rows are allowed.
+    (the geometry's tables up to its j_cap).  A center at 2^20 or beyond
+    on every axis is a sentinel: the kernel counts no witness for it, so
+    every witness must lie below 2^19 on some axis (the engine's witnesses
+    are voxels, or padding at (2^20, -2^20, 2^20)).  The kernel walks the
+    balls in windows (``tail_window``) and each block of 32 rows stops
+    after the window in which its last open row fails.
     Counts N x rows in ``LAUNCHES["alias_min_d2_rows"]`` on either route.
     """
     if len(combos) not in (1, MAX_COMBOS):
@@ -248,11 +332,13 @@ def tail_balls(
     flat = [int(v) for pqs in combos for v in pqs]
     combo_arr = (ctypes.c_int * len(flat))(*flat)
     with torch.cuda.device(dev):
+        bins, blocks = tail_launch(dev, nb, Kw, len(combos))
         rc = lib.vj_tail_balls(
             *(t.data_ptr() for t in (*centers, *witnesses)),
-            r2.data_ptr(), T.data_ptr(), out.data_ptr(), N, R, Kw, nb,
+            r2.data_ptr(), T.data_ptr(), out.data_ptr(), N, R, Kw, nb, bins,
             ctypes.cast(combo_arr, ctypes.c_void_p), len(combos),
             *(float(s) for s in scale), int(rmax), stream(dev))
     raise_on(rc, "tail_balls")
     LAUNCHES["tail_balls"] += 1
+    LAUNCHES["tail_balls_resident_warps"] += blocks * TAIL_WARPS
     return out
