@@ -18,6 +18,9 @@ window under torch.profiler for the per-layer metrics -> the comparison
 with the plain reference (``compare.py``) on a sample of the window's calls
 -> one JSON line on standard output.
 
+A cell whose ``chips`` is more than 1 runs over that many ranks, one
+process a card (``ranks.py``).
+
 It measures ``ventjax_torch`` only, and never on the CPU: without a card it
 exits with 2 and prints no result.
 """
@@ -157,13 +160,12 @@ class Cell:
             raise ValueError("a mix's pool holds two or more whole calls")
         hp, mask = make_studies(pool, self.shape, self.vox, seed, self.dev,
                                 **t["phantom"])
-        self.hp = hp.cpu().numpy().reshape(-1, self.bs, *self.shape)
-        self.mask = mask.cpu().numpy().reshape(-1, self.bs, *self.shape)
+        self.hp, self.mask = self.keep(hp, mask)
         del hp, mask
         fields = {k: (tuple(v) if isinstance(v, list) else v)
                   for k, v in self.pipe.items()}
         V = int(np.prod(self.shape))
-        most = int((self.mask > 0).reshape(-1, V).sum(1).max())
+        most = self.largest_lung()
         base = DEFAULT_CONFIG.replace(
             n4_mask_pad=min(V, -(-most // N4_PAD_STEP) * N4_PAD_STEP),
             **fields)
@@ -181,13 +183,12 @@ class Cell:
             while True:
                 out = self.call(b)[0]
                 self.outputs[b], made_at[b] = out, pads
-                m = out["metrics"]
-                if bool(m["n4_overflow"].any()):
+                n4_ovf, ci_ovf = self.overflow(out)
+                if n4_ovf:
                     raise RuntimeError("the N4 pad overflowed")
-                if not bool(m["ci_overflow"].any()):
+                if not ci_ovf:
                     break
-                n_def = int((out["defect"] != 0).reshape(self.bs, -1)
-                            .sum(1).max())
+                n_def = self.largest_defect(out)
                 if pads[0] < top:
                     need = 1 << int(math.ceil(math.log2(max(n_def, 1))))
                     pads = (min(top, max(2 * pads[0], need)), False)
@@ -199,6 +200,26 @@ class Cell:
         for b, at in made_at.items():
             if at != pads:
                 self.outputs[b] = self.call(b)[0]
+
+    def keep(self, hp, mask):
+        """The pool as this process keeps it: host arrays [calls, lanes,
+        H, W, D]."""
+        return (hp.cpu().numpy().reshape(-1, self.bs, *self.shape),
+                mask.cpu().numpy().reshape(-1, self.bs, *self.shape))
+
+    def largest_lung(self) -> int:
+        """The largest lung of a study in the pool, in voxels."""
+        V = int(np.prod(self.shape))
+        return int((self.mask > 0).reshape(-1, V).sum(1).max())
+
+    def overflow(self, out):
+        """(N4 pad overflowed, CI pad overflowed) in one call's batch."""
+        m = out["metrics"]
+        return bool(m["n4_overflow"].any()), bool(m["ci_overflow"].any())
+
+    def largest_defect(self, out) -> int:
+        """The largest defect voxel count of a study in one call's batch."""
+        return int((out["defect"] != 0).reshape(self.bs, -1).sum(1).max())
 
     def _set_pads(self, base, ci_pad: int, tail_full: bool) -> None:
         from ventjax_torch.pipeline import build_geometry
@@ -312,6 +333,22 @@ def traced_window(cell: Cell, order: List[int], start: int, root: Path,
                        f"sessions: {seen}")
 
 
+def build_libraries() -> None:
+    """Build the port's CUDA libraries (reused where a build exists)."""
+    from ventjax_torch import _build
+    from ventjax_torch.utils.doctor import LIBRARIES
+    with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        for f in [pool.submit(_build.build, n) for n in LIBRARIES]:
+            f.result()
+
+
+def load_libraries() -> None:
+    from ventjax_torch import _build
+    from ventjax_torch.utils.doctor import LIBRARIES
+    for n in LIBRARIES:
+        _build.load(n)
+
+
 def card_info(torch, chips: int) -> Dict:
     import subprocess
     limit = None
@@ -370,16 +407,14 @@ def measure(args: argparse.Namespace, t_proc: float, device=None,
                   file=sys.stderr)
             return 2
         device = "cuda:0"
+    if chips > 1:
+        from portbench import ranks
+        return ranks.measure(args, spec, t_proc, device, root, breaker)
     on_card = torch.device(device).type == "cuda"
     torch.set_num_threads(2)
     if on_card:
-        from ventjax_torch import _build
-        from ventjax_torch.utils.doctor import LIBRARIES
-        with concurrent.futures.ThreadPoolExecutor(len(LIBRARIES)) as pool:
-            for f in [pool.submit(_build.build, n) for n in LIBRARIES]:
-                f.result()
-        for n in LIBRARIES:
-            _build.load(n)
+        build_libraries()
+        load_libraries()
 
     cell = Cell(spec, args.seed, device)
     log(f"set up: N4 pad {cell.cfg.n4_mask_pad}, CI pad "

@@ -33,7 +33,9 @@ def test_adult_cell_loads(spec):
     assert (t["studies_per_call"], t["pool_studies"], t["sample_calls"]) \
         == (16, 32, 2)
     names = {m["name"] for m in harness.cell_metrics(spec.bench, CELL, True)}
-    assert names == {m["name"] for m in spec.bench["per_layer"]}
+    # every per-layer metric but the collectives', which one card has not
+    assert names == {m["name"] for m in spec.bench["per_layer"]
+                     if m["layer"] != "collectives"}
     assert "head_box_use" in names
 
 

@@ -44,8 +44,10 @@ def test_benchmark_json_keys_and_names():
 def test_cells_configs_and_mixes_resolve():
     configs = {c["name"]: c for c in BENCH["configs"]}
     pairs = set()
+    four = [w for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4)
     for w in BENCH["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
         spec = harness.load_cell(ROOT, w["name"])
